@@ -1,4 +1,4 @@
-"""Carry ``afan``'s Faster R-CNN weights into the port.
+"""Carry ``afan``'s Faster R-CNN and DeepLab weights into the port.
 
 :func:`frcnn_variables_to_state_dict` takes the flax ``{"params",
 "batch_stats"}`` tree of ``afan.models.frcnn.FasterRCNN`` as nested dicts of
@@ -84,5 +84,60 @@ def frcnn_variables_to_state_dict(variables: Mapping[str, Any]
                 out[f"{mod}.num_batches_tracked"] = np.zeros((), np.int64)
     for k in [k for k in out if k.startswith("features.layer4.")]:
         out["detection.hidden." + k[len("features.layer4."):]] = out[k]
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
+    return {k: torch.from_numpy(np.array(v))
+            for k, v in out.items()}
+
+
+_CONV_BN = {"conv": 0, "bn": 1}
+
+
+def _deeplab_head_module(path: Tuple[str, ...], plus: bool) -> str:
+    """flax DeepLab classifier module path (under ``classifier``) →
+    reference module name (`Segmentation/network/_deeplab.py`)."""
+    aspp = "classifier.aspp" if plus else "classifier.classifier.0"
+    # the 3x3 conv, its bn and the logits conv of the final classifier
+    final = ((0, 1, 3) if plus else (1, 2, 4))
+    final = [f"classifier.classifier.{i}" for i in final]
+    if path[0] == "project":
+        return f"classifier.project.{_CONV_BN[path[1]]}"
+    if path[0] == "aspp":
+        if path[1] == "pool":
+            return f"{aspp}.convs.4.{_CONV_BN[path[2]] + 1}"
+        if path[1] == "project":
+            return f"{aspp}.project.{_CONV_BN[path[2]]}"
+        return f"{aspp}.convs.{int(path[1][1:])}.{_CONV_BN[path[2]]}"
+    if path[0] == "classifier":
+        if path[1] == "logits":
+            return final[2]
+        return final[_CONV_BN[path[2]]]
+    raise KeyError(f"no port destination for classifier/{'/'.join(path)}")
+
+
+def deeplab_variables_to_state_dict(variables: Mapping[str, Any],
+                                    plus: bool = True
+                                    ) -> Dict[str, torch.Tensor]:
+    """``afan``'s DeepLab ``{"params", "batch_stats"}`` (nested dicts of
+    numpy arrays) → the port's :class:`afan_torch.models.deeplab.DeepLab`
+    ``state_dict``: the inverse of
+    ``afan/interop/torch_zoo.py:convert_torch_deeplab``. Conv kernels HWIO →
+    OIHW; BatchNorm ``scale``, ``bias``, ``mean``, ``var`` → ``weight``,
+    ``bias``, ``running_mean``, ``running_var``, with
+    ``num_batches_tracked``, so the result loads with
+    ``load_state_dict(strict=True)``."""
+    out: Dict[str, np.ndarray] = {}
+    for coll in ("params", "batch_stats"):
+        for path, v in _leaves(variables.get(coll, {})):
+            leaf = path[-1]
+            if path[0] == "backbone":
+                mod = "backbone." + _torso_module(path[1:-1])
+            elif path[0] == "classifier":
+                mod = _deeplab_head_module(path[1:-1], plus)
+            else:
+                raise KeyError(f"no port destination for {'/'.join(path)}")
+            name = ("weight" if leaf in ("kernel", "scale")
+                    else _BN_LEAF[leaf])
+            out[f"{mod}.{name}"] = _convert(v, leaf)
+            if coll == "batch_stats" and leaf == "mean":
+                out[f"{mod}.num_batches_tracked"] = np.zeros((), np.int64)
+    return {k: torch.from_numpy(np.array(v))
             for k, v in out.items()}

@@ -3,8 +3,8 @@
 The CUDA source replaces the Pallas TPU kernel
 ``afan/ops/kernels/nms_kernel.py:_nms_kernel``; its header says what bounds
 it and how it is laid out. It is compiled with ``nvcc`` for ``sm_90a`` into a
-plain C-ABI shared library at first use, from the sources in this package,
-and bound with ``ctypes``.
+plain C-ABI shared library at first use, from the sources in this package
+(:mod:`.build`), and bound with ``ctypes``.
 
 :func:`nms_sorted_mask` takes score-sorted boxes ``(G, N, 4)`` and a validity
 mask ``(G, N)`` and returns the keep mask ``(G, N)``. On a CPU tensor it runs
@@ -14,22 +14,13 @@ on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from typing import Optional
 
 import torch
 
-_CSRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc")
-_SOURCES = ("nms.cu",)
-BUILD_DIR = os.path.abspath(
-    os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
-                 "kernels"))
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+from .build import build
+
 MAX_WORDS = 6144           # the scan's removed-bit array: 48 KB of shared memory
 MAX_GROUPS = 65535         # grid.z of the mask pass
 
@@ -40,43 +31,11 @@ _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the NMS kernel is built with the CUDA "
-                       "toolkit at first use")
-
-
-def build() -> str:
-    """Compile ``csrc/nms.cu`` into ``BUILD_DIR`` unless a library built from
-    the same sources and flags is there; return the library's path."""
-    paths = [os.path.abspath(os.path.join(_CSRC, s)) for s in _SOURCES]
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
-        with open(p, "rb") as f:
-            h.update(f.read())
-    out = os.path.join(BUILD_DIR, f"libafan_nms-{h.hexdigest()[:12]}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
 def load_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = ctypes.CDLL(build("nms.cu"))
             lib.afan_nms_words.restype = ctypes.c_int
             lib.afan_nms_words.argtypes = [ctypes.c_int]
             lib.afan_nms_sorted_mask.restype = ctypes.c_int

@@ -6,7 +6,8 @@ Run from the repository root, with one card and no arguments:
 
 Phases (any failure exits non-zero):
   1. the device: name, power limit, TF32 settings;
-  2. build the hand-written CUDA kernels from afan_torch/csrc (nvcc);
+  2. build the hand-written CUDA kernels from afan_torch/csrc, one nvcc per
+     source, all at once;
   3. hold the greedy-NMS kernel against its plain PyTorch version on the
      card: the reference's golden fixture, uniform and clustered boxes,
      invalid slots, plus_one off, a batched call — keep masks equal;
@@ -17,30 +18,58 @@ Phases (any failure exits non-zero):
   5. hold the post-backbone path with the kernel against the same path with
      the plain NMS: proposals and keep masks identical;
   6. time the detect call, the kernel and its plain version with CUDA
-     events, and the peak memory.
+     events, and the peak memory;
+  7. hold the upsample + CE forward and backward kernels against their
+     plain version on six geometries (city768, city512, voc513 with odd H,
+     two focal cases, tiny32): sums within 1e-5, gradient within 1.1e-5
+     (max abs error over max abs value);
+  8. train the A-FAN DeepLabv3+ ResNet-50 at full width through
+     ``afan_torch.cli.train_segment.main`` (Cityscapes final recipe: OS 16,
+     19 classes, crop 768, batch 4, SE tap 2, SD concat, mix_sd, synthetic
+     data, seeded random weights) for a few iterations and one validation:
+     finite losses, a checkpoint, and the kernels' launch counts;
+  9. one A-FAN step with the kernels against one with the plain op, from
+     the same weights, batch and dropout masks (cuDNN deterministic, no
+     TF32): losses within 1e-4, logits-conv gradient within 1e-4;
+ 10. time the A-FAN and base steps and their peak memory, profile where
+     the A-FAN step's device time goes, and time each kernel, its plain
+     version and the library composition at the step's shapes.
 
-The line before the last lists each kernel with its launches on the main
+The line before the last lists each kernel with its launches on its main
 path, its largest disagreement with the plain version, its time, the plain
-version's time and its bound; the last line is the device summary.
+version's time, its bound and the library's time; the last line is the
+device summary.
 """
 import argparse
 import asyncio
 import contextlib
+import copy
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from afan_torch.cli import train_segment
 from afan_torch.cli.infer_detect import build_state, preprocess_frame
 from afan_torch.cli.serve_websocket import FrameBatcher
+from afan_torch.models.deeplab import build_model
+from afan_torch.models.deeplab.modeling import segmentation_param_groups
 from afan_torch.models.frcnn.rpn import generate_proposals
 from afan_torch.ops import nms as tnms
+from afan_torch.ops import resize_ce as trce
+from afan_torch.ops.kernels import build as kbuild
 from afan_torch.ops.kernels import nms as knms
+from afan_torch.ops.kernels import resize_ce as krce
+from afan_torch.train import segment_loop
 from afan_torch.train.detect_loop import make_detect_fn
+from afan_torch.train.optim import poly_schedule, sgd
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
@@ -53,6 +82,38 @@ MAX_BATCH = 4
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_IOU = 16
+# f32 operations that the upsample + CE function needs, counted from the
+# function at its least, not from the kernels. Bilinear upsampling is
+# separable: a pass along W over the h low-res rows (each output a 2-tap
+# lerp a + t * (b - a), 3 operations), then a pass along H over the H output
+# rows (3 again), so per (output pixel, class) it costs 3 + 3 * h / H
+# (3.75 at 192 -> 768); its transpose, in the backward, costs the same.
+# Per (valid pixel, class) the forward then adds max, exp of the difference
+# (2) and the sum of exps (CE_LSE_OPS = 4); the backward recomputes all of
+# the forward (its input is lo, not the upsampled logits), forms
+# softmax - onehot scaled by the cotangent (CE_SOFTMAX_GRAD_OPS = 3), and
+# runs the transposed interpolation. Per valid pixel the forward adds log,
+# lse - picked and the masked sum (CE_PIXEL_OPS = 3).
+CE_LERP_OPS = 3
+CE_LSE_OPS = 4
+CE_SOFTMAX_GRAD_OPS = 3
+CE_PIXEL_OPS = 3
+# (name, B, H (out), h (in), C, focal): scripts/smoke_fused_ce_tpu.py:27-34
+CE_CASES = [
+    ("city768", 2, 768, 192, 19, None),
+    ("city512", 2, 512, 128, 19, None),
+    ("voc513", 2, 513, 129, 21, None),
+    ("voc513_focal", 2, 513, 129, 21, (1.0, 2.0)),
+    ("city768_focal", 2, 768, 192, 19, (1.0, 2.0)),
+    ("tiny32", 2, 32, 8, 4, None),
+]
+CE_SUM_TOL, CE_GRAD_TOL = 1e-5, 1.1e-5
+SEG_MODEL, SEG_CROP, SEG_BATCH, SEG_ITRS = "deeplabv3plus_resnet50", 768, 4, 6
+SEG_FLAGS = ["--variant", "afan", "--dataset", "synthetic", "--model",
+             SEG_MODEL, "--output_stride", "16", "--crop_size", str(SEG_CROP),
+             "--batch_size", str(SEG_BATCH), "--lr", "0.1",
+             "--pertub_idx_se", "2", "--pertub_idx_sd", "concat",
+             "--gamma_se", "0.02", "--gamma_sd", "1.5", "--mix_sd"]
 
 
 def require(cond, msg):
@@ -184,33 +245,8 @@ def check_answer(dets, thresh):
         require(prob > thresh, f"prob {prob} not above {thresh}")
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        sys.exit(1)
-
-    # 1. device
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    card = f"{name}, power limit {smi.split(',')[-1].strip()}"
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"[1] device: {name} (x{torch.cuda.device_count()}), torch "
-          f"{torch.__version__}, CUDA {torch.version.cuda}")
-    print(smi)
-    print(f"    cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-
-    # 2. build
-    t0 = time.time()
-    lib_path = knms.build()
-    knms.load_library()
-    print(f"[2] built {os.path.relpath(lib_path, ROOT)} in "
-          f"{time.time() - t0:.1f} s")
-
+def detection_phases(card):
+    """Phases 3-6; returns the NMS kernel's entry of the kernels line."""
     # 3. kernel vs plain
     print("[3] NMS kernel vs plain version")
     errs = []
@@ -376,12 +412,386 @@ def main():
     print(f"    nms G=4 N=6000 uniform boxes, {kept} kept: kernel "
           f"{k_ms:.4f} ms ({card})")
 
-    print(json.dumps({"kernels": [{
+    return {
         "name": "nms", "route": "cuda", "source": "afan_torch/csrc/nms.cu",
         "replaces": "afan/ops/kernels/nms_kernel.py:65",
         "launches": launches, "max_abs_err": max(errs), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def ce_inputs(B, H, h, C, seed=0):
+    """Seeded logits (B, C, h, h), labels (B, H, H) with an ignored corner,
+    and a per-entry cotangent."""
+    rng = np.random.RandomState(seed)
+    lo = cuda(rng.randn(B, C, h, h).astype(np.float32))
+    lab = rng.randint(0, C, (B, H, H)).astype(np.int32)
+    lab[:, :3, :3] = 255
+    g = cuda(np.linspace(0.5, 1.5, B).astype(np.float32))
+    return lo, cuda(lab), g
+
+
+@contextlib.contextmanager
+def patched_site_op(fn):
+    """Route the segmentation step's loss and ascent sites through ``fn``
+    instead of ``fused_resize_nll_sums`` for the duration of the block."""
+    saved = segment_loop.fused_resize_nll_sums
+    segment_loop.fused_resize_nll_sums = fn
+    try:
+        yield
+    finally:
+        segment_loop.fused_resize_nll_sums = saved
+
+
+def ce_kernels_vs_plain(errs):
+    """Phase 7: both kernels against the plain version on the six
+    geometries; appends the largest absolute errors to ``errs``."""
+    print("[7] upsample + CE kernels vs plain version")
+    for name, B, H, h, C, focal in CE_CASES:
+        lo, lab, g = ce_inputs(B, H, h, C)
+        sums = krce.resize_ce_forward(lo, lab, focal)
+        dlo = krce.resize_ce_backward(lo, lab, g, focal)
+        again = (krce.resize_ce_forward(lo, lab, focal),
+                 krce.resize_ce_backward(lo, lab, g, focal))
+        want_s = trce.fused_resize_nll_sums_plain(lo, lab, (H, H), focal)
+        want_d = trce.resize_ce_grad_plain(lo, lab, g, focal)
+        torch.cuda.synchronize()
+        es, eg = rel_err(sums, want_s), rel_err(dlo, want_d)
+        errs["fwd"].append(float((sums - want_s).abs().max()))
+        errs["bwd"].append(float((dlo - want_d).abs().max()))
+        print(f"  {name}: B={B} {h}->{H} C={C} focal={focal}: sums rel "
+              f"{es:.3e}, grad rel {eg:.3e}, repeat bit-equal "
+              f"{torch.equal(again[0], sums) and torch.equal(again[1], dlo)}")
+        require(es <= CE_SUM_TOL, f"{name}: sums rel err {es} > {CE_SUM_TOL}")
+        require(eg <= CE_GRAD_TOL,
+                f"{name}: grad rel err {eg} > {CE_GRAD_TOL}")
+        require(torch.equal(again[0], sums) and torch.equal(again[1], dlo),
+                f"{name}: two runs of the kernels differ")
+    # the autograd Function on a CUDA tensor goes through both kernels
+    lo, lab, g = ce_inputs(2, 768, 192, 19, seed=1)
+    before = (krce.fwd_launches, krce.bwd_launches)
+    x = lo.clone().requires_grad_(True)
+    sums = trce.fused_resize_nll_sums(x, lab.long(), (768, 768))
+    (grad,) = torch.autograd.grad(sums, x, g)
+    require((krce.fwd_launches, krce.bwd_launches)
+            == (before[0] + 1, before[1] + 1),
+            "fused_resize_nll_sums did not launch both kernels")
+    require(torch.equal(sums, krce.resize_ce_forward(lo, lab))
+            and torch.equal(grad, krce.resize_ce_backward(lo, lab, g)),
+            "the autograd Function disagrees with the kernel wrappers")
+
+
+def train_full_width():
+    """Phase 8: the trainer through its CLI entry point. Returns (forward
+    launches, backward launches, launches per step, per-step losses)."""
+    print("[8] train: A-FAN DeepLabv3+ ResNet-50, OS 16, crop 768, batch 4, "
+          "Cityscapes final recipe, synthetic data")
+    for d in os.listdir("checkpoints") if os.path.isdir("checkpoints") else ():
+        if d.startswith("synthetic_chip_smoke_"):
+            shutil.rmtree(os.path.join("checkpoints", d))
+    losses, configs = [], []
+    real = train_segment.make_afan_seg_step
+
+    def recording(model, optimizer, scheduler, cfg):
+        configs.append(cfg)
+        step = real(model, optimizer, scheduler, cfg)
+
+        def run(images, labels, generator=None):
+            out = step(images, labels, generator)
+            losses.append({k: float(v) for k, v in out.items()})
+            return out
+        return run
+
+    train_segment.make_afan_seg_step = recording
+    krce.fwd_launches = krce.bwd_launches = 0
+    t0 = time.time()
+    try:
+        score = train_segment.main(SEG_FLAGS + [
+            "--limit_itrs", str(SEG_ITRS), "--val_interval", str(SEG_ITRS),
+            "--print_interval", "1", "--exp", "chip_smoke"])
+        torch.cuda.synchronize()
+    finally:
+        train_segment.make_afan_seg_step = real
+    fwd, bwd = krce.fwd_launches, krce.bwd_launches
+    secs = time.time() - t0
+    cfg = configs[0]
+    # one forward and one backward launch per PGD step of each ascent (SE,
+    # and SD when set), and per loss site (clean, the stacked spectrum
+    # tails, and SD when set)
+    sd = cfg.sd is not None
+    per_step = (1 + sd) * cfg.steps + (2 + sd)
+    require(len(losses) == SEG_ITRS, f"{len(losses)} steps ran")
+    require(all(np.isfinite(v) for rec in losses for v in rec.values()),
+            f"non-finite loss in {losses}")
+    require(fwd == bwd == SEG_ITRS * per_step,
+            f"resize+CE launches fwd={fwd} bwd={bwd} in {SEG_ITRS} steps "
+            f"(expected {per_step} each per step)")
+    dirs = [d for d in os.listdir("checkpoints")
+            if d.startswith("synthetic_chip_smoke_")]
+    path = os.path.join("checkpoints", dirs[0],
+                        f"latest_{SEG_MODEL}_synthetic.pt")
+    require(len(dirs) == 1 and os.path.isfile(path), "no checkpoint written")
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    require(saved["cur_itrs"] == SEG_ITRS
+            and all(bool(torch.isfinite(v).all())
+                    for v in saved["model_state"].values()
+                    if v.is_floating_point()),
+            "checkpoint is not the finished run's")
+    print(f"    {SEG_ITRS} steps + 1 validation in {secs:.1f} s (first "
+          f"step includes cuDNN set-up); losses "
+          f"{[round(r['loss'], 4) for r in losses]}; mIoU {score:.4f}; "
+          f"checkpoint {path}")
+    print(f"    resize+CE launches: forward {fwd}, backward {bwd} = "
+          f"{per_step} each per step")
+    return fwd, bwd, per_step, losses
+
+
+def seg_recipe():
+    args = train_segment.get_parser().parse_args(SEG_FLAGS)
+    return train_segment.afan_config(args)
+
+
+def seg_model_and_batch(seed=0):
+    model = build_model(SEG_MODEL, 19, 16)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    loader, _, _ = train_segment.cityscapes_loaders(None, SEG_BATCH,
+                                                    SEG_CROP, seed=seed)
+    imgs, labs = next(iter(loader))
+    return model.cuda(), cuda(imgs), cuda(labs)
+
+
+def seg_step(model, afan=True):
+    opt, sched = sgd(segmentation_param_groups(model),
+                     poly_schedule(0.1, 30000), 0.1, 0.9, 1e-4)
+    if afan:
+        return segment_loop.make_afan_seg_step(model, opt, sched,
+                                               seg_recipe())
+    return segment_loop.make_seg_base_step(model, opt, sched)
+
+
+def step_kernel_vs_plain(model, imgs, labs):
+    """Phase 9: one A-FAN step with the kernels and one with the plain op
+    from the same weights, batch and dropout masks, in full f32."""
+    print("[9] A-FAN step with the kernels vs with the plain op")
+    state = copy.deepcopy(model.state_dict())
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = []
+    try:
+        for op in (trce.fused_resize_nll_sums,
+                   trce.fused_resize_nll_sums_plain):
+            model.load_state_dict(state)
+            step = seg_step(model)
+            torch.manual_seed(0)
+            with patched_site_op(op):
+                out = step(imgs, labs)
+            conv = model.classifier.classifier[3]
+            runs.append(({k: float(v) for k, v in out.items()},
+                         conv.weight.grad.clone(), conv.bias.grad.clone()))
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32) = flags
+        model.load_state_dict(state)
+    (lk, wk, bk), (lp, wp, bp) = runs
+    loss_err = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lk)
+    grad_err = max(rel_err(wk, wp), rel_err(bk, bp))
+    print(f"    losses kernel {lk}")
+    print(f"    losses plain  {lp}")
+    print(f"    largest loss rel err {loss_err:.3e}; logits-conv gradient "
+          f"rel err {grad_err:.3e} (weight {rel_err(wk, wp):.3e}, bias "
+          f"{rel_err(bk, bp):.3e})")
+    require(loss_err <= 1e-4, f"step losses differ by {loss_err}")
+    require(grad_err <= 1e-4, f"logits-conv gradients differ by {grad_err}")
+
+
+def ce_parts(lo, lab, g):
+    """Timings (ms) at one of the step's shapes: the two kernels, the plain
+    version (forward; backward alone on a kept graph) and the library
+    composition F.interpolate + F.cross_entropy + per-entry sum (the same),
+    and the two bounds."""
+    size = tuple(lab.shape[1:])
+    lab64 = lab.long()
+
+    def library(x):
+        hi = F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+        return F.cross_entropy(hi, lab64, reduction="none",
+                               ignore_index=255).sum(dim=(1, 2))
+
+    x = lo.clone().requires_grad_(True)
+    plain_sums = trce.fused_resize_nll_sums_plain(x, lab, size)
+    lib_sums = library(x)
+    out = {
+        "fwd": cuda_ms(lambda: krce.resize_ce_forward(lo, lab), reps=50),
+        "bwd": cuda_ms(lambda: krce.resize_ce_backward(lo, lab, g), reps=50),
+        "plain_fwd": cuda_ms(
+            lambda: trce.fused_resize_nll_sums_plain(lo, lab, size), reps=20),
+        "plain_bwd": cuda_ms(lambda: torch.autograd.grad(
+            plain_sums, x, g, retain_graph=True), reps=20),
+        "lib_fwd": cuda_ms(lambda: library(lo), reps=20),
+        "lib_bwd": cuda_ms(lambda: torch.autograd.grad(
+            lib_sums, x, g, retain_graph=True), reps=20),
+    }
+    b, c, h = lo.shape[:3]
+    valid = int((lab != 255).sum())
+    lo_bytes, lab_bytes = lo.numel() * 4, lab.numel() * 4
+    interp = CE_LERP_OPS * (1 + h / size[0])
+    fwd_ops = interp + CE_LSE_OPS
+    bwd_ops = fwd_ops + CE_SOFTMAX_GRAD_OPS + interp
+    for half, nbytes, ops in (
+            ("fwd", lo_bytes + lab_bytes + b * 4,
+             valid * (c * fwd_ops + CE_PIXEL_OPS)),
+            ("bwd", 2 * lo_bytes + lab_bytes + b * 4,
+             valid * (c * bwd_ops + CE_PIXEL_OPS))):
+        out[f"{half}_bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        out[f"{half}_ops_ms"] = ops / F32_OPS_PER_S * 1e3
+    return out
+
+
+def profile_step(step, imgs, labs, n=3):
+    """Where the A-FAN step's device time goes: torch.profiler over ``n``
+    steps after a warmup; the device's busy share of the wall time and the
+    kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    step(imgs, labs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(n):
+            step(imgs, labs)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / n
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if not busy_ms:
+        print("    profile: the trace holds no device time (not measured)")
+        return
+    print(f"    profile of {n} A-FAN steps: {wall_ms:.3f} ms wall per step, "
+          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); "
+          f"top kernels by device time per step:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        ms = e.self_device_time_total / 1e3 / n
+        print(f"      {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% "
+              f"x{e.count // n:<4d} {e.key[:90]}")
+
+
+def time_segmentation(card, model, imgs, labs, per_step):
+    """Phase 10; returns the two kernels' entries of the kernels line
+    (times per A-FAN step: its B=4 sites and its B=8 spectrum site)."""
+    print(f"[10] timing on {card}")
+    for afan, name in ((True, "A-FAN"), (False, "base")):
+        step = seg_step(model, afan)
+        t = cuda_samples(lambda: step(imgs, labs), 20)
+        torch.cuda.reset_peak_memory_stats()
+        step(imgs, labs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"    {name} step, batch {SEG_BATCH}, crop {SEG_CROP}: median "
+              f"{np.median(t):.3f} ms, p90 {np.percentile(t, 90):.3f} ms over "
+              f"{len(t)} steps, {SEG_BATCH * 1e3 / np.median(t):.2f} imgs/s, "
+              f"peak memory {peak:.2f} GiB ({card})")
+    profile_step(seg_step(model), imgs, labs)
+    # the step's sites: SE and SD ascents, clean and SD losses at B=4; the
+    # two stacked spectrum tails at B=8
+    shapes = {SEG_BATCH: per_step - 1, 2 * SEG_BATCH: 1}
+    total = {}
+    rng = np.random.RandomState(5)
+    for b, count in shapes.items():
+        lab = labs.repeat(b // SEG_BATCH, 1, 1).to(torch.int32).contiguous()
+        lo = cuda(rng.randn(b, 19, SEG_CROP // 4, SEG_CROP // 4)
+                  .astype(np.float32))
+        parts = ce_parts(lo, lab, torch.ones(b, device="cuda"))
+        for k, v in parts.items():
+            total[k] = total.get(k, 0.0) + count * v
+        print(f"    resize+CE B={b} {SEG_CROP // 4}->{SEG_CROP} C=19 (x{count} "
+              f"per step): forward kernel {parts['fwd']:.4f} ms, plain "
+              f"{parts['plain_fwd']:.4f}, library {parts['lib_fwd']:.4f}, "
+              f"bound max(bytes {parts['fwd_bytes_ms']:.5f}, operations "
+              f"{parts['fwd_ops_ms']:.5f}); backward kernel "
+              f"{parts['bwd']:.4f} ms, plain {parts['plain_bwd']:.4f}, "
+              f"library {parts['lib_bwd']:.4f}, bound max(bytes "
+              f"{parts['bwd_bytes_ms']:.5f}, operations "
+              f"{parts['bwd_ops_ms']:.5f}) ({card})")
+    entries = []
+    for half, name, line in (("fwd", "resize_ce_forward", 92),
+                             ("bwd", "resize_ce_backward", 127)):
+        byte_ms, op_ms = total[f"{half}_bytes_ms"], total[f"{half}_ops_ms"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "afan_torch/csrc/resize_ce.cu",
+            "replaces": f"afan/ops/kernels/resize_ce_kernel.py:{line}",
+            "ms": total[half], "plain_ms": total[f"plain_{half}"],
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": total[f"lib_{half}"]})
+        print(f"    {name} per A-FAN step ({per_step} launches): kernel "
+              f"{total[half]:.4f} ms, plain {total[f'plain_{half}']:.4f}, "
+              f"library {total[f'lib_{half}']:.4f}, bound "
+              f"{max(byte_ms, op_ms):.5f} ms ({entries[-1]['bound_by']})")
+    return entries
+
+
+def segmentation_phases(card):
+    """Phases 7-10; returns the upsample + CE kernels' entries."""
+    errs = {"fwd": [], "bwd": []}
+    ce_kernels_vs_plain(errs)
+    fwd, bwd, per_step, _ = train_full_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, imgs, labs = seg_model_and_batch()
+    step_kernel_vs_plain(model, imgs, labs)
+    entries = time_segmentation(card, model, imgs, labs, per_step)
+    for entry, launches, half in zip(entries, (fwd, bwd), ("fwd", "bwd")):
+        entry["launches"] = launches
+        entry["max_abs_err"] = max(errs[half])
+    return entries
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(1)
+
+    # 1. device
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = f"{name}, power limit {smi.split(',')[-1].strip()}"
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[1] device: {name} (x{torch.cuda.device_count()}), torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}")
+    print(smi)
+    print(f"    cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+    # 2. build
+    t0 = time.time()
+    seconds = kbuild.build_all()
+    knms.load_library()
+    krce.load_library()
+    print(f"[2] built {', '.join(f'{s} in {t:.1f} s' for s, t in seconds.items())}"
+          f" (one nvcc each, together {time.time() - t0:.1f} s) into "
+          f"{os.path.relpath(kbuild.BUILD_DIR, ROOT)}")
+
+    nms_entry = detection_phases(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seg_entries = segmentation_phases(card)
+
+    print(json.dumps({"kernels": [nms_entry] + seg_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

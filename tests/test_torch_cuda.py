@@ -11,13 +11,15 @@ import pytest
 import torch
 
 from afan_torch.ops import nms as tnms
+from afan_torch.ops import resize_ce as trce
 from afan_torch.ops.kernels import nms as knms
+from afan_torch.ops.kernels import resize_ce as krce
 
 
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the NMS kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -67,3 +69,61 @@ def test_nms_kernel_rejects_non_contiguous(card):
     with pytest.raises(ValueError):
         knms.nms_sorted_mask(b, torch.ones(4, 2, dtype=torch.bool,
                                            device=card), 0.5)
+
+
+def _ce_inputs(card, B, H, h, C, seed=0):
+    rng = np.random.RandomState(seed)
+    lo = torch.from_numpy(rng.randn(B, C, h, h).astype(np.float32)).to(card)
+    lab = rng.randint(0, C, (B, H, H)).astype(np.int32)
+    lab[:, :3, :3] = 255
+    g = torch.from_numpy(np.linspace(0.5, 1.5, B).astype(np.float32))
+    return lo, torch.from_numpy(lab).to(card), g.to(card)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+# Tolerances as in chip_smoke.py phase 7: max abs error over max abs value,
+# 1e-5 for the sums and 1.1e-5 for the gradient (the float order of the
+# sums and of the plain version's atomic gradient accumulation differ).
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,h,C,focal", [
+    (2, 768, 192, 19, None), (2, 768, 192, 19, (1.0, 2.0)),
+    (2, 513, 129, 21, None), (1, 513, 129, 21, (1.0, 2.0))])
+def test_resize_ce_kernels_match_plain(card, B, H, h, C, focal):
+    lo, lab, g = _ce_inputs(card, B, H, h, C)
+    before = (krce.fwd_launches, krce.bwd_launches)
+    sums = krce.resize_ce_forward(lo, lab, focal)
+    dlo = krce.resize_ce_backward(lo, lab, g, focal)
+    want_s = trce.fused_resize_nll_sums_plain(lo, lab, (H, H), focal)
+    want_d = trce.resize_ce_grad_plain(lo, lab, g, focal)
+    torch.cuda.synchronize()
+    assert (krce.fwd_launches, krce.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert _rel(sums, want_s) <= 1e-5
+    assert _rel(dlo, want_d) <= 1.1e-5
+    assert torch.equal(sums, krce.resize_ce_forward(lo, lab, focal))
+
+
+@pytest.mark.cuda
+def test_resize_ce_function_runs_the_kernels(card):
+    lo, lab, g = _ce_inputs(card, 2, 64, 16, 5, seed=1)
+    x = lo.clone().requires_grad_(True)
+    before = (krce.fwd_launches, krce.bwd_launches)
+    sums = trce.fused_resize_nll_sums(x, lab.long(), (64, 64))
+    (grad,) = torch.autograd.grad(sums, x, g)
+    assert (krce.fwd_launches, krce.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert torch.equal(grad, krce.resize_ce_backward(lo, lab, g))
+
+
+@pytest.mark.cuda
+def test_resize_ce_kernel_rejects_what_it_does_not_take(card):
+    lo, lab, g = _ce_inputs(card, 2, 64, 16, 5)
+    with pytest.raises(TypeError):
+        krce.resize_ce_forward(lo.double(), lab)
+    with pytest.raises(TypeError):
+        krce.resize_ce_forward(lo, lab.long())
+    with pytest.raises(ValueError):
+        krce.resize_ce_forward(lo.transpose(2, 3), lab)
