@@ -4,8 +4,10 @@
 :func:`pgd` is the one ascent every trainer uses, parameterized by a loss
 closure ``loss_fn(x_adv) -> scalar``. The gradient is taken with
 ``torch.autograd.grad(loss, x_adv)`` only, so an ascent through a model's
-tail leaves no ``.grad`` on its parameters. The update is plain PyTorch, as
-in ``afan`` (`attack.py:126-133`).
+tail leaves no ``.grad`` on its parameters. A sign step goes through
+:func:`afan_torch.ops.pgd_step.pgd_update`: one hand-written kernel on the
+card (step and L-inf projection fused), the same PyTorch ops as ``afan``'s
+update (`attack.py:126-133`) on the CPU. A ``'grad'`` step stays eager.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..ops.pgd_step import pgd_update
 from .project import linfball_proj
 
 LossFn = Callable[[torch.Tensor], torch.Tensor]
@@ -62,15 +65,18 @@ def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
         x_adv = x_adv.detach().requires_grad_(True)
         with torch.enable_grad():
             (g,) = torch.autograd.grad(loss_fn(x_adv), x_adv)
-        x_adv = x_adv.detach() + gamma_t * _direction(g, step_mode)
-        if clip:
-            x_adv = linfball_proj(x, eps, x_adv)
+        if step_mode == "sign":
+            x_adv = pgd_update(x_adv.detach(), g, x, gamma=gamma_t, eps=eps,
+                               clip=clip)
+        else:
+            x_adv = x_adv.detach() + gamma_t * _grad_direction(g)
+            if clip:
+                x_adv = linfball_proj(x, eps, x_adv)
     return x_adv.detach()
 
 
-def _direction(g: torch.Tensor, step_mode: str) -> torch.Tensor:
-    if step_mode == "sign":
-        return torch.sign(g)
+def _grad_direction(g: torch.Tensor) -> torch.Tensor:
+    """The raw gradient normalized per sample to unit L-inf."""
     flat = g.abs().reshape(g.shape[0], -1) if g.dim() > 1 else \
         g.abs().reshape(1, -1)
     gmax = flat.amax(dim=1).clamp_min(1e-12)

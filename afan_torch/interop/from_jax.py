@@ -1,4 +1,4 @@
-"""Carry ``afan``'s Faster R-CNN and DeepLab weights into the port.
+"""Carry ``afan``'s Faster R-CNN, DeepLab and ResNet-s weights into the port.
 
 :func:`frcnn_variables_to_state_dict` takes the flax ``{"params",
 "batch_stats"}`` tree of ``afan.models.frcnn.FasterRCNN`` as nested dicts of
@@ -132,6 +132,43 @@ def deeplab_variables_to_state_dict(variables: Mapping[str, Any],
                 mod = "backbone." + _torso_module(path[1:-1])
             elif path[0] == "classifier":
                 mod = _deeplab_head_module(path[1:-1], plus)
+            else:
+                raise KeyError(f"no port destination for {'/'.join(path)}")
+            name = ("weight" if leaf in ("kernel", "scale")
+                    else _BN_LEAF[leaf])
+            out[f"{mod}.{name}"] = _convert(v, leaf)
+            if coll == "batch_stats" and leaf == "mean":
+                out[f"{mod}.num_batches_tracked"] = np.zeros((), np.int64)
+    return {k: torch.from_numpy(np.array(v))
+            for k, v in out.items()}
+
+
+def resnet_s_variables_to_state_dict(variables: Mapping[str, Any]
+                                     ) -> Dict[str, torch.Tensor]:
+    """``afan``'s ResNet-s ``{"params", "batch_stats"}`` (nested dicts of
+    numpy arrays) → the port's :class:`afan_torch.models.resnet_s.ResNetS`
+    ``state_dict`` under the reference's ``sequential_model.<i>`` keys
+    (``afan/interop/torch_ckpt.py:resnet_s_params_to_torch_sd``), with
+    ``num_batches_tracked``, so the result loads with
+    ``load_state_dict(strict=True)``. Any tree with the params' structure
+    (an optimizer's momentum, say) converts the same way."""
+    params = variables.get("params", {})
+    fc = 4 + sum(1 for k in params if str(k).startswith("blocks_")) + 2
+    out: Dict[str, np.ndarray] = {}
+    for coll in ("params", "batch_stats"):
+        for path, v in _leaves(variables.get(coll, {})):
+            leaf, top = path[-1], path[0]
+            if path == ("w",):
+                out["w"] = v
+                continue
+            if top == "conv0":
+                mod = "sequential_model.1"
+            elif top == "bn0":
+                mod = "sequential_model.2"
+            elif top == "fc":
+                mod = f"sequential_model.{fc}"
+            elif top.startswith("blocks_") and len(path) == 3:
+                mod = f"sequential_model.{4 + int(top[7:])}.{path[1]}"
             else:
                 raise KeyError(f"no port destination for {'/'.join(path)}")
             name = ("weight" if leaf in ("kernel", "scale")

@@ -23,7 +23,7 @@ BUILD_DIR = os.path.abspath(
                  "kernels"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("nms.cu", "resize_ce.cu")
+SOURCES = ("nms.cu", "resize_ce.cu", "pgd_step.cu")
 
 
 def _nvcc() -> str:

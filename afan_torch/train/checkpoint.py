@@ -5,9 +5,12 @@ The reference restores full-model checkpoints by partial key overlap and
 reports the matched fraction (`Detection/model.py:200-217`). Checkpoints here
 are the reference's own layout: a ``torch.save``'d state dict, bare or under
 ``state_dict`` / ``model_state`` / ``model_state_dict``, keys optionally
-prefixed ``module.``. A training checkpoint (:func:`save_checkpoint`) is the
-segmentation reference's dict: ``model_state``, ``optimizer_state``,
-``scheduler_state``, ``cur_itrs`` and ``best_score``.
+prefixed ``module.``. A training checkpoint is the reference's dict for its
+stack: for segmentation (:func:`save_checkpoint`) ``model_state``,
+``optimizer_state``, ``scheduler_state``, ``cur_itrs`` and ``best_score``;
+for classification (:func:`save_classify_checkpoint`,
+`Classification/main_perturb.py:116-136`) ``epoch``, ``state_dict``,
+``optimizer``, ``scheduler``, ``step`` and ``best_prec1``.
 """
 from __future__ import annotations
 
@@ -46,13 +49,41 @@ def overlap_restore(module: nn.Module,
 def save_checkpoint(path: str, model: nn.Module,
                     optimizer: torch.optim.Optimizer, scheduler,
                     cur_itrs: int, best_score: float) -> str:
-    """Write a training checkpoint to a temporary file and rename it into
-    place, so that a crash mid-write leaves the previous one intact."""
+    """Write a segmentation training checkpoint (:func:`_write`)."""
+    return _write(path, {"cur_itrs": cur_itrs,
+                         "model_state": model.state_dict(),
+                         "optimizer_state": optimizer.state_dict(),
+                         "scheduler_state": scheduler.state_dict(),
+                         "best_score": best_score})
+
+
+def save_classify_checkpoint(path: str, model: nn.Module,
+                             optimizer: torch.optim.Optimizer, scheduler,
+                             epoch: int, step: int, best_prec1: float) -> str:
+    """Write a classification training checkpoint (:func:`_write`); its
+    ``state_dict`` keeps the reference's keys."""
+    return _write(path, {"epoch": epoch, "state_dict": model.state_dict(),
+                         "optimizer": optimizer.state_dict(),
+                         "scheduler": scheduler.state_dict(), "step": step,
+                         "best_prec1": best_prec1})
+
+
+def restore_optimizer(optimizer: torch.optim.Optimizer,
+                      saved: Mapping[str, Any]) -> bool:
+    """Load a saved optimizer state (momentum, lr) into ``optimizer``; on a
+    structure mismatch keep the fresh state and return False, as ``afan``'s
+    ``restore_opt_state`` does."""
+    try:
+        optimizer.load_state_dict(saved)
+    except ValueError:
+        return False
+    return True
+
+
+def _write(path: str, payload: Dict[str, Any]) -> str:
+    """``torch.save`` to a temporary file renamed into place, so that a
+    crash mid-write leaves the previous checkpoint intact."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    payload = {"cur_itrs": cur_itrs, "model_state": model.state_dict(),
-               "optimizer_state": optimizer.state_dict(),
-               "scheduler_state": scheduler.state_dict(),
-               "best_score": best_score}
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)

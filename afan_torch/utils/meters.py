@@ -1,0 +1,20 @@
+"""Running meters — a copy of ``afan/utils/meters.py`` (AverageMeter
+parity, `main_perturb.py:268-283`)."""
+from __future__ import annotations
+
+
+class AverageMeter:
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        self.val = float(val)
+        self.sum += float(val) * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)

@@ -33,7 +33,28 @@ Phases (any failure exits non-zero):
      TF32): losses within 1e-4, logits-conv gradient within 1e-4;
  10. time the A-FAN and base steps and their peak memory, profile where
      the A-FAN step's device time goes, and time each kernel, its plain
-     version and the library composition at the step's shapes.
+     version and the library composition at the step's shapes;
+ 11. hold the PGD-update kernel against its plain PyTorch version, bit for
+     bit (NaN included): the sizes of tests/test_kernels.py, odd counts,
+     misaligned views, the ALFA and learnable tap shapes and the
+     segmentation ascents' shapes, gradients with zeros, -0, denormals, NaN
+     and infinities, with and without the clip;
+ 12. train ALFA ResNet-56 on CIFAR-10 at full width through
+     ``afan_torch.cli.train_classify.main`` (batch 128, tap 13, 5 PGD
+     steps, synthetic data, seeded random weights) for a few batches, one
+     validation and one test pass: finite losses, the reference's four
+     output files, and exactly 5 kernel launches per step; then a few
+     batches of the learnable-eta mode (27 launches per step) and of ALFA
+     with clip, randinit and the train split kept on the card; then the
+     inference CLI on the best checkpoint;
+ 13. one ALFA step with the kernel against one with the plain update, from
+     the same weights and batch (cuDNN deterministic, no TF32): adversarial
+     feature bit-equal, loss, perturbation norms and updated parameters
+     within 1e-6;
+ 14. time the ALFA, base and learnable steps and their peak memory, the
+     ALFA step with the plain update in turns with the kernel, profile
+     where the ALFA step's device time goes, and time the kernel, its plain
+     version and its bound at the ALFA tap shape.
 
 The line before the last lists each kernel with its launches on its main
 path, its largest disagreement with the plain version, its time, the plain
@@ -45,8 +66,10 @@ import asyncio
 import contextlib
 import copy
 import gc
+import itertools
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -56,20 +79,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from afan_torch.cli import train_segment
+from afan_torch.cli import infer_classify, train_classify, train_segment
 from afan_torch.cli.infer_detect import build_state, preprocess_frame
 from afan_torch.cli.serve_websocket import FrameBatcher
+from afan_torch.core import attack
+from afan_torch.data import cifar
 from afan_torch.models.deeplab import build_model
 from afan_torch.models.deeplab.modeling import segmentation_param_groups
 from afan_torch.models.frcnn.rpn import generate_proposals
+from afan_torch.models.resnet_s import LEARNABLE_TAPS, resnet56
 from afan_torch.ops import nms as tnms
+from afan_torch.ops import pgd_step as tpgd
 from afan_torch.ops import resize_ce as trce
 from afan_torch.ops.kernels import build as kbuild
 from afan_torch.ops.kernels import nms as knms
+from afan_torch.ops.kernels import pgd_step as kpgd
 from afan_torch.ops.kernels import resize_ce as krce
+from afan_torch.train import loop as cls_loop
 from afan_torch.train import segment_loop
 from afan_torch.train.detect_loop import make_detect_fn
-from afan_torch.train.optim import poly_schedule, sgd
+from afan_torch.train.optim import (learnable_sgd, multistep_warmup_schedule,
+                                    poly_schedule, sgd)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
@@ -114,6 +144,17 @@ SEG_FLAGS = ["--variant", "afan", "--dataset", "synthetic", "--model",
              "--batch_size", str(SEG_BATCH), "--lr", "0.1",
              "--pertub_idx_se", "2", "--pertub_idx_sd", "concat",
              "--gamma_se", "0.02", "--gamma_sd", "1.5", "--mix_sd"]
+# The ALFA recipe (`afan/train/loop.py:70-83`, `afan/cli/train_classify.py`
+# defaults): ResNet-56, CIFAR-10, batch 128, tap 13, 5 sign steps of
+# 1.5/255, eps 2/255; the learnable-eta mode takes 3 steps at 9 taps.
+CLS_BATCH, CLS_ALFA_BATCHES, CLS_SHORT_BATCHES = 128, 8, 2
+ALFA_TAP, ALFA_STEPS, ALFA_GAMMA, ALFA_EPS = 13, 5, 1.5 / 255, 2.0 / 255
+LEARNABLE_STEPS = 3
+# The PGD update reads x and g (and the centre, with the clip) once and
+# writes its output once; its least operations per element are the step's
+# sign, multiply and add (3), and with the clip c - eps, c + eps, maximum
+# and minimum (4 more).
+PGD_OPS, PGD_CLIP_OPS = 3, 7
 
 
 def require(cond, msg):
@@ -437,6 +478,27 @@ def ce_inputs(B, H, h, C, seed=0):
 
 
 @contextlib.contextmanager
+def patched_update(fn):
+    """Route ``core.attack.pgd``'s sign steps through ``fn`` instead of
+    ``ops.pgd_step.pgd_update`` for the duration of the block."""
+    saved = attack.pgd_update
+    attack.pgd_update = fn
+    try:
+        yield
+    finally:
+        attack.pgd_update = saved
+
+
+def recording_update(shapes):
+    """``pgd_update`` that appends each call's (shape, clip) to ``shapes``
+    and then runs it (its kernel wrapper counts the launch)."""
+    def update(x, g, center=None, **kw):
+        shapes.append((tuple(x.shape), bool(kw.get("clip"))))
+        return tpgd.pgd_update(x, g, center, **kw)
+    return update
+
+
+@contextlib.contextmanager
 def patched_site_op(fn):
     """Route the segmentation step's loss and ascent sites through ``fn``
     instead of ``fused_resize_nll_sums`` for the duration of the block."""
@@ -488,7 +550,8 @@ def ce_kernels_vs_plain(errs):
 
 def train_full_width():
     """Phase 8: the trainer through its CLI entry point. Returns (forward
-    launches, backward launches, launches per step, per-step losses)."""
+    launches, backward launches, launches per step, per-step losses, the
+    (shape, clip) of each PGD update)."""
     print("[8] train: A-FAN DeepLabv3+ ResNet-50, OS 16, crop 768, batch 4, "
           "Cityscapes final recipe, synthetic data")
     for d in os.listdir("checkpoints") if os.path.isdir("checkpoints") else ():
@@ -508,16 +571,20 @@ def train_full_width():
         return run
 
     train_segment.make_afan_seg_step = recording
-    krce.fwd_launches = krce.bwd_launches = 0
+    updates = []
+    krce.fwd_launches = krce.bwd_launches = kpgd.launches = 0
     t0 = time.time()
     try:
-        score = train_segment.main(SEG_FLAGS + [
-            "--limit_itrs", str(SEG_ITRS), "--val_interval", str(SEG_ITRS),
-            "--print_interval", "1", "--exp", "chip_smoke"])
+        with patched_update(recording_update(updates)):
+            score = train_segment.main(SEG_FLAGS + [
+                "--limit_itrs", str(SEG_ITRS), "--val_interval",
+                str(SEG_ITRS), "--print_interval", "1", "--exp",
+                "chip_smoke"])
         torch.cuda.synchronize()
     finally:
         train_segment.make_afan_seg_step = real
-    fwd, bwd = krce.fwd_launches, krce.bwd_launches
+    fwd, bwd, pgd_launches = (krce.fwd_launches, krce.bwd_launches,
+                              kpgd.launches)
     secs = time.time() - t0
     cfg = configs[0]
     # one forward and one backward launch per PGD step of each ascent (SE,
@@ -531,6 +598,12 @@ def train_full_width():
     require(fwd == bwd == SEG_ITRS * per_step,
             f"resize+CE launches fwd={fwd} bwd={bwd} in {SEG_ITRS} steps "
             f"(expected {per_step} each per step)")
+    # one PGD-update launch per sign step of each ascent (SE, and SD)
+    pgd_per_step = (1 + sd) * cfg.steps
+    require(cfg.step_mode == "sign"
+            and pgd_launches == len(updates) == SEG_ITRS * pgd_per_step,
+            f"PGD-update launches {pgd_launches} ({len(updates)} updates) in "
+            f"{SEG_ITRS} steps (expected {pgd_per_step} per step)")
     dirs = [d for d in os.listdir("checkpoints")
             if d.startswith("synthetic_chip_smoke_")]
     path = os.path.join("checkpoints", dirs[0],
@@ -547,8 +620,9 @@ def train_full_width():
           f"{[round(r['loss'], 4) for r in losses]}; mIoU {score:.4f}; "
           f"checkpoint {path}")
     print(f"    resize+CE launches: forward {fwd}, backward {bwd} = "
-          f"{per_step} each per step")
-    return fwd, bwd, per_step, losses
+          f"{per_step} each per step; PGD-update launches {pgd_launches} = "
+          f"{pgd_per_step} per step, shapes {sorted(set(updates))}")
+    return fwd, bwd, per_step, losses, updates
 
 
 def seg_recipe():
@@ -656,10 +730,10 @@ def ce_parts(lo, lab, g):
     return out
 
 
-def profile_step(step, imgs, labs, n=3):
-    """Where the A-FAN step's device time goes: torch.profiler over ``n``
-    steps after a warmup; the device's busy share of the wall time and the
-    kernels with the most device time."""
+def profile_step(step, imgs, labs, n=3, label="A-FAN"):
+    """Where the ``label`` step's device time goes: torch.profiler over
+    ``n`` steps after a warmup; the device's busy share of the wall time and
+    the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
     step(imgs, labs)
     torch.cuda.synchronize()
@@ -676,9 +750,11 @@ def profile_step(step, imgs, labs, n=3):
     if not busy_ms:
         print("    profile: the trace holds no device time (not measured)")
         return
-    print(f"    profile of {n} A-FAN steps: {wall_ms:.3f} ms wall per step, "
-          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); "
-          f"top kernels by device time per step:")
+    launches = sum(e.count for e in kernels) / n
+    print(f"    profile of {n} {label} steps: {wall_ms:.3f} ms wall per step, "
+          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{launches:.0f} device kernels per step; top kernels by device "
+          f"time per step:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         ms = e.self_device_time_total / 1e3 / n
         print(f"      {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% "
@@ -742,10 +818,11 @@ def time_segmentation(card, model, imgs, labs, per_step):
 
 
 def segmentation_phases(card):
-    """Phases 7-10; returns the upsample + CE kernels' entries."""
+    """Phases 7-10; returns the upsample + CE kernels' entries and the
+    (shape, clip) of the PGD updates of the segmentation trainer."""
     errs = {"fwd": [], "bwd": []}
     ce_kernels_vs_plain(errs)
-    fwd, bwd, per_step, _ = train_full_width()
+    fwd, bwd, per_step, _, updates = train_full_width()
     gc.collect()
     torch.cuda.empty_cache()
     model, imgs, labs = seg_model_and_batch()
@@ -754,7 +831,394 @@ def segmentation_phases(card):
     for entry, launches, half in zip(entries, (fwd, bwd), ("fwd", "bwd")):
         entry["launches"] = launches
         entry["max_abs_err"] = max(errs[half])
-    return entries
+    return entries, sorted(set(updates))
+
+
+def bits_equal(a, b):
+    """Bit-equal, NaN included: the int32 views are compared."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+SPECIAL = (0.0, -0.0, 1e-40, -1e-40, 1e-45, float("nan"), float("inf"),
+           -float("inf"))
+
+
+def pgd_inputs(shape, seed):
+    """Seeded x, g, c on the card; g holds zeros, -0, denormals, NaN and
+    infinities among normal values."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = int(np.prod(shape))
+    x, g, c = (torch.randn(n, generator=gen, device="cuda")
+               for _ in range(3))
+    pos = torch.randperm(n, generator=gen, device="cuda")[:min(n, 1024)]
+    special = torch.tensor(SPECIAL, device="cuda")
+    g[pos] = special[torch.arange(len(pos), device="cuda") % len(SPECIAL)]
+    return tuple(t.reshape(shape) for t in (x, g, c))
+
+
+def pgd_case(name, x, g, c, clip, errs, gamma=ALFA_GAMMA, eps=ALFA_EPS):
+    """Kernel (twice) and plain version on the same inputs: bit-equal, and
+    the largest |kernel - plain| over entries finite in both goes to
+    ``errs``."""
+    kw = dict(gamma=gamma, eps=eps if clip else None, clip=clip)
+    centre = c if clip else None
+    got = kpgd.pgd_update(x, g, centre, **kw)
+    again = kpgd.pgd_update(x, g, centre, **kw)
+    want = tpgd.pgd_update_plain(x, g, centre, **kw)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    errs.append(float((got - want)[finite].abs().max()) if finite.any()
+                else 0.0)
+    same, repeat = bits_equal(got, want), bits_equal(got, again)
+    print(f"  {name}: shape {tuple(x.shape)} clip={clip} gamma={gamma:.6g}: "
+          f"bit-equal {same}, repeat bit-equal {repeat}")
+    require(same, f"PGD-update kernel != plain on {name} clip={clip}")
+    require(repeat, f"two runs of the PGD-update kernel differ on {name}")
+
+
+def pgd_kernel_vs_plain(seg_updates, errs):
+    """Phase 11."""
+    print("[11] PGD-update kernel vs plain version")
+    special = torch.tensor(SPECIAL + (2.0, -3.0), device="cuda")
+    print(f"    torch.sign on the card of {special.tolist()}: "
+          f"{torch.sign(special).tolist()}")
+    model = resnet56().cuda().eval()
+    with torch.no_grad():
+        feats = model.multi_head(torch.zeros(CLS_BATCH, 3, 32, 32,
+                                             device="cuda"),
+                                 (ALFA_TAP,) + LEARNABLE_TAPS)
+    cls_shapes = sorted({tuple(f.shape) for f in feats}, reverse=True)
+    del model, feats
+    # the sizes of tests/test_kernels.py:9-31, odd counts (a float4 pass
+    # and a scalar tail; fewer than 4 elements), the ALFA and learnable taps
+    # and the segmentation trainer's ascents
+    cases = [((128,), False), ((4, 33, 7), False), ((2, 16, 16, 16), False),
+             ((3, 50), True), ((1001,), False), ((1001,), True),
+             ((3,), True), ((2_097_153,), True)]
+    cases += [(s, clip) for s in cls_shapes for clip in (False, True)]
+    cases += [(s, clip) for s, _ in seg_updates for clip in (False, True)]
+    for i, (shape, clip) in enumerate(cases):
+        pgd_case(f"case {i}", *pgd_inputs(shape, i), clip, errs)
+    x, g, c = pgd_inputs((4097,), 99)
+    for clip in (False, True):
+        # views one float off 16-byte alignment take the scalar loop
+        pgd_case("all views offset", x[1:], g[1:], c[1:], clip, errs)
+        pgd_case("x offset", x[1:], g[:-1], c[:-1], clip, errs)
+    x, g, c = pgd_inputs((4096,), 7)
+    x[:8] = torch.tensor(SPECIAL, device="cuda")
+    c[8:16] = torch.tensor(SPECIAL, device="cuda")
+    for clip in (False, True):
+        pgd_case("special x and centre", x, g, c, clip, errs)
+        pgd_case("gamma 0.3 eps 0.2", x, g, c, clip, errs, 0.3, 0.2)
+    print(f"    {len(errs)} cases bit-equal; classification tap shapes "
+          f"{cls_shapes}")
+
+
+def run_classify_cli(mode, flags, batches, tag):
+    """One run of the classification CLI at full width on synthetic
+    CIFAR-10, ``batches`` steps, one validation and one test pass; checks
+    its losses and outputs. Returns (kernel launches in the run, losses,
+    save_dir)."""
+    save_dir = os.path.join("checkpoints", f"chip_smoke_classify_{tag}")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    losses = []
+    real = train_classify.build_step
+
+    def recording(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(*args):
+            out = step(*args)
+            losses.append(float(out["loss"]))
+            return out
+        return run
+
+    train_classify.build_step = recording
+    kpgd.launches = 0
+    t0 = time.time()
+    try:
+        best = train_classify.main(
+            ["--mode", mode, "--epochs", "1", "--limit_batches", str(batches),
+             "--batch_size", str(CLS_BATCH), "--seed", "0", "--print_freq",
+             "1", "--data", os.path.join(ROOT, "no_cifar_here"),
+             "--save_dir", save_dir] + flags)
+        torch.cuda.synchronize()
+    finally:
+        train_classify.build_step = real
+    launches = kpgd.launches
+    secs = time.time() - t0
+    require(len(losses) == batches and np.isfinite(losses).all(),
+            f"{tag}: losses {losses}")
+    for f in ("checkpoint.pt", "best_model.pt", "result.pkl",
+              "result_norm.pkl"):
+        require(os.path.isfile(os.path.join(save_dir, f)), f"{tag}: no {f}")
+    saved = torch.load(os.path.join(save_dir, "checkpoint.pt"),
+                       map_location="cpu", weights_only=True)
+    require(saved["epoch"] == 1 and saved["step"] == batches
+            and all(bool(torch.isfinite(v).all())
+                    for v in saved["state_dict"].values()
+                    if v.is_floating_point()),
+            f"{tag}: checkpoint is not the finished run's")
+    with open(os.path.join(save_dir, "result.pkl"), "rb") as f:
+        result = pickle.load(f)
+    with open(os.path.join(save_dir, "result_norm.pkl"), "rb") as f:
+        norms = pickle.load(f)
+    require([len(v) for v in result.values()] == [1, 1, 1]
+            and 0.0 <= result["test_ta"][0] <= 100.0,
+            f"{tag}: result.pkl {result}")
+    require(mode == "base" or norms["l2"][1] > 0,
+            f"{tag}: result_norm.pkl {norms}")
+    print(f"    {tag}: {batches} steps + validation + test in {secs:.1f} s; "
+          f"losses {[round(v, 4) for v in losses]}; val {result['ta'][0]:.2f} "
+          f"test {result['test_ta'][0]:.2f} (best {best:.2f}); perturbation "
+          f"L2 {norms['l2'].get(1)}; PGD-update launches {launches}")
+    return launches, losses, save_dir, result
+
+
+def train_classify_full_width():
+    """Phase 12; returns the ALFA run's kernel launches."""
+    print(f"[12] train: ALFA ResNet-56, CIFAR-10 (synthetic), batch "
+          f"{CLS_BATCH}, tap {ALFA_TAP}, {ALFA_STEPS} PGD steps")
+    t0 = time.time()
+    cifar.synthetic_arrays(seed=0)
+    print(f"    synthetic CIFAR-10 (50k + 10k images) made on the host in "
+          f"{time.time() - t0:.1f} s; each CLI run below makes it again")
+    n = CLS_ALFA_BATCHES
+    alfa, _, alfa_dir, result = run_classify_cli("alfa", [], n, "alfa")
+    require(alfa == ALFA_STEPS * n,
+            f"ALFA: {alfa} PGD-update launches in {n} steps (expected "
+            f"{ALFA_STEPS} per step)")
+    n = CLS_SHORT_BATCHES
+    # the learnable recipe (`afan/train/loop.py:LearnableConfig`): 3 steps
+    # of 1/255; the CLI's defaults are ALFA's
+    learn, *_ = run_classify_cli(
+        "learnable", ["--steps", str(LEARNABLE_STEPS), "--gamma", "1.0"], n,
+        "learnable")
+    per = LEARNABLE_STEPS * len(LEARNABLE_TAPS)
+    require(learn == per * n,
+            f"learnable: {learn} launches in {n} steps (expected {per})")
+    clip, *_ = run_classify_cli(
+        "alfa", ["--clip", "--randinit", "--device_data"], n,
+        "alfa_clip_randinit_device_data")
+    require(clip == ALFA_STEPS * n,
+            f"ALFA with clip: {clip} launches in {n} steps")
+    acc = infer_classify.main(
+        ["--pretrained", os.path.join(alfa_dir, "best_model.pt"),
+         "--batch_size", str(CLS_BATCH), "--data",
+         os.path.join(ROOT, "no_cifar_here")])
+    # the same weights on the same test set as the run's own test pass;
+    # a logit tie broken the other way may move an image or two
+    require(abs(acc - result["test_ta"][0]) <= 0.05,
+            f"infer_classify read {acc} from best_model.pt, the run's test "
+            f"pass {result['test_ta'][0]}")
+    print(f"    PGD-update launches: ALFA {alfa} = {ALFA_STEPS} per step, "
+          f"learnable {learn} = {per} per step, ALFA with clip {clip}; "
+          f"infer_classify on best_model.pt: test {acc:.2f}")
+    return alfa
+
+
+def cls_batch(seed):
+    x, y, _, _ = cifar.synthetic_arrays(CLS_BATCH, 1, 10, seed)
+    return cuda(x.astype(np.float32) / 255.0), cuda(y)
+
+
+def cls_step(mode, schedule=None, seed=0):
+    """A fresh seeded ResNet-56 on the card and a ``mode`` step with the
+    CLI's optimizer (lr 0.1, momentum 0.9, wd 5e-4; by default the CLI's
+    warmup + multistep schedule at 351 steps per epoch)."""
+    spe = 45000 // CLS_BATCH
+    if schedule is None:
+        schedule = multistep_warmup_schedule(0.1, [50 * spe, 150 * spe],
+                                             warmup_steps=spe)
+    init = 1.0 / 9 if mode == "learnable" else 1.0
+    model = resnet56(init_weight_eta=init,
+                     generator=torch.Generator().manual_seed(seed)).cuda()
+    if mode == "learnable":
+        opt, sched = learnable_sgd(model, schedule, 0.1, 0.01, 0.9, 5e-4)
+        return model, cls_loop.make_learnable_step(
+            model, opt, sched, cls_loop.LearnableConfig())
+    opt, sched = sgd([{"params": list(model.parameters())}], schedule, 0.1,
+                     0.9, 5e-4)
+    if mode == "base":
+        return model, cls_loop.make_base_step(model, opt, sched)
+    return model, cls_loop.make_alfa_step(model, opt, sched,
+                                          cls_loop.AlfaConfig())
+
+
+def alfa_step_kernel_vs_plain():
+    """Phase 13: the same step, from the same weights and batch, with the
+    kernel and with the plain update, in full f32 with deterministic
+    cuDNN."""
+    print("[13] ALFA step with the kernel vs with the plain update")
+    x, y = cls_batch(0)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    real_pgd = cls_loop.pgd
+    runs = []
+    try:
+        for update in (tpgd.pgd_update, tpgd.pgd_update_plain):
+            # a constant lr: the CLI's schedule starts at lr 0
+            model, step = cls_step("alfa", schedule=lambda count: 0.1)
+            advs = []
+
+            def recording_pgd(*a, **kw):
+                advs.append(real_pgd(*a, **kw))
+                return advs[-1]
+
+            cls_loop.pgd = recording_pgd
+            kpgd.launches = 0
+            with patched_update(update):
+                out = step(x, y)
+            torch.cuda.synchronize()
+            runs.append(({k: float(v) for k, v in out.items()}, advs[0],
+                         {k: v.detach().clone()
+                          for k, v in model.state_dict().items()
+                          if v.is_floating_point()}, kpgd.launches))
+    finally:
+        cls_loop.pgd = real_pgd
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32) = flags
+    (mk, ak, pk, lk), (mp, ap, pp, lp) = runs
+    metric_err = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mk)
+    param_err = max(float((pk[k] - pp[k]).abs().max())
+                    / max(float(pp[k].abs().max()), 1e-30) for k in pk)
+    print(f"    metrics kernel {mk}")
+    print(f"    metrics plain  {mp}")
+    print(f"    PGD-update launches {lk} (kernel) and {lp} (plain); "
+          f"adversarial feature {tuple(ak.shape)} bit-equal "
+          f"{bits_equal(ak, ap)}; largest metric rel err {metric_err:.3e}; "
+          f"largest parameter / running-statistic rel err {param_err:.3e}")
+    require(lk == ALFA_STEPS and lp == 0,
+            f"launches {lk} with the kernel, {lp} with the plain update")
+    require(bits_equal(ak, ap), "adversarial features differ")
+    require(metric_err <= 1e-6, f"metrics differ by {metric_err}")
+    require(param_err <= 1e-6, f"updated parameters differ by {param_err}")
+
+
+def queued_ms(fn, reps=100):
+    """Device ms per call of ``fn``: a sleep kernel holds the card while the
+    host queues every call, so the events time the calls back to back on
+    the card and not the host's launch rate."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def back_to_back_us(fn, reps=200):
+    """Wall microseconds per call of ``fn`` called back to back and then
+    synchronised: the host's cost per call where it exceeds the card's."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def time_pgd_update(card, shape):
+    """The kernel, its plain version and the bound at ``shape``, with and
+    without the clip: per-call device ms, inputs cycled through 8 sets
+    (192 MB, above the 50 MB L2) so each call reads them from HBM; and the
+    wall time per call back to back."""
+    n = int(np.prod(shape))
+    sets = itertools.cycle([pgd_inputs(shape, 100 + i) for i in range(8)])
+    out = {}
+    for clip in (False, True):
+        kw = dict(gamma=ALFA_GAMMA, eps=ALFA_EPS if clip else None,
+                  clip=clip)
+
+        def call(fn):
+            x, g, c = next(sets)
+            return fn(x, g, c if clip else None, **kw)
+
+        k_ms = queued_ms(lambda: call(kpgd.pgd_update))
+        p_ms = queued_ms(lambda: call(tpgd.pgd_update_plain))
+        k_us = back_to_back_us(lambda: call(tpgd.pgd_update))
+        p_us = back_to_back_us(lambda: call(tpgd.pgd_update_plain))
+        byte_ms = (3 + clip) * 4 * n / HBM_BYTES_PER_S * 1e3
+        op_ms = (PGD_CLIP_OPS if clip else PGD_OPS) * n / F32_OPS_PER_S * 1e3
+        out[clip] = (k_ms, p_ms, byte_ms, op_ms)
+        print(f"    pgd_update {shape} clip={clip}: kernel {k_ms:.5f} ms, "
+              f"plain {p_ms:.5f} ms, bound max(bytes {byte_ms:.5f}, "
+              f"operations {op_ms:.6f}) ms; kernel at "
+              f"{k_ms / max(byte_ms, op_ms):.2f}x its bound; back to back, "
+              f"through ops.pgd_step: {k_us:.1f} us per call with the "
+              f"kernel, {p_us:.1f} us plain ({card})")
+    return out
+
+
+def time_classify(card):
+    """Phase 14; returns the kernel's per-ALFA-step times and bound."""
+    print(f"[14] timing on {card}")
+    x, y = cls_batch(1)
+    medians = {}
+    for mode in ("alfa", "base", "learnable"):
+        _, step = cls_step(mode)
+        t = cuda_samples(lambda: step(x, y), 20)
+        torch.cuda.reset_peak_memory_stats()
+        step(x, y)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        medians[mode] = float(np.median(t))
+        print(f"    {mode} step, ResNet-56, batch {CLS_BATCH}: median "
+              f"{np.median(t):.3f} ms, p90 {np.percentile(t, 90):.3f} ms over "
+              f"{len(t)} steps, {CLS_BATCH * 1e3 / np.median(t):.1f} imgs/s, "
+              f"peak memory {peak:.3f} GiB ({card})")
+        if mode == "alfa":
+            alfa_step = step
+    # the same step with the plain update, in turns with the kernel:
+    # kernel, plain, plain, kernel, three times, 20 steps each
+    turns = {tpgd.pgd_update: [], tpgd.pgd_update_plain: []}
+    for update in (tpgd.pgd_update, tpgd.pgd_update_plain,
+                   tpgd.pgd_update_plain, tpgd.pgd_update) * 3:
+        with patched_update(update):
+            t = cuda_samples(lambda: alfa_step(x, y), 20)
+        turns[update].append(float(np.median(t)))
+    for update, meds in turns.items():
+        print(f"    ALFA step with {update.__name__}: medians of 6 turns of "
+              f"20 steps {[round(m, 3) for m in meds]} ms, their median "
+              f"{np.median(meds):.3f} ms ({card})")
+    profile_step(alfa_step, x, y, n=5, label="ALFA")
+    k_ms, p_ms, byte_ms, op_ms = time_pgd_update(
+        card, (CLS_BATCH, 16, 32, 32))[False]
+    print(f"    pgd_update per ALFA step ({ALFA_STEPS} launches): kernel "
+          f"{ALFA_STEPS * k_ms:.5f} ms = "
+          f"{100 * ALFA_STEPS * k_ms / medians['alfa']:.3f}% of the step, "
+          f"plain {ALFA_STEPS * p_ms:.5f} ms, bound "
+          f"{ALFA_STEPS * max(byte_ms, op_ms):.5f} ms ({card})")
+    return {"ms": ALFA_STEPS * k_ms, "plain_ms": ALFA_STEPS * p_ms,
+            "bound_ms": ALFA_STEPS * max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def classification_phases(card, seg_updates):
+    """Phases 11-14; returns the PGD-update kernel's entry."""
+    errs = []
+    pgd_kernel_vs_plain(seg_updates, errs)
+    launches = train_classify_full_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+    alfa_step_kernel_vs_plain()
+    times = time_classify(card)
+    return {"name": "pgd_update", "route": "cuda",
+            "source": "afan_torch/csrc/pgd_step.cu",
+            "replaces": "afan/ops/kernels/pgd_step.py:40",
+            "launches": launches, "max_abs_err": max(errs), **times,
+            "library_ms": None}
 
 
 def main():
@@ -782,6 +1246,7 @@ def main():
     seconds = kbuild.build_all()
     knms.load_library()
     krce.load_library()
+    kpgd.load_library()
     print(f"[2] built {', '.join(f'{s} in {t:.1f} s' for s, t in seconds.items())}"
           f" (one nvcc each, together {time.time() - t0:.1f} s) into "
           f"{os.path.relpath(kbuild.BUILD_DIR, ROOT)}")
@@ -789,9 +1254,12 @@ def main():
     nms_entry = detection_phases(card)
     gc.collect()
     torch.cuda.empty_cache()
-    seg_entries = segmentation_phases(card)
+    seg_entries, seg_updates = segmentation_phases(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pgd_entry = classification_phases(card, seg_updates)
 
-    print(json.dumps({"kernels": [nms_entry] + seg_entries}))
+    print(json.dumps({"kernels": [nms_entry] + seg_entries + [pgd_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from afan_torch.ops import nms as tnms
+from afan_torch.ops import pgd_step as tpgd
 from afan_torch.ops import resize_ce as trce
 from afan_torch.ops.kernels import nms as knms
+from afan_torch.ops.kernels import pgd_step as kpgd
 from afan_torch.ops.kernels import resize_ce as krce
 
 
@@ -127,3 +129,63 @@ def test_resize_ce_kernel_rejects_what_it_does_not_take(card):
         krce.resize_ce_forward(lo, lab.long())
     with pytest.raises(ValueError):
         krce.resize_ce_forward(lo.transpose(2, 3), lab)
+
+
+def _bits_equal(a, b):
+    """Bit-equal, so that NaN compares equal to NaN of the same bits."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _pgd_inputs(card, n, seed):
+    """x, g, c of n floats; g holds zeros, -0, denormals, NaN and infinities
+    among normal values."""
+    gen = torch.Generator().manual_seed(seed)
+    x, g, c = (torch.randn(n, generator=gen) for _ in range(3))
+    special = torch.tensor([0.0, -0.0, 1e-40, -1e-40, 1e-45, float("nan"),
+                            float("inf"), -float("inf")])
+    pos = torch.randperm(n, generator=gen)[:min(n, 64)]
+    g[pos] = special[torch.arange(len(pos)) % len(special)]
+    return x.to(card), g.to(card), c.to(card)
+
+
+# The PGD update kernel must equal the plain version bit for bit: both round
+# x + f32(gamma) * sign(g) once and clamp to [c - f32(eps), c + f32(eps)].
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,clip", [
+    ((128,), False), ((4, 33, 7), False), ((2, 16, 16, 16), False),
+    ((3, 50), True), ((128, 16, 32, 32), False), ((128, 16, 32, 32), True),
+    ((1001,), True), ((3,), False)])
+def test_pgd_step_kernel_bit_equal_to_plain(card, shape, clip):
+    n = int(np.prod(shape))
+    x, g, c = (t.reshape(shape) for t in _pgd_inputs(card, n, n))
+    kw = dict(gamma=1.5 / 255, eps=2.0 / 255 if clip else None, clip=clip)
+    before = kpgd.launches
+    got = kpgd.pgd_update(x, g, c if clip else None, **kw)
+    want = tpgd.pgd_update_plain(x, g, c if clip else None, **kw)
+    torch.cuda.synchronize()
+    assert kpgd.launches == before + 1
+    assert _bits_equal(got, want)
+    assert _bits_equal(tpgd.pgd_update(x, g, c, **kw), got)
+
+
+@pytest.mark.cuda
+def test_pgd_step_kernel_on_misaligned_views(card):
+    x, g, c = _pgd_inputs(card, 4097, 5)
+    for view in ((x[1:], g[1:], c[1:]), (x[1:], g[:-1], c[:-1])):
+        got = kpgd.pgd_update(*view, gamma=0.01, eps=0.02, clip=True)
+        want = tpgd.pgd_update_plain(*view, gamma=0.01, eps=0.02, clip=True)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_pgd_step_kernel_refuses_what_it_does_not_take(card):
+    x = torch.zeros(8, device=card)
+    with pytest.raises(TypeError):
+        kpgd.pgd_update(x.bfloat16(), x.bfloat16(), gamma=0.1)
+    with pytest.raises(ValueError):
+        kpgd.pgd_update(x.view(2, 4).t(), x.view(2, 4).t(), gamma=0.1)
+    with pytest.raises(ValueError):
+        kpgd.pgd_update(x, x[:4], gamma=0.1)
+    with pytest.raises(ValueError):
+        kpgd.pgd_update(x, x, gamma=0.1, clip=True)
