@@ -27,18 +27,35 @@
 //     pixels in a fixed order to one partial sum per (b, i); sum_rows then
 //     adds the H partials of each entry in a fixed order. No float atomics:
 //     two runs agree bit for bit.
-//   backward (resize_ce_bwd_rows): one block per (low-res row y, entry b),
-//     so that the block owns its (C, w) slice of dlo and needs no atomics.
-//     It walks the output rows i whose two taps include y (about 2 H / h of
-//     them; each output row is therefore recomputed by two blocks). For
-//     each such row it recomputes the logits, writes
-//     g_b * wy * mask * (softmax - onehot) (times d focal / d ce for focal)
-//     for the whole (C, W) row into shared memory, then each thread gathers,
-//     for its (c, x) pairs, the row's output columns whose taps include x
-//     with their W weights, and adds the result into the (C, w) accumulator
-//     in shared memory. After the last row the accumulator is dlo[b, :, y].
-//     The TPU kernel's H-pad to 8 rows and its replicated (8, 128) output
-//     tile were Mosaic workarounds and have no counterpart here.
+//   backward (resize_ce_bwd_bands, the one the path launches): one block
+//     per (band of a few low-res rows, range of low-res columns, entry b).
+//     The band plan (afan_torch/ops/kernels/resize_ce.py:band_plan) gives
+//     each block the rows [y_a, y_b) and columns [x_a, x_b) it owns and the
+//     output rows [i_lo, i_hi) and columns [j_lo, j_hi) whose taps may touch
+//     them; the block owns dlo[b, :, y_a:y_b, x_a:x_b], writes it once and
+//     needs no atomics. At block start it tabulates in shared memory the
+//     column tap weights of its output columns and, for each owned column,
+//     the range of output columns that feed it. Then, for each output row
+//     with a non-zero weight on the band: (1) each pixel's thread forms the
+//     pixel's C logits (in registers when C is 19 or 21, the class counts
+//     of the trainers' datasets), takes one exp per logit and writes
+//     g_b * (softmax - onehot) (times d focal / d ce for focal) into the
+//     row's segment in shared memory, zero where the label is 255; (2) each
+//     thread contracts W for an owned column and four classes from the tap
+//     table and adds the result, times the row's H weights, into the <= 2
+//     owned accumulator rows. Rows are taken in output order and columns in
+//     segment order, so the sums have a fixed order. With m rows per band an
+//     output row is computed by (m + 1) / m blocks on average, where one
+//     block per low-res row computed it twice. What bounds it at the
+//     slice's shapes is instruction issue in (1) (four loads and the 2 x 2
+//     lerp per logit, an exp, the softmax) and shared-memory traffic in
+//     (2), not bytes.
+//   backward, the earlier row design (resize_ce_bwd_rows): one block per
+//     (low-res row y, entry b); it walks the output rows whose taps include
+//     y, recomputing each output row twice and each logit three times per
+//     visit. Only the timing comparison with the band kernel launches it.
+//   The TPU kernel's H-pad to 8 rows and its replicated (8, 128) output tile
+//   were Mosaic workarounds and have no counterpart here.
 //
 // Precision: everything is f32 with IEEE exp/log (no fast math) and no
 // tensor cores. The build passes -fmad=false; the one contraction that
@@ -228,12 +245,238 @@ __global__ void resize_ce_bwd_rows(const float* __restrict__ lo,
   }
 }
 
+constexpr int kPlanCols = 8;      // y_a, y_b, i_lo, i_hi, x_a, x_b, j_lo, j_hi
+constexpr int kBandMinBlocks = 3; // blocks per SM the band kernel is built for
+
+// Advances the flattened index (c, r) of a (C, n) grid by `step`.
+__device__ __forceinline__ void advance(int& c, int& r, int n, int step) {
+  r += step;
+  while (r >= n) {
+    r -= n;
+    ++c;
+  }
+}
+
+// Where segment column q lives in a shared per-column array: grouped by
+// q mod 4, each group in column order, Q words apart. In the contraction a
+// warp's threads take neighbouring owned columns, whose feeding segment
+// columns are W / w apart, 4 at every site of the path (the decoder's logits
+// are at a quarter of the crop): in column order their 32 reads would share 8
+// banks, grouped they take 32. With Q = 8 mod 32 the 32 consecutive columns
+// that a warp takes in the per-pixel pass fall on 32 banks as well.
+__device__ __forceinline__ int seg_index(int q, int Q) {
+  return (q & 3) * Q + (q >> 2);
+}
+
+__host__ __device__ __forceinline__ int seg_quarter(int seg) {
+  const int Q = (seg + 3) >> 2;
+  return Q + (40 - Q % 32) % 32;
+}
+
+// Shared memory (4-byte words) of one band block: the accumulator
+// (C, rows, cols), the row's segment (C, 4 Q), the upper tap weight of each
+// segment column (4 Q) and the feeding ranges of each owned column (3, cols).
+// At the slice's shapes three blocks take 3 x 62.1 KB, within the SM's
+// 196 KB carve-out, which leaves 60 KB of L1 for the low-res rows.
+__host__ __device__ __forceinline__ int band_smem_words(int C, int rows,
+                                                        int cols, int seg) {
+  return C * rows * cols + (C + 1) * 4 * seg_quarter(seg) + 3 * cols;
+}
+
+// The factor of d loss / d logits for one pixel: g, or for focal loss g
+// times d focal / d ce at ce = m + log(s) - picked.
+__device__ __forceinline__ float pixel_coef(float g, float m, float s,
+                                            float picked, int focal,
+                                            float alpha, float gamma) {
+  if (!focal) return g;
+  const float ce = m + logf(s) - picked;
+  const float e = expf(-ce);
+  const float ome = 1.0f - e;
+  return g * (alpha * (powf(ome, gamma) +
+                       ce * gamma * powf(ome, gamma - 1.0f) * e));
+}
+
+// One labelled pixel of the segment: its C logits (W first, then H, as
+// torch's upsample), then g * (softmax - onehot) (times the focal factor)
+// into z[k * stride], one exp per logit. With the class count kC known at
+// compile time the logits stay in registers; otherwise (kC = 0) they pass
+// through z.
+template <int kC>
+__device__ __forceinline__ void pixel_cotangent(
+    const float* __restrict__ lo_b, int C, size_t plane, int w,
+    const Tap& ty, const Tap& tx, int lab, float g, int focal, float alpha,
+    float gamma, float* z, int stride) {
+  float m = -INFINITY, s = 0.0f, picked = 0.0f;
+  if constexpr (kC > 0) {
+    float e[kC];
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      e[k] = logit(lo_b + k * plane, w, ty, tx);
+      m = fmaxf(m, e[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      if (k == lab) picked = e[k];
+      e[k] = expf(e[k] - m);
+      s += e[k];
+    }
+    const float coef = pixel_coef(g, m, s, picked, focal, alpha, gamma);
+    const float inv = 1.0f / s;
+#pragma unroll
+    for (int k = 0; k < kC; ++k)
+      z[k * stride] = coef * (e[k] * inv - (k == lab ? 1.0f : 0.0f));
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < C; ++k) {
+      const float zk = logit(lo_b + k * plane, w, ty, tx);
+      z[k * stride] = zk;
+      m = fmaxf(m, zk);
+    }
+#pragma unroll 4
+    for (int k = 0; k < C; ++k) {
+      const float zk = z[k * stride];
+      if (k == lab) picked = zk;
+      const float ek = expf(zk - m);
+      z[k * stride] = ek;
+      s += ek;
+    }
+    const float coef = pixel_coef(g, m, s, picked, focal, alpha, gamma);
+    const float inv = 1.0f / s;
+#pragma unroll 4
+    for (int k = 0; k < C; ++k)
+      z[k * stride] = coef * (z[k * stride] * inv - (k == lab ? 1.0f : 0.0f));
+  }
+}
+
+template <int kC>
+__global__ void __launch_bounds__(kThreads, kBandMinBlocks)
+resize_ce_bwd_bands(const float* __restrict__ lo,
+                    const int32_t* __restrict__ labels,
+                    const float* __restrict__ gout,
+                    const int32_t* __restrict__ plan, int C, int h, int w,
+                    int H, int W, float sy, float sx, int rows_max,
+                    int cols_max, int seg_max, int focal, float alpha,
+                    float gamma, float* __restrict__ dlo) {
+  const int32_t* p = plan + (size_t)blockIdx.x * kPlanCols;
+  const int ya = p[0], yb = p[1], i_lo = p[2], i_hi = p[3];
+  const int xa = p[4], xb = p[5], j_lo = p[6], j_hi = p[7];
+  const int nx = xb - xa, nj = j_hi - j_lo;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int Q = seg_quarter(seg_max), S = 4 * Q;
+  extern __shared__ float smem[];
+  float* acc = smem;                          // (C, rows_max, cols_max)
+  float* seg = acc + C * rows_max * cols_max; // (C, S): the row's segment
+  float* tl1 = seg + C * S;                   // upper tap weight; l0 = 1 - l1
+  int* feed = reinterpret_cast<int*>(tl1 + S); // (3, cols_max)
+  const size_t plane = (size_t)h * w;
+  const float* lo_b = lo + (size_t)b * C * plane;
+  const float g = gout[b];
+  const int groups = (C + 3) >> 2;
+
+  for (int k = tid; k < C * rows_max * cols_max; k += nt) acc[k] = 0.0f;
+  for (int q = tid; q < nj; q += nt)
+    tl1[seg_index(q, Q)] = source_tap(j_lo + q, sx, w).l1;
+  // The lower tap is nondecreasing in j. Owned column x takes the upper
+  // weight of the segment columns [feed0, feed1) (lower tap x - 1) and the
+  // lower weight of [feed1, feed2) (lower tap x); feed_k is the first column
+  // whose lower tap is at least x - 1 + k.
+  for (int xx = tid; xx < nx; xx += nt) {
+    for (int k = 0; k < 3; ++k) {
+      int a = 0, e = nj;
+      while (a < e) {
+        const int mid = (a + e) >> 1;
+        if (source_tap(j_lo + mid, sx, w).i0 < xa + xx - 1 + k) a = mid + 1;
+        else e = mid;
+      }
+      feed[k * cols_max + xx] = a;
+    }
+  }
+
+  const int32_t* lab_b = labels + (size_t)b * H * W + j_lo;
+  for (int i = i_lo; i < i_hi; ++i) {
+    const Tap ty = source_tap(i, sy, h);
+    // the row's H weights on the band's rows (the same in every thread)
+    const float wy0 = ty.i0 >= ya && ty.i0 < yb ? tap_weight(ty, ty.i0) : 0.0f;
+    const float wy1 =
+        ty.i1 != ty.i0 && ty.i1 >= ya && ty.i1 < yb ? ty.l1 : 0.0f;
+    if (wy0 == 0.0f && wy1 == 0.0f) continue;
+    __syncthreads();              // the previous row's contraction is done
+
+    // (1) per pixel of the segment, in place: g * (softmax - onehot), times
+    // the focal factor; zero where the label is ignored
+    const int32_t* lab_row = lab_b + (size_t)i * W;
+    for (int q = tid; q < nj; q += nt) {
+      float* z = seg + seg_index(q, Q);
+      const int lab = lab_row[q];
+      if (lab == kIgnore) {
+        for (int k = 0; k < C; ++k) z[k * S] = 0.0f;
+      } else {
+        pixel_cotangent<kC>(lo_b, C, plane, w, ty,
+                            source_tap(j_lo + q, sx, w), lab, g, focal,
+                            alpha, gamma, z, S);
+      }
+    }
+    __syncthreads();
+
+    // (2) W contraction of each owned column in segment order, four
+    // classes at a time so that each tap weight is read once for four; H
+    // into the band's rows
+    int cg = tid / nx, xx = tid - cg * nx;
+    for (; cg < groups; advance(cg, xx, nx, nt)) {
+      const int c0 = 4 * cg, nc = min(4, C - c0);
+      const float* srow = seg + c0 * S;
+      const int f0 = feed[xx], f1 = feed[cols_max + xx];
+      const int f2 = feed[2 * cols_max + xx];
+      const bool last = xa + xx == w - 1;   // both taps on the last column
+      float r[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int q = f0; q < f2; ++q) {
+        const int at = seg_index(q, Q);
+        const float l1 = tl1[at];
+        const float wx = q < f1 ? l1 : last ? (1.0f - l1) + l1 : 1.0f - l1;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (u < nc) r[u] += wx * srow[u * S + at];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (u >= nc) break;
+        float* a = acc + (c0 + u) * rows_max * cols_max + xx;
+        if (wy0 != 0.0f) a[(ty.i0 - ya) * cols_max] += wy0 * r[u];
+        if (wy1 != 0.0f) a[(ty.i1 - ya) * cols_max] += wy1 * r[u];
+      }
+    }
+  }
+  __syncthreads();
+  const int ny = yb - ya;
+  for (int k = tid; k < C * ny * nx; k += nt) {
+    const int c = k / (ny * nx), rem = k - c * ny * nx;
+    const int yy = rem / nx, xx = rem - yy * nx;
+    dlo[(((size_t)b * C + c) * h + ya + yy) * w + xa + xx] =
+        acc[(c * rows_max + yy) * cols_max + xx];
+  }
+}
+
+// The band kernel for C classes: the two class counts of the trainers'
+// datasets (19 Cityscapes, 21 VOC) keep each pixel's logits in registers.
+const void* band_kernel(int C) {
+  if (C == 19) return (const void*)resize_ce_bwd_bands<19>;
+  if (C == 21) return (const void*)resize_ce_bwd_bands<21>;
+  return (const void*)resize_ce_bwd_bands<0>;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) one backward block needs.
-int afan_resize_ce_bwd_smem(int C, int w, int W) {
+// Shared memory (bytes) one block of the band backward needs, for at most
+// `rows` owned rows, `cols` owned columns and `seg` visited output columns.
+int afan_resize_ce_bwd_bands_smem(int C, int rows, int cols, int seg) {
+  return band_smem_words(C, rows, cols, seg) * 4;
+}
+
+// Shared memory (bytes) one block of the row backward needs.
+int afan_resize_ce_bwd_rows_smem(int C, int w, int W) {
   return (int)((size_t)C * (W + w) * sizeof(float));
 }
 
@@ -255,14 +498,38 @@ int afan_resize_ce_forward(const float* lo, const int32_t* labels, int B,
 }
 
 // gout (B,) f32 is the cotangent of the forward's sums; dlo (B, C, h, w) f32
-// receives d(sum_b gout[b] * sums[b]) / d lo. Every element of dlo is
+// receives d(sum_b gout[b] * sums[b]) / d lo. `plan` holds n_plan rows of 8
+// int32 (y_a, y_b, i_lo, i_hi, x_a, x_b, j_lo, j_hi), one block each, whose
+// owned ranges tile [0, h) x [0, w); rows, cols and seg are the largest
+// y_b - y_a, x_b - x_a and j_hi - j_lo among them. Every element of dlo is
 // written.
 int afan_resize_ce_backward(const float* lo, const int32_t* labels,
-                            const float* gout, int B, int C, int h, int w,
-                            int H, int W, int focal, float alpha, float gamma,
-                            float* dlo, void* stream) {
+                            const float* gout, const int32_t* plan,
+                            int n_plan, int B, int C, int h, int w, int H,
+                            int W, int rows, int cols, int seg, int focal,
+                            float alpha, float gamma, float* dlo,
+                            void* stream) {
+  const void* fn = band_kernel(C);
+  const int smem = afan_resize_ce_bwd_bands_smem(C, rows, cols, seg);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float sy = (float)h / (float)H, sx = (float)w / (float)W;
+  void* args[] = {&lo, &labels, &gout, &plan, &C, &h, &w, &H, &W, &sy, &sx,
+                  &rows, &cols, &seg, &focal, &alpha, &gamma, &dlo};
+  return static_cast<int>(cudaLaunchKernel(fn, dim3(n_plan, B), kThreads,
+                                           args, smem,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+// The same function by the row kernel (one block per low-res row), kept to
+// be timed against the band kernel.
+int afan_resize_ce_backward_rows(const float* lo, const int32_t* labels,
+                                 const float* gout, int B, int C, int h,
+                                 int w, int H, int W, int focal, float alpha,
+                                 float gamma, float* dlo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = afan_resize_ce_bwd_smem(C, w, W);
+  const int smem = afan_resize_ce_bwd_rows_smem(C, w, W);
   cudaError_t err = cudaFuncSetAttribute(
       resize_ce_bwd_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -272,6 +539,31 @@ int afan_resize_ce_backward(const float* lo, const int32_t* labels,
       lo, labels, gout, C, h, w, H, W, sy, sx, inv_sy, inv_sx, focal, alpha,
       gamma, dlo);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the card made of a backward kernel (the band kernel for C classes,
+// or the row kernel when `rows_kernel` is set) at `smem` bytes of dynamic
+// shared memory: out[0] registers per thread, out[1] local memory (spill)
+// bytes per thread, out[2] static shared bytes, out[3] resident blocks per
+// SM.
+int afan_resize_ce_bwd_info(int rows_kernel, int C, int smem, int* out) {
+  const void* fn = rows_kernel ? (const void*)resize_ce_bwd_rows
+                               : band_kernel(C);
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = blocks;
+  return 0;
 }
 
 }  // extern "C"

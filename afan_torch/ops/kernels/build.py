@@ -4,8 +4,9 @@ Each ``afan_torch/csrc/<name>.cu`` is compiled by its own ``nvcc`` for
 ``sm_90a`` into ``build/kernels/`` (git-ignored) at first use, under a name
 that hashes the source and the flags, so an edited source is rebuilt and an
 unchanged one is not. :func:`build_all` starts one ``nvcc`` per source at
-once and waits for all of them. The kernel modules load the result with
-``ctypes``.
+once and waits for all of them, and keeps what ``ptxas -v`` said of each
+kernel (registers, shared memory, spills) beside the library
+(:func:`build_log`). The kernel modules load the result with ``ctypes``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ BUILD_DIR = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
                  "kernels"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("nms.cu", "resize_ce.cu", "pgd_step.cu")
 
 
@@ -46,6 +47,16 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"libafan_{stem}-{h.hexdigest()[:12]}.so")
 
 
+def build_log(source: str) -> str:
+    """What the compiler printed when it built ``source`` ("" when the
+    build directory has no record of it)."""
+    path = os.path.splitext(library_path(source))[0] + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
 def build_all(sources: Sequence[str] = SOURCES) -> Dict[str, float]:
     """Compile every source whose library is missing, one ``nvcc`` each,
     all started together. Returns each source's build seconds (0.0 when the
@@ -65,11 +76,13 @@ def build_all(sources: Sequence[str] = SOURCES) -> Dict[str, float]:
     seconds = {s: 0.0 for s in sources}
     errors = []
     for source, (proc, tmp, out, t0) in started.items():
-        _, err = proc.communicate()
+        said, err = proc.communicate()
         seconds[source] = time.time() - t0
         if proc.returncode != 0:
             errors.append(f"nvcc {source} failed ({proc.returncode}):\n{err}")
         else:
+            with open(os.path.splitext(out)[0] + ".log", "w") as f:
+                f.write(said + err)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))

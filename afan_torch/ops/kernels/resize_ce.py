@@ -10,28 +10,42 @@ with ``nvcc`` for ``sm_90a`` at first use (:mod:`.build`) and bound with
 :func:`resize_ce_forward` returns the per-entry sums ``(B,)`` of the
 255-masked CE (or focal) loss of the ``align_corners=False`` bilinear
 upsample of logits ``(B, C, h, w)`` to the labels' ``(H, W)``;
-:func:`resize_ce_backward` returns ``d(sum_b g[b] * sums[b]) / d lo``. Each
-takes CUDA tensors only, and launches its kernel or raises; the choice of
-the plain PyTorch version for a CPU tensor is made once, in
+:func:`resize_ce_backward` returns ``d(sum_b g[b] * sums[b]) / d lo`` by
+the band kernel, one block per (band of ``BAND_ROWS`` low-res rows, one of
+``COL_SPLITS`` column ranges, entry), laid out by :func:`band_plan`;
+:func:`resize_ce_backward_rows` computes the same by the earlier row kernel
+(one block per low-res row), which the port's path never calls: it is kept
+to be timed against the band kernel. Each takes CUDA tensors only, and
+launches its kernel or raises; the choice of the plain PyTorch version for
+a CPU tensor is made once, in
 :func:`afan_torch.ops.resize_ce.fused_resize_nll_sums`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .build import build
 
 SMEM_LIMIT = 232448        # dynamic shared memory one block may use on sm_90
 MAX_BATCH = 65535          # grid.y
+# The band backward: low-res rows per band, and column ranges per band. Four
+# rows make an output row's recompute (m + 1) / m = 1.25x; two column ranges
+# put 4 * 48 * 2 = 384 blocks in the one wave of 3 x 132 slots at B = 4,
+# 192 -> 768.
+BAND_ROWS = 4
+COL_SPLITS = 2
 
 # Kernel launches since the last reset; a run sets them to 0 and reads them
 # after.
 fwd_launches = 0
 bwd_launches = 0
+bwd_rows_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -44,20 +58,95 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build("resize_ce.cu"))
-            lib.afan_resize_ce_bwd_smem.restype = ctypes.c_int
-            lib.afan_resize_ce_bwd_smem.argtypes = [ctypes.c_int] * 3
-            common = [ctypes.c_int] * 6 + [ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_float]
-            lib.afan_resize_ce_forward.restype = ctypes.c_int
-            lib.afan_resize_ce_forward.argtypes = (
-                [ctypes.c_void_p, ctypes.c_void_p] + common
-                + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-            lib.afan_resize_ce_backward.restype = ctypes.c_int
-            lib.afan_resize_ce_backward.argtypes = (
-                [ctypes.c_void_p] * 3 + common
-                + [ctypes.c_void_p, ctypes.c_void_p])
+            focal = [ctypes.c_int, ctypes.c_float, ctypes.c_float]
+            common = [ctypes.c_int] * 6 + focal
+            signatures = {
+                "afan_resize_ce_bwd_bands_smem": [ctypes.c_int] * 4,
+                "afan_resize_ce_bwd_rows_smem": [ctypes.c_int] * 3,
+                "afan_resize_ce_forward": [ctypes.c_void_p] * 2 + common
+                + [ctypes.c_void_p] * 3,
+                "afan_resize_ce_backward": [ctypes.c_void_p] * 4
+                + [ctypes.c_int] * 10 + focal + [ctypes.c_void_p] * 2,
+                "afan_resize_ce_backward_rows": [ctypes.c_void_p] * 3
+                + common + [ctypes.c_void_p] * 2,
+                "afan_resize_ce_bwd_info": [ctypes.c_int] * 3
+                + [ctypes.c_void_p],
+            }
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             _lib = lib
     return _lib
+
+
+def source_taps(n_out: int, n_in: int) -> Tuple[np.ndarray, ...]:
+    """The kernels' ``source_tap`` for every output index: lower and upper
+    source index and their weights. The source index is
+    ``fmaf(scale, dst + 0.5, -0.5)`` in float32; the product and the
+    subtraction are exact in float64, so one rounding to float32 gives the
+    same value."""
+    scale = np.float32(n_in) / np.float32(n_out)
+    src = (np.float64(scale) * (np.arange(n_out) + 0.5) - 0.5)
+    src = np.maximum(src.astype(np.float32), np.float32(0.0))
+    i0 = np.minimum(src.astype(np.int64), n_in - 1)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    l1 = src - i0.astype(np.float32)
+    return i0, i1, np.float32(1.0) - l1, l1
+
+
+def _touching(n_out: int, n_in: int, step: int):
+    """Cut [0, n_in) into ranges of ``step``; for each, the output range
+    that holds every output index with a non-zero weight on it, widened by
+    one index on each side (the kernel skips exact zero weights). A range
+    that no output index touches gets an empty output range."""
+    i0, i1, _, l1 = source_taps(n_out, n_in)
+    out = []
+    for a in range(0, n_in, step):
+        b = min(a + step, n_in)
+        hit = np.nonzero(((i0 >= a) & (i0 < b))
+                         | ((i1 >= a) & (i1 < b) & (l1 != 0)))[0]
+        lo_, hi_ = ((max(int(hit[0]) - 1, 0), min(int(hit[-1]) + 2, n_out))
+                    if hit.size else (0, 0))
+        out.append((a, b, lo_, hi_))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def band_plan(h: int, w: int, H: int, W: int) -> np.ndarray:
+    """The band backward's blocks for one geometry: an ``(n, 8)`` int32
+    array, one row per block, ``(y_a, y_b, i_lo, i_hi, x_a, x_b, j_lo,
+    j_hi)``. The block owns low-res rows [y_a, y_b) and columns [x_a, x_b)
+    (bands of ``BAND_ROWS`` rows, each cut into ``COL_SPLITS`` column
+    ranges: together they tile [0, h) x [0, w) once) and visits the output
+    rows [i_lo, i_hi) and columns [j_lo, j_hi), which hold every output
+    index with a non-zero bilinear weight on what it owns."""
+    bands = _touching(H, h, BAND_ROWS)
+    cols = _touching(W, w, -(-w // COL_SPLITS))
+    plan = np.array([r + c for r in bands for c in cols], dtype=np.int32)
+    plan.setflags(write=False)
+    return plan
+
+
+def _plan_sizes(plan: np.ndarray) -> Tuple[int, int, int]:
+    """The largest owned row count, owned column count and visited output
+    column count of a plan's blocks: they size the shared memory."""
+    return (int((plan[:, 1] - plan[:, 0]).max()),
+            int((plan[:, 5] - plan[:, 4]).max()),
+            int((plan[:, 7] - plan[:, 6]).max()))
+
+
+_device_plans: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_plan(h: int, w: int, H: int, W: int,
+                 device: torch.device) -> torch.Tensor:
+    """:func:`band_plan` on ``device``, copied once per geometry."""
+    key = (h, w, H, W, device)
+    if key not in _device_plans:
+        _device_plans[key] = torch.from_numpy(
+            band_plan(h, w, H, W).copy()).to(device)
+    return _device_plans[key]
 
 
 def _check(lo: torch.Tensor, labels: torch.Tensor) -> None:
@@ -115,11 +204,8 @@ def resize_ce_forward(lo: torch.Tensor, labels: torch.Tensor,
     return out
 
 
-def resize_ce_backward(lo: torch.Tensor, labels: torch.Tensor,
-                       gout: torch.Tensor, focal: Focal = None
-                       ) -> torch.Tensor:
-    """``d(sum_b gout[b] * sums[b]) / d lo``, shaped like ``lo``."""
-    global bwd_launches
+def _backward_inputs(lo: torch.Tensor, labels: torch.Tensor,
+                     gout: torch.Tensor) -> None:
     _check(lo, labels)
     if tuple(gout.shape) != (lo.shape[0],):
         raise ValueError(f"gout must be ({lo.shape[0]},), got "
@@ -127,24 +213,85 @@ def resize_ce_backward(lo: torch.Tensor, labels: torch.Tensor,
     _check_card(lo, labels)
     if gout.dtype != torch.float32 or not gout.is_contiguous():
         raise ValueError("gout must be contiguous float32")
+
+
+def _check_smem(smem: int, what: str) -> None:
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"resize+CE backward needs {smem} bytes of shared "
+                         f"memory for {what}; the card gives {SMEM_LIMIT}")
+
+
+def resize_ce_backward(lo: torch.Tensor, labels: torch.Tensor,
+                       gout: torch.Tensor, focal: Focal = None
+                       ) -> torch.Tensor:
+    """``d(sum_b gout[b] * sums[b]) / d lo``, shaped like ``lo``, by the
+    band kernel."""
+    global bwd_launches
+    _backward_inputs(lo, labels, gout)
     b, c, h, w = lo.shape
     H, W = labels.shape[1:]
     lib = load_library()
-    smem = lib.afan_resize_ce_bwd_smem(c, w, W)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"resize+CE backward needs {smem} bytes of shared "
-                         f"memory for C={c}, w={w}, W={W}; the card gives "
-                         f"{SMEM_LIMIT}")
+    rows, cols, seg = _plan_sizes(band_plan(h, w, H, W))
+    _check_smem(lib.afan_resize_ce_bwd_bands_smem(c, rows, cols, seg),
+                f"C={c}, {rows} rows, {cols} columns, {seg} output columns")
     dlo = torch.empty_like(lo)
     if b == 0:
         return dlo
+    plan = _device_plan(h, w, H, W, lo.device)
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.afan_resize_ce_backward(
-            lo.data_ptr(), labels.data_ptr(), gout.data_ptr(), b, c, h, w, H,
-            W, *_focal_args(focal), dlo.data_ptr(), stream)
+            lo.data_ptr(), labels.data_ptr(), gout.data_ptr(),
+            plan.data_ptr(), plan.shape[0], b, c, h, w, H, W, rows, cols,
+            seg, *_focal_args(focal), dlo.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"resize+CE backward launch failed: CUDA error "
                            f"{err}")
     bwd_launches += 1
     return dlo
+
+
+def resize_ce_backward_rows(lo: torch.Tensor, labels: torch.Tensor,
+                            gout: torch.Tensor, focal: Focal = None
+                            ) -> torch.Tensor:
+    """The same as :func:`resize_ce_backward`, by the row kernel."""
+    global bwd_rows_launches
+    _backward_inputs(lo, labels, gout)
+    b, c, h, w = lo.shape
+    H, W = labels.shape[1:]
+    lib = load_library()
+    _check_smem(lib.afan_resize_ce_bwd_rows_smem(c, w, W),
+                f"C={c}, w={w}, W={W}")
+    dlo = torch.empty_like(lo)
+    if b == 0:
+        return dlo
+    with torch.cuda.device(lo.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.afan_resize_ce_backward_rows(
+            lo.data_ptr(), labels.data_ptr(), gout.data_ptr(), b, c, h, w, H,
+            W, *_focal_args(focal), dlo.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"resize+CE row backward launch failed: CUDA "
+                           f"error {err}")
+    bwd_rows_launches += 1
+    return dlo
+
+
+def backward_kernel_info(c: int, h: int, w: int, H: int, W: int,
+                         rows_kernel: bool = False) -> Dict[str, int]:
+    """Registers and local (spill) bytes per thread, static and dynamic
+    shared bytes per block and resident blocks per SM of the band kernel
+    (or the row kernel) at one geometry, as the card reports them."""
+    lib = load_library()
+    if rows_kernel:
+        smem = lib.afan_resize_ce_bwd_rows_smem(c, w, W)
+    else:
+        rows, cols, seg = _plan_sizes(band_plan(h, w, H, W))
+        smem = lib.afan_resize_ce_bwd_bands_smem(c, rows, cols, seg)
+    out = (ctypes.c_int * 4)()
+    err = lib.afan_resize_ce_bwd_info(int(rows_kernel), c, smem, out)
+    if err != 0:
+        raise RuntimeError(f"resize+CE backward attributes: CUDA error {err}")
+    return {"registers": out[0], "local_bytes": out[1],
+            "static_smem": out[2], "dynamic_smem": smem,
+            "blocks_per_sm": out[3]}

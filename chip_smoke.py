@@ -4,6 +4,13 @@ Run from the repository root, with one card and no arguments:
 
     python3 chip_smoke.py
 
+``--only ce`` runs phases 1, 2, 7 and the kernel timings of phase 10 (the
+upsample + CE kernels alone, no trainer); ``--only seg`` phases 1, 2 and
+7-10; ``--only det`` phases 1-6; ``--only cls`` phases 1, 2 and 11-14 (phase
+11 then lacks the segmentation ascents' shapes). The kernels line then lists
+the kernels of the phases that ran; without phase 8 the upsample + CE
+kernels have no launch count (null).
+
 Phases (any failure exits non-zero):
   1. the device: name, power limit, TF32 settings;
   2. build the hand-written CUDA kernels from afan_torch/csrc, one nvcc per
@@ -20,20 +27,28 @@ Phases (any failure exits non-zero):
   6. time the detect call, the kernel and its plain version with CUDA
      events, and the peak memory;
   7. hold the upsample + CE forward and backward kernels against their
-     plain version on six geometries (city768, city512, voc513 with odd H,
-     two focal cases, tiny32): sums within 1e-5, gradient within 1.1e-5
-     (max abs error over max abs value);
+     plain version on twelve geometries (city768 at B=2 and B=8, city512,
+     voc513 with odd H, two focal cases, tiny32, 9x7 -> 33x28, 1x1 -> 4x4,
+     6x5 -> 24x20, an entry whose labels are all 255): sums within 1e-5,
+     gradient within 1.1e-5 (max abs error over max abs value), two runs
+     bit-equal; the band backward against the earlier row backward within
+     the same 1.1e-5;
   8. train the A-FAN DeepLabv3+ ResNet-50 at full width through
      ``afan_torch.cli.train_segment.main`` (Cityscapes final recipe: OS 16,
      19 classes, crop 768, batch 4, SE tap 2, SD concat, mix_sd, synthetic
      data, seeded random weights) for a few iterations and one validation:
-     finite losses, a checkpoint, and the kernels' launch counts;
+     finite losses, a checkpoint, and the kernels' launch counts (the row
+     backward never launched);
   9. one A-FAN step with the kernels against one with the plain op, from
      the same weights, batch and dropout masks (cuDNN deterministic, no
      TF32): losses within 1e-4, logits-conv gradient within 1e-4;
- 10. time the A-FAN and base steps and their peak memory, profile where
+ 10. time the A-FAN and base steps and their peak memory, the A-FAN step
+     with the row backward in turns with the band backward, profile where
      the A-FAN step's device time goes, and time each kernel, its plain
-     version and the library composition at the step's shapes;
+     version and the library composition at the step's shapes; the band
+     backward and the row backward in turns (row, band, band, row), with
+     what ptxas and the card report of each (registers, shared memory,
+     spills, blocks per SM);
  11. hold the PGD-update kernel against its plain PyTorch version, bit for
      bit (NaN included): the sizes of tests/test_kernels.py, odd counts,
      misaligned views, the ALFA and learnable tap shapes and the
@@ -128,14 +143,23 @@ CE_LERP_OPS = 3
 CE_LSE_OPS = 4
 CE_SOFTMAX_GRAD_OPS = 3
 CE_PIXEL_OPS = 3
-# (name, B, H (out), h (in), C, focal): scripts/smoke_fused_ce_tpu.py:27-34
+# (name, B, (h, w) in, (H, W) out, C, focal): the first six are
+# scripts/smoke_fused_ce_tpu.py:27-34; then the A-FAN step's B=8 spectrum
+# site and the band plan's edges (tests/test_torch_resize_ce.py:PLAN_CASES):
+# odd sizes, a single low-res pixel, h not a multiple of the band's rows and
+# odd w; "all_ignored" gives its last entry only 255 labels.
 CE_CASES = [
-    ("city768", 2, 768, 192, 19, None),
-    ("city512", 2, 512, 128, 19, None),
-    ("voc513", 2, 513, 129, 21, None),
-    ("voc513_focal", 2, 513, 129, 21, (1.0, 2.0)),
-    ("city768_focal", 2, 768, 192, 19, (1.0, 2.0)),
-    ("tiny32", 2, 32, 8, 4, None),
+    ("city768", 2, (192, 192), (768, 768), 19, None),
+    ("city512", 2, (128, 128), (512, 512), 19, None),
+    ("voc513", 2, (129, 129), (513, 513), 21, None),
+    ("voc513_focal", 2, (129, 129), (513, 513), 21, (1.0, 2.0)),
+    ("city768_focal", 2, (192, 192), (768, 768), 19, (1.0, 2.0)),
+    ("tiny32", 2, (8, 8), (32, 32), 4, None),
+    ("city768_b8", 8, (192, 192), (768, 768), 19, None),
+    ("odd9x7", 2, (9, 7), (33, 28), 5, None),
+    ("one_pixel", 2, (1, 1), (4, 4), 4, None),
+    ("h6_w5", 2, (6, 5), (24, 20), 3, (1.0, 2.0)),
+    ("all_ignored", 2, (128, 128), (512, 512), 19, None),
 ]
 CE_SUM_TOL, CE_GRAD_TOL = 1e-5, 1.1e-5
 SEG_MODEL, SEG_CROP, SEG_BATCH, SEG_ITRS = "deeplabv3plus_resnet50", 768, 4, 6
@@ -466,13 +490,16 @@ def rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-def ce_inputs(B, H, h, C, seed=0):
-    """Seeded logits (B, C, h, h), labels (B, H, H) with an ignored corner,
-    and a per-entry cotangent."""
+def ce_inputs(B, hw, HW, C, seed=0, all_ignored=False):
+    """Seeded logits (B, C, h, w), labels (B, H, W) with an ignored corner
+    (and, with ``all_ignored``, a last entry of ignored labels only), and a
+    per-entry cotangent."""
     rng = np.random.RandomState(seed)
-    lo = cuda(rng.randn(B, C, h, h).astype(np.float32))
-    lab = rng.randint(0, C, (B, H, H)).astype(np.int32)
+    lo = cuda(rng.randn(B, C, *hw).astype(np.float32))
+    lab = rng.randint(0, C, (B, *HW)).astype(np.int32)
     lab[:, :3, :3] = 255
+    if all_ignored:
+        lab[-1] = 255
     g = cuda(np.linspace(0.5, 1.5, B).astype(np.float32))
     return lo, cuda(lab), g
 
@@ -511,31 +538,38 @@ def patched_site_op(fn):
 
 
 def ce_kernels_vs_plain(errs):
-    """Phase 7: both kernels against the plain version on the six
-    geometries; appends the largest absolute errors to ``errs``."""
+    """Phase 7: both kernels against the plain version on the geometries
+    of ``CE_CASES``; appends the largest absolute errors to ``errs``."""
     print("[7] upsample + CE kernels vs plain version")
-    for name, B, H, h, C, focal in CE_CASES:
-        lo, lab, g = ce_inputs(B, H, h, C)
+    for name, B, hw, HW, C, focal in CE_CASES:
+        lo, lab, g = ce_inputs(B, hw, HW, C, all_ignored=name == "all_ignored")
         sums = krce.resize_ce_forward(lo, lab, focal)
         dlo = krce.resize_ce_backward(lo, lab, g, focal)
         again = (krce.resize_ce_forward(lo, lab, focal),
                  krce.resize_ce_backward(lo, lab, g, focal))
-        want_s = trce.fused_resize_nll_sums_plain(lo, lab, (H, H), focal)
+        rows = krce.resize_ce_backward_rows(lo, lab, g, focal)
+        want_s = trce.fused_resize_nll_sums_plain(lo, lab, HW, focal)
         want_d = trce.resize_ce_grad_plain(lo, lab, g, focal)
         torch.cuda.synchronize()
         es, eg = rel_err(sums, want_s), rel_err(dlo, want_d)
+        er = rel_err(dlo, rows)
         errs["fwd"].append(float((sums - want_s).abs().max()))
         errs["bwd"].append(float((dlo - want_d).abs().max()))
-        print(f"  {name}: B={B} {h}->{H} C={C} focal={focal}: sums rel "
-              f"{es:.3e}, grad rel {eg:.3e}, repeat bit-equal "
-              f"{torch.equal(again[0], sums) and torch.equal(again[1], dlo)}")
+        repeat = torch.equal(again[0], sums) and torch.equal(again[1], dlo)
+        print(f"  {name}: B={B} {hw}->{HW} C={C} focal={focal}: sums rel "
+              f"{es:.3e}, grad rel {eg:.3e}, band vs row backward rel "
+              f"{er:.3e}, repeat bit-equal {repeat}")
         require(es <= CE_SUM_TOL, f"{name}: sums rel err {es} > {CE_SUM_TOL}")
         require(eg <= CE_GRAD_TOL,
                 f"{name}: grad rel err {eg} > {CE_GRAD_TOL}")
-        require(torch.equal(again[0], sums) and torch.equal(again[1], dlo),
-                f"{name}: two runs of the kernels differ")
+        require(er <= CE_GRAD_TOL,
+                f"{name}: band vs row backward rel err {er} > {CE_GRAD_TOL}")
+        require(repeat, f"{name}: two runs of the kernels differ")
+        if name == "all_ignored":
+            require(float(sums[-1]) == 0.0 and not dlo[-1].any(),
+                    "an entry of ignored labels has a loss or a gradient")
     # the autograd Function on a CUDA tensor goes through both kernels
-    lo, lab, g = ce_inputs(2, 768, 192, 19, seed=1)
+    lo, lab, g = ce_inputs(2, (192, 192), (768, 768), 19, seed=1)
     before = (krce.fwd_launches, krce.bwd_launches)
     x = lo.clone().requires_grad_(True)
     sums = trce.fused_resize_nll_sums(x, lab.long(), (768, 768))
@@ -546,6 +580,18 @@ def ce_kernels_vs_plain(errs):
     require(torch.equal(sums, krce.resize_ce_forward(lo, lab))
             and torch.equal(grad, krce.resize_ce_backward(lo, lab, g)),
             "the autograd Function disagrees with the kernel wrappers")
+
+
+@contextlib.contextmanager
+def patched_backward(fn):
+    """Route the upsample + CE autograd Function's backward through ``fn``
+    instead of the band kernel's wrapper for the duration of the block."""
+    saved = krce.resize_ce_backward
+    krce.resize_ce_backward = fn
+    try:
+        yield
+    finally:
+        krce.resize_ce_backward = saved
 
 
 def train_full_width():
@@ -573,6 +619,7 @@ def train_full_width():
     train_segment.make_afan_seg_step = recording
     updates = []
     krce.fwd_launches = krce.bwd_launches = kpgd.launches = 0
+    krce.bwd_rows_launches = 0
     t0 = time.time()
     try:
         with patched_update(recording_update(updates)):
@@ -587,17 +634,17 @@ def train_full_width():
                               kpgd.launches)
     secs = time.time() - t0
     cfg = configs[0]
-    # one forward and one backward launch per PGD step of each ascent (SE,
-    # and SD when set), and per loss site (clean, the stacked spectrum
-    # tails, and SD when set)
     sd = cfg.sd is not None
-    per_step = (1 + sd) * cfg.steps + (2 + sd)
+    per_step = sites_per_step(cfg)
     require(len(losses) == SEG_ITRS, f"{len(losses)} steps ran")
     require(all(np.isfinite(v) for rec in losses for v in rec.values()),
             f"non-finite loss in {losses}")
     require(fwd == bwd == SEG_ITRS * per_step,
             f"resize+CE launches fwd={fwd} bwd={bwd} in {SEG_ITRS} steps "
             f"(expected {per_step} each per step)")
+    require(krce.bwd_rows_launches == 0,
+            f"the trainer launched the row backward {krce.bwd_rows_launches} "
+            f"times")
     # one PGD-update launch per sign step of each ascent (SE, and SD)
     pgd_per_step = (1 + sd) * cfg.steps
     require(cfg.step_mode == "sign"
@@ -630,13 +677,25 @@ def seg_recipe():
     return train_segment.afan_config(args)
 
 
-def seg_model_and_batch(seed=0):
-    model = build_model(SEG_MODEL, 19, 16)
-    model.reset_parameters(torch.Generator().manual_seed(seed))
+def sites_per_step(cfg):
+    """Upsample + CE launches, each way, per A-FAN step: one per PGD step
+    of each ascent (SE, and SD when set), and one per loss site (clean, the
+    stacked spectrum tails, and SD when set)."""
+    sd = cfg.sd is not None
+    return (1 + sd) * cfg.steps + (2 + sd)
+
+
+def seg_batch(seed=0):
     loader, _, _ = train_segment.cityscapes_loaders(None, SEG_BATCH,
                                                     SEG_CROP, seed=seed)
     imgs, labs = next(iter(loader))
-    return model.cuda(), cuda(imgs), cuda(labs)
+    return cuda(imgs), cuda(labs)
+
+
+def seg_model_and_batch(seed=0):
+    model = build_model(SEG_MODEL, 19, 16)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return (model.cuda(),) + seg_batch(seed)
 
 
 def seg_step(model, afan=True):
@@ -688,10 +747,11 @@ def step_kernel_vs_plain(model, imgs, labs):
 
 
 def ce_parts(lo, lab, g):
-    """Timings (ms) at one of the step's shapes: the two kernels, the plain
-    version (forward; backward alone on a kept graph) and the library
-    composition F.interpolate + F.cross_entropy + per-entry sum (the same),
-    and the two bounds."""
+    """Timings (ms) at one of the step's shapes: the two kernels (the band
+    backward in turns with the row backward: row, band, band, row, twice),
+    the plain version (forward; backward alone on a kept graph) and the
+    library composition F.interpolate + F.cross_entropy + per-entry sum
+    (the same), and the two bounds."""
     size = tuple(lab.shape[1:])
     lab64 = lab.long()
 
@@ -703,9 +763,16 @@ def ce_parts(lo, lab, g):
     x = lo.clone().requires_grad_(True)
     plain_sums = trce.fused_resize_nll_sums_plain(x, lab, size)
     lib_sums = library(x)
+    backward = {"bwd": krce.resize_ce_backward,
+                "bwd_rows": krce.resize_ce_backward_rows}
+    turns = {k: [] for k in backward}
+    for k in ("bwd_rows", "bwd", "bwd", "bwd_rows") * 2:
+        turns[k].append(cuda_ms(lambda: backward[k](lo, lab, g), reps=50))
     out = {
         "fwd": cuda_ms(lambda: krce.resize_ce_forward(lo, lab), reps=50),
-        "bwd": cuda_ms(lambda: krce.resize_ce_backward(lo, lab, g), reps=50),
+        "bwd": float(np.mean(turns["bwd"])),
+        "bwd_rows": float(np.mean(turns["bwd_rows"])),
+        "turns": turns,
         "plain_fwd": cuda_ms(
             lambda: trce.fused_resize_nll_sums_plain(lo, lab, size), reps=20),
         "plain_bwd": cuda_ms(lambda: torch.autograd.grad(
@@ -761,10 +828,9 @@ def profile_step(step, imgs, labs, n=3, label="A-FAN"):
               f"x{e.count // n:<4d} {e.key[:90]}")
 
 
-def time_segmentation(card, model, imgs, labs, per_step):
-    """Phase 10; returns the two kernels' entries of the kernels line
-    (times per A-FAN step: its B=4 sites and its B=8 spectrum site)."""
-    print(f"[10] timing on {card}")
+def time_seg_steps(card, model, imgs, labs):
+    """Phase 10, the steps: the A-FAN and base steps' times and peak
+    memory, and where the A-FAN step's device time goes."""
     for afan, name in ((True, "A-FAN"), (False, "base")):
         step = seg_step(model, afan)
         t = cuda_samples(lambda: step(imgs, labs), 20)
@@ -776,7 +842,50 @@ def time_segmentation(card, model, imgs, labs, per_step):
               f"{np.median(t):.3f} ms, p90 {np.percentile(t, 90):.3f} ms over "
               f"{len(t)} steps, {SEG_BATCH * 1e3 / np.median(t):.2f} imgs/s, "
               f"peak memory {peak:.2f} GiB ({card})")
+    # the A-FAN step with the row backward in turns with the band backward
+    step = seg_step(model)
+    backward = {"band": krce.resize_ce_backward,
+                "row": krce.resize_ce_backward_rows}
+    turns = {k: [] for k in backward}
+    for k in ("row", "band", "band", "row") * 2:
+        with patched_backward(backward[k]):
+            t = cuda_samples(lambda: step(imgs, labs), 10)
+        turns[k].append(float(np.median(t)))
+    for k, meds in turns.items():
+        print(f"    A-FAN step with the {k} backward: medians of 4 turns of "
+              f"10 steps {[round(m, 3) for m in meds]} ms, their median "
+              f"{np.median(meds):.3f} ms ({card})")
     profile_step(seg_step(model), imgs, labs)
+
+
+def ptxas_lines(log, key):
+    """The lines of a ``ptxas -v`` log about the kernels whose mangled
+    names contain ``key``."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = key in line
+        if keep:
+            out.append(line.strip())
+    return out
+
+
+def time_ce_kernels(card, labs, per_step):
+    """Phase 10, the kernels: each upsample + CE kernel, its plain version
+    and the library composition at the step's shapes, the band backward in
+    turns with the row backward, and what ptxas and the card report of the
+    two backward kernels. Returns the two kernels' entries of the kernels
+    line (times per A-FAN step: its B=4 sites and its B=8 spectrum site)."""
+    log = kbuild.build_log("resize_ce.cu")
+    for key in ("resize_ce_bwd_bands", "resize_ce_bwd_rows"):
+        for line in ptxas_lines(log, key) or [f"no ptxas record of {key}"]:
+            print(f"    ptxas: {line}")
+    h = SEG_CROP // 4
+    for rows_kernel in (False, True):
+        info = krce.backward_kernel_info(19, h, h, SEG_CROP, SEG_CROP,
+                                         rows_kernel)
+        print(f"    {'row' if rows_kernel else 'band'} backward at C=19 "
+              f"{h}->{SEG_CROP}: {info} ({card})")
     # the step's sites: SE and SD ascents, clean and SD losses at B=4; the
     # two stacked spectrum tails at B=8
     shapes = {SEG_BATCH: per_step - 1, 2 * SEG_BATCH: 1}
@@ -784,13 +893,13 @@ def time_segmentation(card, model, imgs, labs, per_step):
     rng = np.random.RandomState(5)
     for b, count in shapes.items():
         lab = labs.repeat(b // SEG_BATCH, 1, 1).to(torch.int32).contiguous()
-        lo = cuda(rng.randn(b, 19, SEG_CROP // 4, SEG_CROP // 4)
-                  .astype(np.float32))
+        lo = cuda(rng.randn(b, 19, h, h).astype(np.float32))
         parts = ce_parts(lo, lab, torch.ones(b, device="cuda"))
         for k, v in parts.items():
-            total[k] = total.get(k, 0.0) + count * v
-        print(f"    resize+CE B={b} {SEG_CROP // 4}->{SEG_CROP} C=19 (x{count} "
-              f"per step): forward kernel {parts['fwd']:.4f} ms, plain "
+            if k != "turns":
+                total[k] = total.get(k, 0.0) + count * v
+        print(f"    resize+CE B={b} {h}->{SEG_CROP} C=19 (x{count} per step): "
+              f"forward kernel {parts['fwd']:.4f} ms, plain "
               f"{parts['plain_fwd']:.4f}, library {parts['lib_fwd']:.4f}, "
               f"bound max(bytes {parts['fwd_bytes_ms']:.5f}, operations "
               f"{parts['fwd_ops_ms']:.5f}); backward kernel "
@@ -798,6 +907,12 @@ def time_segmentation(card, model, imgs, labs, per_step):
               f"library {parts['lib_bwd']:.4f}, bound max(bytes "
               f"{parts['bwd_bytes_ms']:.5f}, operations "
               f"{parts['bwd_ops_ms']:.5f}) ({card})")
+        turns = parts["turns"]
+        print(f"    backward B={b} in turns (row, band, band, row, twice): "
+              f"band {[round(t, 4) for t in turns['bwd']]} ms, mean "
+              f"{parts['bwd']:.4f}; row {[round(t, 4) for t in turns['bwd_rows']]}"
+              f" ms, mean {parts['bwd_rows']:.4f}; band "
+              f"{parts['bwd_rows'] / parts['bwd']:.2f}x faster ({card})")
     entries = []
     for half, name, line in (("fwd", "resize_ce_forward", 92),
                              ("bwd", "resize_ce_backward", 127)):
@@ -813,23 +928,38 @@ def time_segmentation(card, model, imgs, labs, per_step):
         print(f"    {name} per A-FAN step ({per_step} launches): kernel "
               f"{total[half]:.4f} ms, plain {total[f'plain_{half}']:.4f}, "
               f"library {total[f'lib_{half}']:.4f}, bound "
-              f"{max(byte_ms, op_ms):.5f} ms ({entries[-1]['bound_by']})")
+              f"{max(byte_ms, op_ms):.5f} ms ({entries[-1]['bound_by']}); "
+              f"kernel at {total[half] / max(byte_ms, op_ms):.1f}x its bound")
+    print(f"    row backward per A-FAN step: {total['bwd_rows']:.4f} ms, "
+          f"band {total['bwd']:.4f} ms, in the same turns ({card})")
     return entries
 
 
-def segmentation_phases(card):
-    """Phases 7-10; returns the upsample + CE kernels' entries and the
+def segmentation_phases(card, kernels_only=False):
+    """Phases 7-10 (with ``kernels_only``, phase 7 and the kernel timings
+    of phase 10); returns the upsample + CE kernels' entries and the
     (shape, clip) of the PGD updates of the segmentation trainer."""
     errs = {"fwd": [], "bwd": []}
     ce_kernels_vs_plain(errs)
-    fwd, bwd, per_step, _, updates = train_full_width()
-    gc.collect()
-    torch.cuda.empty_cache()
-    model, imgs, labs = seg_model_and_batch()
-    step_kernel_vs_plain(model, imgs, labs)
-    entries = time_segmentation(card, model, imgs, labs, per_step)
-    for entry, launches, half in zip(entries, (fwd, bwd), ("fwd", "bwd")):
-        entry["launches"] = launches
+    per_step, launches, updates = sites_per_step(seg_recipe()), None, []
+    if kernels_only:
+        print(f"[10] upsample + CE kernel timing on {card} (no trainer)")
+        _, labs = seg_batch()
+    else:
+        fwd, bwd, per_step, _, updates = train_full_width()
+        launches = (fwd, bwd)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, imgs, labs = seg_model_and_batch()
+        step_kernel_vs_plain(model, imgs, labs)
+        print(f"[10] timing on {card}")
+        time_seg_steps(card, model, imgs, labs)
+        del model, imgs
+        gc.collect()
+        torch.cuda.empty_cache()
+    entries = time_ce_kernels(card, labs, per_step)
+    for i, (entry, half) in enumerate(zip(entries, ("fwd", "bwd"))):
+        entry["launches"] = launches[i] if launches else None
         entry["max_abs_err"] = max(errs[half])
     return entries, sorted(set(updates))
 
@@ -911,7 +1041,8 @@ def pgd_kernel_vs_plain(seg_updates, errs):
         pgd_case("special x and centre", x, g, c, clip, errs)
         pgd_case("gamma 0.3 eps 0.2", x, g, c, clip, errs, 0.3, 0.2)
     print(f"    {len(errs)} cases bit-equal; classification tap shapes "
-          f"{cls_shapes}")
+          f"{cls_shapes}; segmentation ascent shapes "
+          f"{[s for s, _ in seg_updates] or 'not run'}")
 
 
 def run_classify_cli(mode, flags, batches, tag):
@@ -1221,7 +1352,14 @@ def classification_phases(card, seg_updates):
             "library_ms": None}
 
 
-def main():
+GROUPS = ("ce", "seg", "det", "cls")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=GROUPS,
+                        help="run only this group's phases (see above)")
+    only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -1251,15 +1389,20 @@ def main():
           f" (one nvcc each, together {time.time() - t0:.1f} s) into "
           f"{os.path.relpath(kbuild.BUILD_DIR, ROOT)}")
 
-    nms_entry = detection_phases(card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    seg_entries, seg_updates = segmentation_phases(card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    pgd_entry = classification_phases(card, seg_updates)
+    entries, seg_updates = [], []
+    if only in (None, "det"):
+        entries.append(detection_phases(card))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if only in (None, "seg", "ce"):
+        seg_entries, seg_updates = segmentation_phases(card, only == "ce")
+        entries += seg_entries
+        gc.collect()
+        torch.cuda.empty_cache()
+    if only in (None, "cls"):
+        entries.append(classification_phases(card, seg_updates))
 
-    print(json.dumps({"kernels": [nms_entry] + seg_entries + [pgd_entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -73,11 +73,13 @@ def test_nms_kernel_rejects_non_contiguous(card):
                                            device=card), 0.5)
 
 
-def _ce_inputs(card, B, H, h, C, seed=0):
+def _ce_inputs(card, B, hw, HW, C, seed=0, all_ignored=False):
     rng = np.random.RandomState(seed)
-    lo = torch.from_numpy(rng.randn(B, C, h, h).astype(np.float32)).to(card)
-    lab = rng.randint(0, C, (B, H, H)).astype(np.int32)
+    lo = torch.from_numpy(rng.randn(B, C, *hw).astype(np.float32)).to(card)
+    lab = rng.randint(0, C, (B, *HW)).astype(np.int32)
     lab[:, :3, :3] = 255
+    if all_ignored:
+        lab[-1] = 255
     g = torch.from_numpy(np.linspace(0.5, 1.5, B).astype(np.float32))
     return lo, torch.from_numpy(lab).to(card), g.to(card)
 
@@ -86,19 +88,35 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+# (B, (h, w), (H, W), C, focal, all_ignored): the segmentation step's
+# geometries, its B=8 spectrum site, and the band plan's edges
+# (tests/test_torch_resize_ce.py:PLAN_CASES); all_ignored gives the last
+# entry only 255 labels.
+CE_CASES = [
+    (2, (192, 192), (768, 768), 19, None, False),
+    (2, (192, 192), (768, 768), 19, (1.0, 2.0), False),
+    (2, (129, 129), (513, 513), 21, None, False),
+    (1, (129, 129), (513, 513), 21, (1.0, 2.0), False),
+    (8, (192, 192), (768, 768), 19, None, False),
+    (2, (9, 7), (33, 28), 5, None, False),
+    (2, (1, 1), (4, 4), 4, None, False),
+    (2, (6, 5), (24, 20), 3, (1.0, 2.0), False),
+    (2, (128, 128), (512, 512), 19, None, True),
+]
+
+
 # Tolerances as in chip_smoke.py phase 7: max abs error over max abs value,
 # 1e-5 for the sums and 1.1e-5 for the gradient (the float order of the
 # sums and of the plain version's atomic gradient accumulation differ).
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,h,C,focal", [
-    (2, 768, 192, 19, None), (2, 768, 192, 19, (1.0, 2.0)),
-    (2, 513, 129, 21, None), (1, 513, 129, 21, (1.0, 2.0))])
-def test_resize_ce_kernels_match_plain(card, B, H, h, C, focal):
-    lo, lab, g = _ce_inputs(card, B, H, h, C)
+@pytest.mark.parametrize("B,hw,HW,C,focal,all_ignored", CE_CASES)
+def test_resize_ce_kernels_match_plain(card, B, hw, HW, C, focal,
+                                       all_ignored):
+    lo, lab, g = _ce_inputs(card, B, hw, HW, C, all_ignored=all_ignored)
     before = (krce.fwd_launches, krce.bwd_launches)
     sums = krce.resize_ce_forward(lo, lab, focal)
     dlo = krce.resize_ce_backward(lo, lab, g, focal)
-    want_s = trce.fused_resize_nll_sums_plain(lo, lab, (H, H), focal)
+    want_s = trce.fused_resize_nll_sums_plain(lo, lab, HW, focal)
     want_d = trce.resize_ce_grad_plain(lo, lab, g, focal)
     torch.cuda.synchronize()
     assert (krce.fwd_launches, krce.bwd_launches) == (before[0] + 1,
@@ -106,11 +124,27 @@ def test_resize_ce_kernels_match_plain(card, B, H, h, C, focal):
     assert _rel(sums, want_s) <= 1e-5
     assert _rel(dlo, want_d) <= 1.1e-5
     assert torch.equal(sums, krce.resize_ce_forward(lo, lab, focal))
+    assert torch.equal(dlo, krce.resize_ce_backward(lo, lab, g, focal))
+    if all_ignored:
+        assert float(sums[-1]) == 0.0 and not dlo[-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hw,HW,C,focal,all_ignored", CE_CASES[:4])
+def test_resize_ce_band_backward_matches_row_backward(card, B, hw, HW, C,
+                                                      focal, all_ignored):
+    lo, lab, g = _ce_inputs(card, B, hw, HW, C, all_ignored=all_ignored)
+    before = krce.bwd_rows_launches
+    band = krce.resize_ce_backward(lo, lab, g, focal)
+    rows = krce.resize_ce_backward_rows(lo, lab, g, focal)
+    torch.cuda.synchronize()
+    assert krce.bwd_rows_launches == before + 1
+    assert _rel(band, rows) <= 1.1e-5
 
 
 @pytest.mark.cuda
 def test_resize_ce_function_runs_the_kernels(card):
-    lo, lab, g = _ce_inputs(card, 2, 64, 16, 5, seed=1)
+    lo, lab, g = _ce_inputs(card, 2, (16, 16), (64, 64), 5, seed=1)
     x = lo.clone().requires_grad_(True)
     before = (krce.fwd_launches, krce.bwd_launches)
     sums = trce.fused_resize_nll_sums(x, lab.long(), (64, 64))
@@ -122,7 +156,7 @@ def test_resize_ce_function_runs_the_kernels(card):
 
 @pytest.mark.cuda
 def test_resize_ce_kernel_rejects_what_it_does_not_take(card):
-    lo, lab, g = _ce_inputs(card, 2, 64, 16, 5)
+    lo, lab, g = _ce_inputs(card, 2, (16, 16), (64, 64), 5)
     with pytest.raises(TypeError):
         krce.resize_ce_forward(lo.double(), lab)
     with pytest.raises(TypeError):

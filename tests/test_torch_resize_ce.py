@@ -113,6 +113,49 @@ def test_resize_bilinear_matches_jax_when_upsampling(hw, HW):
     close(got.permute(0, 2, 3, 1).numpy(), want, rel=1e-6)
 
 
+# (h, w, H, W): the segmentation step's geometries (192 -> 768, 128 -> 512,
+# 129 -> 513), odd sizes, a single low-res pixel, h not a multiple of the
+# band's rows with odd w, and both at once
+PLAN_CASES = [(192, 192, 768, 768), (128, 128, 512, 512),
+              (129, 129, 513, 513), (9, 7, 33, 28), (1, 1, 4, 4),
+              (6, 5, 24, 20), (10, 13, 40, 52)]
+
+
+def axis_weights(n_out, n_in):
+    """The ``(n_out, n_in)`` bilinear weights of ``resize_bilinear`` along
+    one axis, read off an identity."""
+    eye = torch.eye(n_in).reshape(n_in, 1, n_in, 1)
+    return resize_bilinear(eye, (n_out, 1))[:, 0, :, 0].T.numpy()
+
+
+@pytest.mark.parametrize("h,w,H,W", PLAN_CASES)
+def test_band_plan_covers_every_tap(h, w, H, W):
+    """Every (output, low-res) pair with a non-zero weight lies in the
+    visited range of the band block that owns the low-res index, the owned
+    ranges tile [0, h) x [0, w) once, and the kernels' tap rule gives
+    ``resize_bilinear``'s weights exactly."""
+    wy, wx = axis_weights(H, h), axis_weights(W, w)
+    for n_out, n_in, want in ((H, h, wy), (W, w, wx)):
+        i0, i1, l0, l1 = krce.source_taps(n_out, n_in)
+        got = np.zeros((n_out, n_in), np.float32)
+        np.add.at(got, (np.arange(n_out), i0), l0)
+        np.add.at(got, (np.arange(n_out), i1), l1)
+        np.testing.assert_array_equal(got, want)
+    plan = krce.band_plan(h, w, H, W)
+    assert plan.dtype == np.int32 and plan.shape[1] == 8
+    owners = np.zeros((h, w), np.int64)
+    for ya, yb, i_lo, i_hi, xa, xb, j_lo, j_hi in plan:
+        assert 0 < yb - ya <= krce.BAND_ROWS and xb > xa
+        assert 0 <= i_lo <= i_hi <= H and 0 <= j_lo <= j_hi <= W
+        owners[ya:yb, xa:xb] += 1
+        rows = np.nonzero(wy[:, ya:yb].any(axis=1))[0]
+        cols = np.nonzero(wx[:, xa:xb].any(axis=1))[0]
+        assert i_lo <= rows.min() and rows.max() < i_hi
+        assert j_lo <= cols.min() and cols.max() < j_hi
+    assert (owners == 1).all()
+    assert len(plan) == -(-h // krce.BAND_ROWS) * min(w, krce.COL_SPLITS)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     lo, lab, g = inputs(2, 8, 8, 4, 32, 32, seed=3)
     x = torch.from_numpy(lo).permute(0, 3, 1, 2).contiguous()
@@ -122,7 +165,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         krce.resize_ce_forward(x, labels)
     with pytest.raises(ValueError, match="no resize\\+CE kernel"):
         krce.resize_ce_backward(x, labels, torch.from_numpy(g))
+    with pytest.raises(ValueError, match="no resize\\+CE kernel"):
+        krce.resize_ce_backward_rows(x, labels, torch.from_numpy(g))
     assert (krce.fwd_launches, krce.bwd_launches) == before
+    assert krce.bwd_rows_launches == 0
 
 
 def test_wrong_shapes_raise():
