@@ -4,13 +4,16 @@ variant, on the card unless ``--device cpu``.
 
 Canonical run: the Cityscapes "final" recipe — DeepLabv3+ ResNet-50 at
 output stride 16, crop 768, batch 4, poly lr 0.1, SE tap 2, SD tap concat,
-gamma_se 0.02/255, gamma_sd 1.5/255, ``--mix_sd``, spectrum 3, one PGD step
-(`sh/city/clean50/091_city_final01.sh`)::
+gamma_se 0.02/255, gamma_sd 1.5/255, AFN on the spectrum's adversarial point
+(``--mix_layer 01``), ``--mix_sd``, spectrum 3, one PGD step
+(`sh/city/clean50/091_city_final01.sh`, ``recipes/seg_city_final.sh`` without
+its ``--bf16``)::
 
     python -m afan_torch.cli.train_segment --variant afan \\
         --dataset cityscapes --model deeplabv3plus_resnet50 \\
         --crop_size 768 --batch_size 4 --lr 0.1 --pertub_idx_se 2 \\
-        --pertub_idx_sd concat --gamma_se 0.02 --gamma_sd 1.5 --mix_sd
+        --pertub_idx_sd concat --adv_loss_weight_sd 0.3 --gamma_se 0.02 \\
+        --gamma_sd 1.5 --mix_layer 01 --mix_sd
 
 Data is ``afan``'s deterministic synthetic Cityscapes stand-in (reading the
 datasets from disk is not ported yet); weights start from a seeded random
@@ -78,6 +81,8 @@ def get_parser():
                    default="concat")
     p.add_argument("--gamma_se", type=float, default=0.02)
     p.add_argument("--gamma_sd", type=float, default=1.5)
+    # read only for the run's directory name, as in afan's segmentation CLI
+    p.add_argument("--adv_loss_weight_sd", type=float, default=0.3)
     p.add_argument("--mix_layer", type=str, default="00",
                    help="AFN mask chars for the spectrum interior+adv points")
     p.add_argument("--mix_sd", action="store_true")
@@ -107,12 +112,19 @@ def afan_config(args) -> SegAfanConfig:
         use_focal=args.loss_type == "focal_loss")
 
 
+def experiment_name(args) -> str:
+    """The run's directory under ``checkpoints/``, named as afan's
+    segmentation CLI names it."""
+    return (f"{args.dataset}_{args.exp}_selayer_{args.pertub_idx_se}"
+            f"_sdlayer_{args.pertub_idx_sd}_gamma_se{args.gamma_se}"
+            f"_gamma_sd{args.gamma_sd}_advweight{args.adv_loss_weight_sd}"
+            f"MIX{args.mix_layer}")
+
+
 def main(argv=None):
     args = get_parser().parse_args(argv)
     device = resolve_device(args.device)
-    exp = (f"{args.dataset}_{args.exp}_selayer_{args.pertub_idx_se}"
-           f"_sdlayer_{args.pertub_idx_sd}_gamma_se{args.gamma_se}"
-           f"_gamma_sd{args.gamma_sd}MIX{args.mix_layer}")
+    exp = experiment_name(args)
     outdir = os.path.join("checkpoints", exp)
     os.makedirs(outdir, exist_ok=True)
     Log.initialize(os.path.join(outdir, "train.log"))

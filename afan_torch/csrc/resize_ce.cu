@@ -15,22 +15,39 @@
 // What bounds it on this card: neither bytes nor operations at the
 // slice's shapes (B = 4, C = 19, 192 -> 768: 11 MB of logits and 9.4 MB of
 // labels, ~0.5 GFLOP of interpolation and exp) come near the card's limits;
-// the kernels are bound by the latency of their load/exp chains and by the
-// recomputation they choose (below), which keeps every intermediate on chip.
+// the kernels are bound by instruction issue: the exp of every (pixel,
+// class) and the loads and lerps that build each logit, which they keep on
+// chip instead of storing the upsampled logits.
 //
 // Design.
-//   forward (resize_ce_fwd_rows): one block per (output row i, entry b).
-//     Each thread takes output pixels j of the row; for each it forms the C
-//     logits from the 2 x 2 low-res taps (read through the read-only cache;
-//     the two low-res rows a block touches stay in L1), takes the max, then
-//     the sum of exp, and picks the labelled logit. The block reduces its
+//   forward (resize_ce_fwd): one block per (kFwdRows = 3 output rows,
+//     entry b). The upsample is separable, and the block runs it H first, as
+//     the TPU kernel does: (1) the H pass, v_i[x][c] = l0 * lo[b, c, i0, x] +
+//     l1 * lo[b, c, i1, x] for each of its rows i and the row's two low-res
+//     taps, into shared memory (loads coalesced along x; the block's rows
+//     share most of their taps, so L2 serves each low-res value about once
+//     per block and L1 the repeats); (2) per output pixel j of a row, one
+//     thread forms its column taps once and each of its C logits once,
+//     z_k = l0 * v_i[x0][k] + l1 * v_i[x1][k]: two shared loads and three
+//     operations. With the class count known at compile time
+//     (19 and 21, the trainers' datasets) the logits stay in registers and
+//     every class's offset is an immediate; otherwise (kC = 0) the thread
+//     reads v twice, for the max and for the sum. v keeps each low-res
+//     column's C values together, columns an odd number of words apart (C,
+//     or C + 1 when C is even): the writes of (1), and the reads of (2),
+//     where a warp's 32 pixels share about 8 columns, each fall on distinct
+//     banks or one broadcast word. Then max, one exp per logit, one log and
+//     the picked logit; labels 255 add nothing. The block reduces each row's
 //     pixels in a fixed order to one partial sum per (b, i); sum_rows then
 //     adds the H partials of each entry in a fixed order. No float atomics:
-//     two runs agree bit for bit.
-//   backward (resize_ce_bwd_bands, the one the path launches): one block
-//     per (band of a few low-res rows, range of low-res columns, entry b).
-//     The band plan (afan_torch/ops/kernels/resize_ce.py:band_plan) gives
-//     each block the rows [y_a, y_b) and columns [x_a, x_b) it owns and the
+//     two runs agree bit for bit. One block per output row spent about half
+//     its time in (1), fetching each low-res row from L2 eight times;
+//     three rows per block cut that, and more rows cost more in occupancy
+//     (shared memory) than they save.
+//   backward (resize_ce_bwd_bands): one block per (band of a few low-res
+//     rows, range of low-res columns, entry b). The band plan
+//     (afan_torch/ops/kernels/resize_ce.py:band_plan) gives each block the
+//     rows [y_a, y_b) and columns [x_a, x_b) it owns and the
 //     output rows [i_lo, i_hi) and columns [j_lo, j_hi) whose taps may touch
 //     them; the block owns dlo[b, :, y_a:y_b, x_a:x_b], writes it once and
 //     needs no atomics. At block start it tabulates in shared memory the
@@ -50,10 +67,6 @@
 //     slice's shapes is instruction issue in (1) (four loads and the 2 x 2
 //     lerp per logit, an exp, the softmax) and shared-memory traffic in
 //     (2), not bytes.
-//   backward, the earlier row design (resize_ce_bwd_rows): one block per
-//     (low-res row y, entry b); it walks the output rows whose taps include
-//     y, recomputing each output row twice and each logit three times per
-//     visit. Only the timing comparison with the band kernel launches it.
 //   The TPU kernel's H-pad to 8 rows and its replicated (8, 128) output tile
 //   were Mosaic workarounds and have no counterpart here.
 //
@@ -106,147 +119,29 @@ __device__ __forceinline__ float logit(const float* __restrict__ plane, int w,
          ty.l1 * (tx.l0 * __ldg(r1 + tx.i0) + tx.l1 * __ldg(r1 + tx.i1));
 }
 
-// logsumexp over the C logits of one output pixel, and the logit at `lab`
-// (0 when lab is outside [0, C), as in the TPU kernel's select-sum).
-__device__ __forceinline__ void pixel_lse(const float* __restrict__ lo_b,
-                                          int C, size_t plane, int w,
-                                          const Tap& ty, const Tap& tx,
-                                          int lab, float* lse, float* picked) {
-  float m = -INFINITY;
-  for (int c = 0; c < C; ++c) m = fmaxf(m, logit(lo_b + c * plane, w, ty, tx));
-  float s = 0.0f, p = 0.0f;
-  for (int c = 0; c < C; ++c) {
-    const float z = logit(lo_b + c * plane, w, ty, tx);
-    s += expf(z - m);
-    if (c == lab) p = z;
-  }
-  *lse = m + logf(s);
-  *picked = p;
-}
-
-// Sum of `v` over the block, in a fixed order. Every thread must call it;
-// thread 0 gets the result.
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_sums[kThreads / 32];
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+// Sums over the block of each of the N values `v`, each in a fixed order
+// (within warps, then warp by warp), with one barrier. Every thread must
+// call it; thread 0 gets the sums in `v`.
+template <int N>
+__device__ __forceinline__ void block_sums(float (&v)[N]) {
+  __shared__ float warp_sums[N][kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = v;
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    for (int off = 16; off > 0; off >>= 1)
+      v[r] += __shfl_down_sync(0xffffffffu, v[r], off);
+    if (lane == 0) warp_sums[r][warp] = v[r];
+  }
   __syncthreads();
-  float out = 0.0f;
   if (threadIdx.x == 0) {
-    for (int k = 0; k < (int)(blockDim.x >> 5); ++k) out += warp_sums[k];
-  }
-  return out;
-}
-
-__global__ void resize_ce_fwd_rows(const float* __restrict__ lo,
-                                   const int32_t* __restrict__ labels, int C,
-                                   int h, int w, int H, int W, float sy,
-                                   float sx, int focal, float alpha,
-                                   float gamma, float* __restrict__ partial) {
-  const int i = blockIdx.x, b = blockIdx.y;
-  const size_t plane = (size_t)h * w;
-  const float* lo_b = lo + (size_t)b * C * plane;
-  const int32_t* lab_row = labels + ((size_t)b * H + i) * W;
-  const Tap ty = source_tap(i, sy, h);
-  float acc = 0.0f;
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    const int lab = lab_row[j];
-    if (lab == kIgnore) continue;
-    const Tap tx = source_tap(j, sx, w);
-    float lse, picked;
-    pixel_lse(lo_b, C, plane, w, ty, tx, lab, &lse, &picked);
-    float ce = lse - picked;
-    if (focal) ce = alpha * powf(1.0f - expf(-ce), gamma) * ce;
-    acc += ce;
-  }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) partial[(size_t)b * H + i] = acc;
-}
-
-__global__ void sum_rows(const float* __restrict__ partial, int H,
-                         float* __restrict__ out) {
-  const int b = blockIdx.x;
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < H; i += blockDim.x) acc += partial[(size_t)b * H + i];
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) out[b] = acc;
-}
-
-__global__ void resize_ce_bwd_rows(const float* __restrict__ lo,
-                                   const int32_t* __restrict__ labels,
-                                   const float* __restrict__ gout, int C,
-                                   int h, int w, int H, int W, float sy,
-                                   float sx, float inv_sy, float inv_sx,
-                                   int focal, float alpha, float gamma,
-                                   float* __restrict__ dlo) {
-  extern __shared__ float smem[];
-  float* ghi = smem;              // (C, W): the row's logit cotangent
-  float* acc = smem + C * W;      // (C, w): dlo[b, :, y, :]
-  const int y = blockIdx.x, b = blockIdx.y;
-  const size_t plane = (size_t)h * w;
-  const float* lo_b = lo + (size_t)b * C * plane;
-  const float g = gout[b];
-  for (int k = threadIdx.x; k < C * w; k += blockDim.x) acc[k] = 0.0f;
-
-  // Output rows whose taps can include y: src(i) in [y - 1, y + 1), with a
-  // row of margin each side; tap_weight filters them exactly.
-  const int i_lo = max(0, (int)floorf(((float)y - 0.5f) * inv_sy - 0.5f) - 1);
-  const int i_hi =
-      min(H - 1, (int)ceilf(((float)y + 1.5f) * inv_sy - 0.5f) + 1);
-  for (int i = i_lo; i <= i_hi; ++i) {
-    const Tap ty = source_tap(i, sy, h);
-    const float wy = tap_weight(ty, y);
-    if (wy == 0.0f) continue;     // the same in every thread
-    const int32_t* lab_row = labels + ((size_t)b * H + i) * W;
-    __syncthreads();              // the previous row's gather is done
-    for (int j = threadIdx.x; j < W; j += blockDim.x) {
-      const int lab = lab_row[j];
-      if (lab == kIgnore) {
-        for (int c = 0; c < C; ++c) ghi[c * W + j] = 0.0f;
-        continue;
-      }
-      const Tap tx = source_tap(j, sx, w);
-      float lse, picked;
-      pixel_lse(lo_b, C, plane, w, ty, tx, lab, &lse, &picked);
-      float coef = g * wy;
-      if (focal) {
-        const float ce = lse - picked;
-        const float e = expf(-ce);
-        const float ome = 1.0f - e;
-        coef *= alpha * (powf(ome, gamma) +
-                         ce * gamma * powf(ome, gamma - 1.0f) * e);
-      }
-      for (int c = 0; c < C; ++c) {
-        const float z = logit(lo_b + c * plane, w, ty, tx);
-        ghi[c * W + j] = coef * (expf(z - lse) - (c == lab ? 1.0f : 0.0f));
-      }
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < C * w; k += blockDim.x) {
-      const int c = k / w, x = k - c * w;
-      const int j_lo =
-          max(0, (int)floorf(((float)x - 0.5f) * inv_sx - 0.5f) - 1);
-      const int j_hi =
-          min(W - 1, (int)ceilf(((float)x + 1.5f) * inv_sx - 0.5f) + 1);
-      const float* grow = ghi + c * W;
-      float s = 0.0f;
-      for (int j = j_lo; j <= j_hi; ++j) {
-        const float wx = tap_weight(source_tap(j, sx, w), x);
-        if (wx != 0.0f) s += wx * grow[j];
-      }
-      acc[k] += s;
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      v[r] = 0.0f;
+      for (int k = 0; k < (int)(blockDim.x >> 5); ++k)
+        v[r] += warp_sums[r][k];
     }
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < C * w; k += blockDim.x) {
-    const int c = k / w, x = k - c * w;
-    dlo[(((size_t)b * C + c) * h + y) * w + x] = acc[k];
-  }
 }
-
-constexpr int kPlanCols = 8;      // y_a, y_b, i_lo, i_hi, x_a, x_b, j_lo, j_hi
-constexpr int kBandMinBlocks = 3; // blocks per SM the band kernel is built for
 
 // Advances the flattened index (c, r) of a (C, n) grid by `step`.
 __device__ __forceinline__ void advance(int& c, int& r, int n, int step) {
@@ -256,6 +151,129 @@ __device__ __forceinline__ void advance(int& c, int& r, int n, int step) {
     ++c;
   }
 }
+
+// Words between two low-res columns of the forward's row buffer: C made
+// odd, so that columns 1..31 apart fall on distinct banks.
+__host__ __device__ __forceinline__ int fwd_stride(int C) { return C | 1; }
+
+// Output rows per forward block. The rows of a block share most of their
+// low-res taps: L2 serves each low-res value about once per block, and L1
+// the repeated loads of its other rows.
+constexpr int kFwdRows = 3;
+
+// Elements of the H pass each thread loads before it stores them, so that
+// several loads are in flight.
+constexpr int kFwdBatch = 4;
+
+template <int kC>
+__global__ void __launch_bounds__(kThreads)
+resize_ce_fwd(const float* __restrict__ lo,
+              const int32_t* __restrict__ labels, int C, int h, int w,
+              int H, int W, float sy, float sx, int focal, float alpha,
+              float gamma, float* __restrict__ partial) {
+  extern __shared__ float v[];   // (kFwdRows, w, stride): rows before W
+  const int i_first = blockIdx.x * kFwdRows, b = blockIdx.y;
+  const int rows = min(kFwdRows, H - i_first);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int S = fwd_stride(C);
+  const size_t plane = (size_t)h * w;
+  const float* lo_b = lo + (size_t)b * C * plane;
+  Tap ty[kFwdRows];
+#pragma unroll
+  for (int r = 0; r < kFwdRows; ++r)
+    ty[r] = source_tap(min(i_first + r, H - 1), sy, h);
+
+  // (1) the H pass of each row over the (C, w) grid, flattened along x
+  int c = tid / w, x = tid - c * w;
+  while (c < C) {
+    float a0[kFwdBatch][kFwdRows], a1[kFwdBatch][kFwdRows];
+    int at[kFwdBatch];
+    int cc = c, xx = x;
+#pragma unroll
+    for (int u = 0; u < kFwdBatch; ++u) {
+      at[u] = cc < C ? xx * S + cc : -1;
+      if (cc < C) {
+        const float* col = lo_b + cc * plane + xx;
+#pragma unroll
+        for (int r = 0; r < kFwdRows; ++r) {
+          a0[u][r] = __ldg(col + (size_t)ty[r].i0 * w);
+          a1[u][r] = __ldg(col + (size_t)ty[r].i1 * w);
+        }
+      }
+      advance(cc, xx, w, nt);
+    }
+#pragma unroll
+    for (int u = 0; u < kFwdBatch; ++u) {
+      if (at[u] < 0) continue;
+#pragma unroll
+      for (int r = 0; r < kFwdRows; ++r)
+        v[r * w * S + at[u]] = ty[r].l0 * a0[u][r] + ty[r].l1 * a1[u][r];
+    }
+    c = cc;
+    x = xx;
+  }
+  __syncthreads();
+
+  // (2) per output pixel: C logits (W pass), logsumexp, the picked logit
+  float acc[kFwdRows];
+#pragma unroll
+  for (int r = 0; r < kFwdRows; ++r) {
+    acc[r] = 0.0f;
+    if (r >= rows) continue;
+    const float* vr = v + r * w * S;
+    const int32_t* lab_row = labels + ((size_t)b * H + i_first + r) * W;
+    for (int j = tid; j < W; j += nt) {
+      const int lab = lab_row[j];
+      if (lab == kIgnore) continue;
+      const Tap tx = source_tap(j, sx, w);
+      const float* v0 = vr + tx.i0 * S;
+      const float* v1 = vr + tx.i1 * S;
+      float m = -INFINITY, s = 0.0f;
+      if constexpr (kC > 0) {
+        float z[kC];
+#pragma unroll
+        for (int k = 0; k < kC; ++k) {
+          z[k] = tx.l0 * v0[k] + tx.l1 * v1[k];
+          m = fmaxf(m, z[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kC; ++k) s += expf(z[k] - m);
+      } else {
+        for (int k = 0; k < C; ++k)
+          m = fmaxf(m, tx.l0 * v0[k] + tx.l1 * v1[k]);
+        for (int k = 0; k < C; ++k)
+          s += expf(tx.l0 * v0[k] + tx.l1 * v1[k] - m);
+      }
+      // the labelled logit, 0 when lab is outside [0, C) (the TPU kernel's
+      // select-sum)
+      const float picked =
+          lab >= 0 && lab < C ? tx.l0 * v0[lab] + tx.l1 * v1[lab] : 0.0f;
+      float ce = (m + logf(s)) - picked;
+      if (focal) ce = alpha * powf(1.0f - expf(-ce), gamma) * ce;
+      acc[r] += ce;
+    }
+  }
+  // one partial per output row
+  block_sums(acc);
+  if (tid == 0) {
+#pragma unroll
+    for (int r = 0; r < kFwdRows; ++r)
+      if (r < rows) partial[(size_t)b * H + i_first + r] = acc[r];
+  }
+}
+
+__global__ void sum_rows(const float* __restrict__ partial, int H,
+                         float* __restrict__ out) {
+  const int b = blockIdx.x;
+  float acc = 0.0f;
+  for (int i = threadIdx.x; i < H; i += blockDim.x) acc += partial[(size_t)b * H + i];
+  float sum[1] = {acc};
+  block_sums(sum);
+  if (threadIdx.x == 0) out[b] = sum[0];
+}
+
+constexpr int kPlanCols = 8;      // y_a, y_b, i_lo, i_hi, x_a, x_b, j_lo, j_hi
+constexpr int kBandMinBlocks = 3; // blocks per SM the band kernel is built for
 
 // Where segment column q lives in a shared per-column array: grouped by
 // q mod 4, each group in column order, Q words apart. In the contraction a
@@ -457,12 +475,26 @@ resize_ce_bwd_bands(const float* __restrict__ lo,
   }
 }
 
-// The band kernel for C classes: the two class counts of the trainers'
-// datasets (19 Cityscapes, 21 VOC) keep each pixel's logits in registers.
+// The forward and band kernels for C classes: the two class counts of the
+// trainers' datasets (19 Cityscapes, 21 VOC) keep each pixel's logits in
+// registers.
+const void* fwd_kernel(int C) {
+  if (C == 19) return (const void*)resize_ce_fwd<19>;
+  if (C == 21) return (const void*)resize_ce_fwd<21>;
+  return (const void*)resize_ce_fwd<0>;
+}
+
 const void* band_kernel(int C) {
   if (C == 19) return (const void*)resize_ce_bwd_bands<19>;
   if (C == 21) return (const void*)resize_ce_bwd_bands<21>;
   return (const void*)resize_ce_bwd_bands<0>;
+}
+
+// Above the default 48 KB a kernel's dynamic shared memory needs an opt-in.
+cudaError_t allow_smem(const void* fn, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
 }
 
 }  // namespace
@@ -475,23 +507,28 @@ int afan_resize_ce_bwd_bands_smem(int C, int rows, int cols, int seg) {
   return band_smem_words(C, rows, cols, seg) * 4;
 }
 
-// Shared memory (bytes) one block of the row backward needs.
-int afan_resize_ce_bwd_rows_smem(int C, int w, int W) {
-  return (int)((size_t)C * (W + w) * sizeof(float));
+// Shared memory (bytes) one block of the forward needs: its rows' buffer.
+int afan_resize_ce_fwd_smem(int C, int w) {
+  return (int)((size_t)kFwdRows * fwd_stride(C) * w * sizeof(float));
 }
 
 // lo (B, C, h, w) f32 and labels (B, H, W) int32, both contiguous; partial
 // scratch of B * H floats; out (B,) f32. Launches on `stream` and returns
-// cudaGetLastError().
+// the launches' error.
 int afan_resize_ce_forward(const float* lo, const int32_t* labels, int B,
                            int C, int h, int w, int H, int W, int focal,
                            float alpha, float gamma, float* partial,
                            float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float sy = (float)h / (float)H, sx = (float)w / (float)W;
-  resize_ce_fwd_rows<<<dim3(H, B), kThreads, 0, s>>>(
-      lo, labels, C, h, w, H, W, sy, sx, focal, alpha, gamma, partial);
-  cudaError_t err = cudaGetLastError();
+  const void* fn = fwd_kernel(C);
+  const int smem = afan_resize_ce_fwd_smem(C, w);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float sy = (float)h / (float)H, sx = (float)w / (float)W;
+  void* args[] = {&lo, &labels, &C, &h, &w, &H, &W, &sy, &sx, &focal, &alpha,
+                  &gamma, &partial};
+  err = cudaLaunchKernel(fn, dim3((H + kFwdRows - 1) / kFwdRows, B), kThreads,
+                         args, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_rows<<<B, kThreads, 0, s>>>(partial, H, out);
   return static_cast<int>(cudaGetLastError());
@@ -511,8 +548,7 @@ int afan_resize_ce_backward(const float* lo, const int32_t* labels,
                             void* stream) {
   const void* fn = band_kernel(C);
   const int smem = afan_resize_ce_bwd_bands_smem(C, rows, cols, seg);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   float sy = (float)h / (float)H, sx = (float)w / (float)W;
   void* args[] = {&lo, &labels, &gout, &plan, &C, &h, &w, &H, &W, &sy, &sx,
@@ -522,38 +558,16 @@ int afan_resize_ce_backward(const float* lo, const int32_t* labels,
                                            static_cast<cudaStream_t>(stream)));
 }
 
-// The same function by the row kernel (one block per low-res row), kept to
-// be timed against the band kernel.
-int afan_resize_ce_backward_rows(const float* lo, const int32_t* labels,
-                                 const float* gout, int B, int C, int h,
-                                 int w, int H, int W, int focal, float alpha,
-                                 float gamma, float* dlo, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = afan_resize_ce_bwd_rows_smem(C, w, W);
-  cudaError_t err = cudaFuncSetAttribute(
-      resize_ce_bwd_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float sy = (float)h / (float)H, sx = (float)w / (float)W;
-  const float inv_sy = (float)H / (float)h, inv_sx = (float)W / (float)w;
-  resize_ce_bwd_rows<<<dim3(h, B), kThreads, smem, s>>>(
-      lo, labels, gout, C, h, w, H, W, sy, sx, inv_sy, inv_sx, focal, alpha,
-      gamma, dlo);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// What the card made of a backward kernel (the band kernel for C classes,
-// or the row kernel when `rows_kernel` is set) at `smem` bytes of dynamic
-// shared memory: out[0] registers per thread, out[1] local memory (spill)
-// bytes per thread, out[2] static shared bytes, out[3] resident blocks per
-// SM.
-int afan_resize_ce_bwd_info(int rows_kernel, int C, int smem, int* out) {
-  const void* fn = rows_kernel ? (const void*)resize_ce_bwd_rows
-                               : band_kernel(C);
+// What the card made of a kernel (kind 0: the forward, 1: the band
+// backward) for C classes at `smem` bytes of dynamic shared memory: out[0]
+// registers per thread, out[1] local memory (spill) bytes per thread, out[2]
+// static shared bytes, out[3] resident blocks per SM.
+int afan_resize_ce_kernel_info(int kind, int C, int smem, int* out) {
+  const void* fn = kind == 0 ? fwd_kernel(C) : band_kernel(C);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,

@@ -9,16 +9,14 @@ with ``nvcc`` for ``sm_90a`` at first use (:mod:`.build`) and bound with
 
 :func:`resize_ce_forward` returns the per-entry sums ``(B,)`` of the
 255-masked CE (or focal) loss of the ``align_corners=False`` bilinear
-upsample of logits ``(B, C, h, w)`` to the labels' ``(H, W)``;
-:func:`resize_ce_backward` returns ``d(sum_b g[b] * sums[b]) / d lo`` by
-the band kernel, one block per (band of ``BAND_ROWS`` low-res rows, one of
-``COL_SPLITS`` column ranges, entry), laid out by :func:`band_plan`;
-:func:`resize_ce_backward_rows` computes the same by the earlier row kernel
-(one block per low-res row), which the port's path never calls: it is kept
-to be timed against the band kernel. Each takes CUDA tensors only, and
-launches its kernel or raises; the choice of the plain PyTorch version for
-a CPU tensor is made once, in
-:func:`afan_torch.ops.resize_ce.fused_resize_nll_sums`.
+upsample of logits ``(B, C, h, w)`` to the labels' ``(H, W)``, one block
+per (three output rows, entry) holding the rows' H-interpolated logits in
+shared memory; :func:`resize_ce_backward` returns ``d(sum_b g[b] * sums[b]) / d
+lo`` by the band kernel, one block per (band of ``BAND_ROWS`` low-res rows,
+one of ``COL_SPLITS`` column ranges, entry), laid out by
+:func:`band_plan`. Each takes CUDA tensors only, and launches its kernel or
+raises; the choice of the plain PyTorch version for a CPU tensor is made
+once, in :func:`afan_torch.ops.resize_ce.fused_resize_nll_sums`.
 """
 from __future__ import annotations
 
@@ -45,7 +43,6 @@ COL_SPLITS = 2
 # after.
 fwd_launches = 0
 bwd_launches = 0
-bwd_rows_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -59,17 +56,14 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build("resize_ce.cu"))
             focal = [ctypes.c_int, ctypes.c_float, ctypes.c_float]
-            common = [ctypes.c_int] * 6 + focal
             signatures = {
+                "afan_resize_ce_fwd_smem": [ctypes.c_int] * 2,
                 "afan_resize_ce_bwd_bands_smem": [ctypes.c_int] * 4,
-                "afan_resize_ce_bwd_rows_smem": [ctypes.c_int] * 3,
-                "afan_resize_ce_forward": [ctypes.c_void_p] * 2 + common
-                + [ctypes.c_void_p] * 3,
+                "afan_resize_ce_forward": [ctypes.c_void_p] * 2
+                + [ctypes.c_int] * 6 + focal + [ctypes.c_void_p] * 3,
                 "afan_resize_ce_backward": [ctypes.c_void_p] * 4
                 + [ctypes.c_int] * 10 + focal + [ctypes.c_void_p] * 2,
-                "afan_resize_ce_backward_rows": [ctypes.c_void_p] * 3
-                + common + [ctypes.c_void_p] * 2,
-                "afan_resize_ce_bwd_info": [ctypes.c_int] * 3
+                "afan_resize_ce_kernel_info": [ctypes.c_int] * 3
                 + [ctypes.c_void_p],
             }
             for name, argtypes in signatures.items():
@@ -179,6 +173,12 @@ def _focal_args(focal: Focal):
     return 1, float(alpha), float(gamma)
 
 
+def _check_smem(smem: int, what: str) -> None:
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"resize+CE kernel needs {smem} bytes of shared "
+                         f"memory for {what}; the card gives {SMEM_LIMIT}")
+
+
 def resize_ce_forward(lo: torch.Tensor, labels: torch.Tensor,
                       focal: Focal = None) -> torch.Tensor:
     """Per-entry loss sums ``(B,)`` float32 (no autograd graph)."""
@@ -187,11 +187,12 @@ def resize_ce_forward(lo: torch.Tensor, labels: torch.Tensor,
     _check_card(lo, labels)
     b, c, h, w = lo.shape
     H, W = labels.shape[1:]
+    lib = load_library()
+    _check_smem(lib.afan_resize_ce_fwd_smem(c, w), f"C={c}, w={w}")
     out = torch.empty((b,), dtype=torch.float32, device=lo.device)
     if b == 0:
         return out
     partial = torch.empty((b, H), dtype=torch.float32, device=lo.device)
-    lib = load_library()
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.afan_resize_ce_forward(
@@ -213,12 +214,6 @@ def _backward_inputs(lo: torch.Tensor, labels: torch.Tensor,
     _check_card(lo, labels)
     if gout.dtype != torch.float32 or not gout.is_contiguous():
         raise ValueError("gout must be contiguous float32")
-
-
-def _check_smem(smem: int, what: str) -> None:
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"resize+CE backward needs {smem} bytes of shared "
-                         f"memory for {what}; the card gives {SMEM_LIMIT}")
 
 
 def resize_ce_backward(lo: torch.Tensor, labels: torch.Tensor,
@@ -251,47 +246,24 @@ def resize_ce_backward(lo: torch.Tensor, labels: torch.Tensor,
     return dlo
 
 
-def resize_ce_backward_rows(lo: torch.Tensor, labels: torch.Tensor,
-                            gout: torch.Tensor, focal: Focal = None
-                            ) -> torch.Tensor:
-    """The same as :func:`resize_ce_backward`, by the row kernel."""
-    global bwd_rows_launches
-    _backward_inputs(lo, labels, gout)
-    b, c, h, w = lo.shape
-    H, W = labels.shape[1:]
-    lib = load_library()
-    _check_smem(lib.afan_resize_ce_bwd_rows_smem(c, w, W),
-                f"C={c}, w={w}, W={W}")
-    dlo = torch.empty_like(lo)
-    if b == 0:
-        return dlo
-    with torch.cuda.device(lo.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.afan_resize_ce_backward_rows(
-            lo.data_ptr(), labels.data_ptr(), gout.data_ptr(), b, c, h, w, H,
-            W, *_focal_args(focal), dlo.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"resize+CE row backward launch failed: CUDA "
-                           f"error {err}")
-    bwd_rows_launches += 1
-    return dlo
-
-
-def backward_kernel_info(c: int, h: int, w: int, H: int, W: int,
-                         rows_kernel: bool = False) -> Dict[str, int]:
+def kernel_info(kind: str, c: int, h: int, w: int, H: int, W: int
+                ) -> Dict[str, int]:
     """Registers and local (spill) bytes per thread, static and dynamic
-    shared bytes per block and resident blocks per SM of the band kernel
-    (or the row kernel) at one geometry, as the card reports them."""
+    shared bytes per block and resident blocks per SM of the ``"forward"``
+    or the ``"backward"`` (band) kernel at one geometry, as the card reports
+    them."""
     lib = load_library()
-    if rows_kernel:
-        smem = lib.afan_resize_ce_bwd_rows_smem(c, w, W)
-    else:
+    if kind == "forward":
+        smem = lib.afan_resize_ce_fwd_smem(c, w)
+    elif kind == "backward":
         rows, cols, seg = _plan_sizes(band_plan(h, w, H, W))
         smem = lib.afan_resize_ce_bwd_bands_smem(c, rows, cols, seg)
+    else:
+        raise ValueError(f"kind must be 'forward' or 'backward', got {kind!r}")
     out = (ctypes.c_int * 4)()
-    err = lib.afan_resize_ce_bwd_info(int(rows_kernel), c, smem, out)
+    err = lib.afan_resize_ce_kernel_info(int(kind == "backward"), c, smem, out)
     if err != 0:
-        raise RuntimeError(f"resize+CE backward attributes: CUDA error {err}")
+        raise RuntimeError(f"resize+CE {kind} attributes: CUDA error {err}")
     return {"registers": out[0], "local_bytes": out[1],
             "static_smem": out[2], "dynamic_smem": smem,
             "blocks_per_sm": out[3]}

@@ -27,28 +27,26 @@ Phases (any failure exits non-zero):
   6. time the detect call, the kernel and its plain version with CUDA
      events, and the peak memory;
   7. hold the upsample + CE forward and backward kernels against their
-     plain version on twelve geometries (city768 at B=2 and B=8, city512,
+     plain version on eleven geometries (city768 at B=2 and B=8, city512,
      voc513 with odd H, two focal cases, tiny32, 9x7 -> 33x28, 1x1 -> 4x4,
      6x5 -> 24x20, an entry whose labels are all 255): sums within 1e-5,
      gradient within 1.1e-5 (max abs error over max abs value), two runs
-     bit-equal; the band backward against the earlier row backward within
-     the same 1.1e-5;
+     bit-equal;
   8. train the A-FAN DeepLabv3+ ResNet-50 at full width through
      ``afan_torch.cli.train_segment.main`` (Cityscapes final recipe: OS 16,
-     19 classes, crop 768, batch 4, SE tap 2, SD concat, mix_sd, synthetic
-     data, seeded random weights) for a few iterations and one validation:
-     finite losses, a checkpoint, and the kernels' launch counts (the row
-     backward never launched);
+     19 classes, crop 768, batch 4, SE tap 2 with AFN on the spectrum's
+     adversarial point, SD concat, mix_sd, synthetic data, seeded random
+     weights) for a few iterations and one validation: finite losses, a
+     checkpoint, and the kernels' launch counts;
   9. one A-FAN step with the kernels against one with the plain op, from
      the same weights, batch and dropout masks (cuDNN deterministic, no
      TF32): losses within 1e-4, logits-conv gradient within 1e-4;
- 10. time the A-FAN and base steps and their peak memory, the A-FAN step
-     with the row backward in turns with the band backward, profile where
-     the A-FAN step's device time goes, and time each kernel, its plain
-     version and the library composition at the step's shapes; the band
-     backward and the row backward in turns (row, band, band, row), with
-     what ptxas and the card report of each (registers, shared memory,
-     spills, blocks per SM);
+ 10. time the A-FAN and base steps and their peak memory, profile where
+     the A-FAN step's device time goes, and time each upsample + CE kernel
+     in turns with the library composition F.interpolate + F.cross_entropy
+     (library, kernel, kernel, library, twice) and its plain version at the
+     step's shapes, with what ptxas and the card report of each kernel
+     (registers, shared memory, spills, blocks per SM);
  11. hold the PGD-update kernel against its plain PyTorch version, bit for
      bit (NaN included): the sizes of tests/test_kernels.py, odd counts,
      misaligned views, the ALFA and learnable tap shapes and the
@@ -163,11 +161,13 @@ CE_CASES = [
 ]
 CE_SUM_TOL, CE_GRAD_TOL = 1e-5, 1.1e-5
 SEG_MODEL, SEG_CROP, SEG_BATCH, SEG_ITRS = "deeplabv3plus_resnet50", 768, 4, 6
+# recipes/seg_city_final.sh's flags but --bf16 (not ported) and the data
 SEG_FLAGS = ["--variant", "afan", "--dataset", "synthetic", "--model",
              SEG_MODEL, "--output_stride", "16", "--crop_size", str(SEG_CROP),
              "--batch_size", str(SEG_BATCH), "--lr", "0.1",
              "--pertub_idx_se", "2", "--pertub_idx_sd", "concat",
-             "--gamma_se", "0.02", "--gamma_sd", "1.5", "--mix_sd"]
+             "--adv_loss_weight_sd", "0.3", "--gamma_se", "0.02",
+             "--gamma_sd", "1.5", "--mix_layer", "01", "--mix_sd"]
 # The ALFA recipe (`afan/train/loop.py:70-83`, `afan/cli/train_classify.py`
 # defaults): ResNet-56, CIFAR-10, batch 128, tap 13, 5 sign steps of
 # 1.5/255, eps 2/255; the learnable-eta mode takes 3 steps at 9 taps.
@@ -256,6 +256,18 @@ def cuda_samples(fn, n, warmup=3):
         end.record()
     torch.cuda.synchronize()
     return np.array([s.elapsed_time(e) for s, e in events])
+
+
+def host_ms(fn, n=20):
+    """Median wall time (ms) of ``n`` calls of the host function ``fn``,
+    after one warmup call."""
+    fn()
+    t = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        t.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(t))
 
 
 def nms_bound_parts(boxes, valid, keep):
@@ -450,6 +462,20 @@ def detection_phases(card):
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"    peak memory, detect at batch {MAX_BATCH}: {peak:.2f} GiB")
+    frame = frames[0]
+    pre_ms = host_ms(lambda: preprocess_frame(frame, canvas_hw, MIN_SIDE,
+                                              MAX_SIDE))
+    _, scale = preprocess_frame(frame, canvas_hw, MIN_SIDE, MAX_SIDE)
+    u8 = torch.from_numpy((frame * 255).astype(np.uint8))
+    x = u8.permute(2, 0, 1)[None].to(torch.float32)
+    size = (round(frame.shape[0] * scale), round(frame.shape[1] * scale))
+    lib_ms = host_ms(lambda: F.interpolate(x, size=size, mode="bilinear",
+                                           antialias=True))
+    print(f"    host pre-processing of a {frame.shape[0]}x{frame.shape[1]} "
+          f"frame at scale {scale}: preprocess_frame (PIL's integer resize) "
+          f"median {pre_ms:.3f} ms; one antialiased F.interpolate of the "
+          f"same frame {lib_ms:.3f} ms ({torch.get_num_threads()} host "
+          f"threads)")
     ms = plain_ms = byte_ms = op_ms = 0.0
     for boxes_in, valid_in, thr, plus_one in main_inputs:
         g, n = valid_in.shape
@@ -547,23 +573,18 @@ def ce_kernels_vs_plain(errs):
         dlo = krce.resize_ce_backward(lo, lab, g, focal)
         again = (krce.resize_ce_forward(lo, lab, focal),
                  krce.resize_ce_backward(lo, lab, g, focal))
-        rows = krce.resize_ce_backward_rows(lo, lab, g, focal)
         want_s = trce.fused_resize_nll_sums_plain(lo, lab, HW, focal)
         want_d = trce.resize_ce_grad_plain(lo, lab, g, focal)
         torch.cuda.synchronize()
         es, eg = rel_err(sums, want_s), rel_err(dlo, want_d)
-        er = rel_err(dlo, rows)
         errs["fwd"].append(float((sums - want_s).abs().max()))
         errs["bwd"].append(float((dlo - want_d).abs().max()))
         repeat = torch.equal(again[0], sums) and torch.equal(again[1], dlo)
         print(f"  {name}: B={B} {hw}->{HW} C={C} focal={focal}: sums rel "
-              f"{es:.3e}, grad rel {eg:.3e}, band vs row backward rel "
-              f"{er:.3e}, repeat bit-equal {repeat}")
+              f"{es:.3e}, grad rel {eg:.3e}, repeat bit-equal {repeat}")
         require(es <= CE_SUM_TOL, f"{name}: sums rel err {es} > {CE_SUM_TOL}")
         require(eg <= CE_GRAD_TOL,
                 f"{name}: grad rel err {eg} > {CE_GRAD_TOL}")
-        require(er <= CE_GRAD_TOL,
-                f"{name}: band vs row backward rel err {er} > {CE_GRAD_TOL}")
         require(repeat, f"{name}: two runs of the kernels differ")
         if name == "all_ignored":
             require(float(sums[-1]) == 0.0 and not dlo[-1].any(),
@@ -580,18 +601,6 @@ def ce_kernels_vs_plain(errs):
     require(torch.equal(sums, krce.resize_ce_forward(lo, lab))
             and torch.equal(grad, krce.resize_ce_backward(lo, lab, g)),
             "the autograd Function disagrees with the kernel wrappers")
-
-
-@contextlib.contextmanager
-def patched_backward(fn):
-    """Route the upsample + CE autograd Function's backward through ``fn``
-    instead of the band kernel's wrapper for the duration of the block."""
-    saved = krce.resize_ce_backward
-    krce.resize_ce_backward = fn
-    try:
-        yield
-    finally:
-        krce.resize_ce_backward = saved
 
 
 def train_full_width():
@@ -619,7 +628,6 @@ def train_full_width():
     train_segment.make_afan_seg_step = recording
     updates = []
     krce.fwd_launches = krce.bwd_launches = kpgd.launches = 0
-    krce.bwd_rows_launches = 0
     t0 = time.time()
     try:
         with patched_update(recording_update(updates)):
@@ -642,9 +650,6 @@ def train_full_width():
     require(fwd == bwd == SEG_ITRS * per_step,
             f"resize+CE launches fwd={fwd} bwd={bwd} in {SEG_ITRS} steps "
             f"(expected {per_step} each per step)")
-    require(krce.bwd_rows_launches == 0,
-            f"the trainer launched the row backward {krce.bwd_rows_launches} "
-            f"times")
     # one PGD-update launch per sign step of each ascent (SE, and SD)
     pgd_per_step = (1 + sd) * cfg.steps
     require(cfg.step_mode == "sign"
@@ -747,11 +752,12 @@ def step_kernel_vs_plain(model, imgs, labs):
 
 
 def ce_parts(lo, lab, g):
-    """Timings (ms) at one of the step's shapes: the two kernels (the band
-    backward in turns with the row backward: row, band, band, row, twice),
-    the plain version (forward; backward alone on a kept graph) and the
-    library composition F.interpolate + F.cross_entropy + per-entry sum
-    (the same), and the two bounds."""
+    """Timings (ms) at one of the step's shapes: each kernel in turns with
+    the library composition F.interpolate + F.cross_entropy + per-entry sum
+    (library, kernel, kernel, library, twice; the backward's library on a
+    kept graph), each the device time of calls queued back to back; the
+    plain version (forward; backward alone on a kept graph); and the two
+    bounds."""
     size = tuple(lab.shape[1:])
     lab64 = lab.long()
 
@@ -763,23 +769,28 @@ def ce_parts(lo, lab, g):
     x = lo.clone().requires_grad_(True)
     plain_sums = trce.fused_resize_nll_sums_plain(x, lab, size)
     lib_sums = library(x)
-    backward = {"bwd": krce.resize_ce_backward,
-                "bwd_rows": krce.resize_ce_backward_rows}
-    turns = {k: [] for k in backward}
-    for k in ("bwd_rows", "bwd", "bwd", "bwd_rows") * 2:
-        turns[k].append(cuda_ms(lambda: backward[k](lo, lab, g), reps=50))
+    calls = {
+        "fwd": lambda: krce.resize_ce_forward(lo, lab),
+        "bwd": lambda: krce.resize_ce_backward(lo, lab, g),
+        "lib_fwd": lambda: library(lo),
+        "lib_bwd": lambda: torch.autograd.grad(lib_sums, x, g,
+                                               retain_graph=True),
+    }
+    turns = {}
+    for theirs, ours in (("lib_fwd", "fwd"), ("lib_bwd", "bwd")):
+        got = turns[theirs] = {theirs: [], ours: []}
+        for k in (theirs, ours, ours, theirs) * 2:
+            got[k].append(queued_ms(calls[k], reps=50))
     out = {
-        "fwd": cuda_ms(lambda: krce.resize_ce_forward(lo, lab), reps=50),
-        "bwd": float(np.mean(turns["bwd"])),
-        "bwd_rows": float(np.mean(turns["bwd_rows"])),
+        "fwd": float(np.mean(turns["lib_fwd"]["fwd"])),
+        "bwd": float(np.mean(turns["lib_bwd"]["bwd"])),
+        "lib_fwd": float(np.mean(turns["lib_fwd"]["lib_fwd"])),
+        "lib_bwd": float(np.mean(turns["lib_bwd"]["lib_bwd"])),
         "turns": turns,
         "plain_fwd": cuda_ms(
             lambda: trce.fused_resize_nll_sums_plain(lo, lab, size), reps=20),
         "plain_bwd": cuda_ms(lambda: torch.autograd.grad(
             plain_sums, x, g, retain_graph=True), reps=20),
-        "lib_fwd": cuda_ms(lambda: library(lo), reps=20),
-        "lib_bwd": cuda_ms(lambda: torch.autograd.grad(
-            lib_sums, x, g, retain_graph=True), reps=20),
     }
     b, c, h = lo.shape[:3]
     valid = int((lab != 255).sum())
@@ -842,19 +853,6 @@ def time_seg_steps(card, model, imgs, labs):
               f"{np.median(t):.3f} ms, p90 {np.percentile(t, 90):.3f} ms over "
               f"{len(t)} steps, {SEG_BATCH * 1e3 / np.median(t):.2f} imgs/s, "
               f"peak memory {peak:.2f} GiB ({card})")
-    # the A-FAN step with the row backward in turns with the band backward
-    step = seg_step(model)
-    backward = {"band": krce.resize_ce_backward,
-                "row": krce.resize_ce_backward_rows}
-    turns = {k: [] for k in backward}
-    for k in ("row", "band", "band", "row") * 2:
-        with patched_backward(backward[k]):
-            t = cuda_samples(lambda: step(imgs, labs), 10)
-        turns[k].append(float(np.median(t)))
-    for k, meds in turns.items():
-        print(f"    A-FAN step with the {k} backward: medians of 4 turns of "
-              f"10 steps {[round(m, 3) for m in meds]} ms, their median "
-              f"{np.median(meds):.3f} ms ({card})")
     profile_step(seg_step(model), imgs, labs)
 
 
@@ -871,21 +869,19 @@ def ptxas_lines(log, key):
 
 
 def time_ce_kernels(card, labs, per_step):
-    """Phase 10, the kernels: each upsample + CE kernel, its plain version
-    and the library composition at the step's shapes, the band backward in
-    turns with the row backward, and what ptxas and the card report of the
-    two backward kernels. Returns the two kernels' entries of the kernels
-    line (times per A-FAN step: its B=4 sites and its B=8 spectrum site)."""
+    """Phase 10, the kernels: what ptxas and the card report of the two
+    upsample + CE kernels, and each kernel in turns with the library
+    composition, its plain version and its bound at the step's shapes.
+    Returns the two kernels' entries of the kernels line (times per A-FAN
+    step: its B=4 sites and its B=8 spectrum site)."""
     log = kbuild.build_log("resize_ce.cu")
-    for key in ("resize_ce_bwd_bands", "resize_ce_bwd_rows"):
+    for key in ("resize_ce_fwd", "resize_ce_bwd_bands"):
         for line in ptxas_lines(log, key) or [f"no ptxas record of {key}"]:
             print(f"    ptxas: {line}")
     h = SEG_CROP // 4
-    for rows_kernel in (False, True):
-        info = krce.backward_kernel_info(19, h, h, SEG_CROP, SEG_CROP,
-                                         rows_kernel)
-        print(f"    {'row' if rows_kernel else 'band'} backward at C=19 "
-              f"{h}->{SEG_CROP}: {info} ({card})")
+    for kind in ("forward", "backward"):
+        info = krce.kernel_info(kind, 19, h, h, SEG_CROP, SEG_CROP)
+        print(f"    {kind} kernel at C=19 {h}->{SEG_CROP}: {info} ({card})")
     # the step's sites: SE and SD ascents, clean and SD losses at B=4; the
     # two stacked spectrum tails at B=8
     shapes = {SEG_BATCH: per_step - 1, 2 * SEG_BATCH: 1}
@@ -907,12 +903,14 @@ def time_ce_kernels(card, labs, per_step):
               f"library {parts['lib_bwd']:.4f}, bound max(bytes "
               f"{parts['bwd_bytes_ms']:.5f}, operations "
               f"{parts['bwd_ops_ms']:.5f}) ({card})")
-        turns = parts["turns"]
-        print(f"    backward B={b} in turns (row, band, band, row, twice): "
-              f"band {[round(t, 4) for t in turns['bwd']]} ms, mean "
-              f"{parts['bwd']:.4f}; row {[round(t, 4) for t in turns['bwd_rows']]}"
-              f" ms, mean {parts['bwd_rows']:.4f}; band "
-              f"{parts['bwd_rows'] / parts['bwd']:.2f}x faster ({card})")
+        for theirs, got in parts["turns"].items():
+            (t_name, t_ms), (o_name, o_ms) = got.items()
+            print(f"    B={b} in turns ({t_name}, {o_name}, {o_name}, "
+                  f"{t_name}, twice): {o_name} {[round(t, 4) for t in o_ms]}"
+                  f" ms, mean {np.mean(o_ms):.4f}; {t_name} "
+                  f"{[round(t, 4) for t in t_ms]} ms, mean "
+                  f"{np.mean(t_ms):.4f}; {o_name} "
+                  f"{np.mean(t_ms) / np.mean(o_ms):.2f}x faster ({card})")
     entries = []
     for half, name, line in (("fwd", "resize_ce_forward", 92),
                              ("bwd", "resize_ce_backward", 127)):
@@ -930,8 +928,6 @@ def time_ce_kernels(card, labs, per_step):
               f"library {total[f'lib_{half}']:.4f}, bound "
               f"{max(byte_ms, op_ms):.5f} ms ({entries[-1]['bound_by']}); "
               f"kernel at {total[half] / max(byte_ms, op_ms):.1f}x its bound")
-    print(f"    row backward per A-FAN step: {total['bwd_rows']:.4f} ms, "
-          f"band {total['bwd']:.4f} ms, in the same turns ({card})")
     return entries
 
 
@@ -1359,7 +1355,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=GROUPS,
                         help="run only this group's phases (see above)")
-    only = parser.parse_args(argv).only
+    args = parser.parse_args(argv)
+    only = args.only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)

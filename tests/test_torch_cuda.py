@@ -9,6 +9,7 @@ imports jax).
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from afan_torch.ops import nms as tnms
 from afan_torch.ops import pgd_step as tpgd
@@ -129,17 +130,32 @@ def test_resize_ce_kernels_match_plain(card, B, hw, HW, C, focal,
         assert float(sums[-1]) == 0.0 and not dlo[-1].any()
 
 
+def _library_sums(lo, lab, focal):
+    """The library composition: F.interpolate, then F.cross_entropy with
+    ignore_index=255 (and the focal term on its per-pixel loss), summed per
+    entry."""
+    hi = F.interpolate(lo, size=tuple(lab.shape[1:]), mode="bilinear",
+                       align_corners=False)
+    ce = F.cross_entropy(hi, lab.long(), reduction="none", ignore_index=255)
+    if focal is not None:
+        alpha, gamma = focal
+        ce = alpha * (1 - torch.exp(-ce)) ** gamma * ce
+    return ce.sum(dim=(1, 2))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,hw,HW,C,focal,all_ignored", CE_CASES[:4])
-def test_resize_ce_band_backward_matches_row_backward(card, B, hw, HW, C,
-                                                      focal, all_ignored):
+def test_resize_ce_kernels_match_library_composition(card, B, hw, HW, C,
+                                                     focal, all_ignored):
     lo, lab, g = _ce_inputs(card, B, hw, HW, C, all_ignored=all_ignored)
-    before = krce.bwd_rows_launches
-    band = krce.resize_ce_backward(lo, lab, g, focal)
-    rows = krce.resize_ce_backward_rows(lo, lab, g, focal)
+    x = lo.clone().requires_grad_(True)
+    want_s = _library_sums(x, lab, focal)
+    (want_d,) = torch.autograd.grad(want_s, x, g)
+    sums = krce.resize_ce_forward(lo, lab, focal)
+    dlo = krce.resize_ce_backward(lo, lab, g, focal)
     torch.cuda.synchronize()
-    assert krce.bwd_rows_launches == before + 1
-    assert _rel(band, rows) <= 1.1e-5
+    assert _rel(sums, want_s.detach()) <= 1e-5
+    assert _rel(dlo, want_d) <= 1.1e-5
 
 
 @pytest.mark.cuda
@@ -163,6 +179,12 @@ def test_resize_ce_kernel_rejects_what_it_does_not_take(card):
         krce.resize_ce_forward(lo, lab.long())
     with pytest.raises(ValueError):
         krce.resize_ce_forward(lo.transpose(2, 3), lab)
+    # a low-res row of 19 classes wider than the block's shared memory
+    wide = torch.zeros(1, 19, 1, krce.SMEM_LIMIT // (19 * 4) + 1, device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        krce.resize_ce_forward(wide, torch.zeros(1, 4, 4 * wide.shape[3],
+                                                 dtype=torch.int32,
+                                                 device=card))
 
 
 def _bits_equal(a, b):

@@ -25,6 +25,7 @@ tolerance alone. Learning rates agree within 1e-6 (optax's float32 schedule
 against Python's float64).
 """
 import os
+import shlex
 
 import flax.linen as fnn
 import jax
@@ -34,6 +35,7 @@ import optax
 import pytest
 import torch
 
+from afan.cli import train_segment as j_train_segment
 from afan.data import seg_data as jseg_data
 from afan.eval import seg_miou as jmiou
 from afan.models.deeplab import modeling as jmodeling
@@ -53,6 +55,7 @@ from afan_torch.train.checkpoint import (load_checkpoint,
 from afan_torch.train.optim import poly_schedule, sgd
 
 B, HW, NC, LR, TOTAL = 4, 33, 4, 0.1, 20
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def close(got, want, rel=1e-4, msg=""):
@@ -279,3 +282,57 @@ def test_cli_defaults_to_the_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_segment.main(["--dataset", "synthetic", "--limit_itrs", "1"])
+
+
+def recipe_flags(**env):
+    """The flags ``recipes/seg_city_final.sh`` passes to afan's
+    segmentation CLI, with its shell variables set to ``env`` and its data
+    flags at their full-size value."""
+    with open(os.path.join(ROOT, "recipes", "seg_city_final.sh")) as f:
+        text = f.read().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines()
+                if "-m afan.cli.train_segment" in ln)
+    for k, v in env.items():
+        line = line.replace("${%s}" % k, v)
+    line = line.replace("$(seg_smoke_flags)", "--data_root ./data")
+    assert "$" not in line, line
+    argv = shlex.split(line)
+    return argv[argv.index("afan.cli.train_segment") + 1:]
+
+
+class _RunDir(Exception):
+    pass
+
+
+def run_dir(main, argv, monkeypatch):
+    """The directory ``main(argv)`` would create for its run: the first
+    ``os.makedirs`` is stopped before anything is written."""
+    def stop(path, *a, **kw):
+        raise _RunDir(path)
+    with monkeypatch.context() as m:
+        m.setattr(os, "makedirs", stop)
+        with pytest.raises(_RunDir) as hit:
+            main(argv)
+    return hit.value.args[0]
+
+
+@pytest.mark.parametrize("env", [dict(N="1", GAMMASE="0.02", MIX="01"),
+                                 dict(N="2", GAMMASE="0.04", MIX="10")],
+                         ids=["final01", "final02"])
+def test_cli_takes_the_recipe_flags_and_names_the_run_as_afan(env,
+                                                              monkeypatch):
+    """The port's CLI parses every flag of the canonical Cityscapes recipe
+    but ``--bf16`` (bf16 is not ported), ``--adv_loss_weight_sd 0.3``
+    included, and names the run's directory as afan's CLI does."""
+    flags = recipe_flags(**env)
+    assert "--adv_loss_weight_sd" in flags and "--bf16" in flags
+    port_flags = [f for f in flags if f != "--bf16"]
+    args = train_segment.get_parser().parse_args(port_flags)
+    assert args.adv_loss_weight_sd == 0.3 and args.mix_layer == env["MIX"]
+    assert train_segment.afan_config(args).mix_mask == (
+        0, int(env["MIX"][0]), int(env["MIX"][1]))
+    want = run_dir(j_train_segment.main, flags, monkeypatch)
+    got = run_dir(train_segment.main, port_flags + ["--device", "cpu"],
+                  monkeypatch)
+    assert got == want
+    assert os.path.basename(got) == train_segment.experiment_name(args)

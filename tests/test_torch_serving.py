@@ -19,10 +19,8 @@ from afan_torch.cli.serve_websocket import FrameBatcher
 from afan_torch.data.voc_det import resize_image
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# The torch resize follows PIL's antialiased bilinear filter, but PIL rounds
-# in fixed point: measured, at most one uint8 level differs (seeds 0-5,
-# upscale and downscale, noise and smooth images), on 10-40% of pixels.
-RESIZE_ATOL = 1.0 / 255 + 1e-6
+# The port's resize is PIL's fixed-point resample: it must agree exactly.
+RESIZE_ATOL = 0.0
 
 
 class FakeDetectFn:
@@ -127,7 +125,20 @@ class TestFrameBatcher:
 @pytest.mark.parametrize("hw,scale", [((480, 640), 1.25), ((375, 500), 1.6),
                                       ((800, 1200), 0.75), ((37, 53), 2.3)])
 def test_resize_matches_pil(hw, scale):
-    img = np.random.RandomState(hw[0]).rand(*hw, 3).astype(np.float32)
+    _resize_matches_pil(hw, scale, seed=hw[0])
+
+
+# the smallest input on which the earlier antialiased F.interpolate resize
+# missed PIL by one uint8 level (7 of 48 values), and an odd downscale,
+# where PIL's filter support widens
+@pytest.mark.parametrize("hw,scale,seed", [((2, 2), 2.0, 0),
+                                           ((37, 53), 0.6, 37)])
+def test_resize_matches_pil_exactly_at_the_edges(hw, scale, seed):
+    _resize_matches_pil(hw, scale, seed)
+
+
+def _resize_matches_pil(hw, scale, seed):
+    img = np.random.RandomState(seed).rand(*hw, 3).astype(np.float32)
     want = pil_resize_image(img, scale)
     got = resize_image(img, scale)
     assert got.shape == want.shape and got.dtype == np.float32
