@@ -4,8 +4,10 @@ Run from the repository root, with one card and no arguments:
 
     python3 chip_smoke.py
 
-``--only ce`` runs phases 1, 2, 7 and the kernel timings of phase 10 (the
-upsample + CE kernels alone, no trainer); ``--only seg`` phases 1, 2 and
+``--only nms`` runs phases 1-3, 5 and the NMS timings of phase 6 (the
+greedy-NMS kernel alone, no server); ``--only ce`` runs phases 1, 2, 7 and
+the kernel timings of phase 10 (the upsample + CE kernels alone, no
+trainer); ``--only seg`` phases 1, 2 and
 7-10; ``--only det`` phases 1-6; ``--only cls`` phases 1, 2 and 11-14 (phase
 11 then lacks the segmentation ascents' shapes). The kernels line then lists
 the kernels of the phases that ran; without phase 8 the upsample + CE
@@ -16,16 +18,20 @@ Phases (any failure exits non-zero):
   2. build the hand-written CUDA kernels from afan_torch/csrc, one nvcc per
      source, all at once;
   3. hold the greedy-NMS kernel against its plain PyTorch version on the
-     card: the reference's golden fixture, uniform and clustered boxes,
-     invalid slots, plus_one off, a batched call — keep masks equal;
+     card: the reference's golden fixture, uniform and clustered boxes
+     (N = 12000 too), invalid slots, plus_one off, a batched call, and the
+     edges of its per-word scan (NMS_EDGE_CASES) — keep masks equal;
   4. serve frames through the detection server's FrameBatcher with the
      ResNet-50 Faster R-CNN at full width (seeded random weights, 21 VOC
      classes, canvas 608x1008, max_batch 4), in batches of 1 and 4, and
      check the answers and that the main path launched the kernel;
   5. hold the post-backbone path with the kernel against the same path with
      the plain NMS: proposals and keep masks identical;
-  6. time the detect call, the kernel and its plain version with CUDA
-     events, and the peak memory;
+  6. time the detect call and the peak memory, and the NMS kernel (CUDA
+     events; each pass's device time from torch.profiler), its plain
+     version and its bound at the detect call's two NMS calls, then the
+     kernel where most boxes are kept (G=4, N=6000 uniform) and at the
+     training proposal NMS (G=1 and 4, N=12000, uniform and clustered);
   7. hold the upsample + CE forward and backward kernels against their
      plain version on eleven geometries (city768 at B=2 and B=8, city512,
      voc513 with odd H, two focal cases, tiny32, 9x7 -> 33x28, 1x1 -> 4x4,
@@ -199,6 +205,56 @@ def sorted_boxes(n, seed, clustered=False):
     return boxes[np.argsort(-rng.rand(n), kind="stable")]
 
 
+def chain_boxes(n, lead=0):
+    """Boxes sliding right by 3 of their 12 pixels: iou(i, i+1) >= 0.5 >
+    iou(i, i+2) (with or without +1-pixel areas), so greedy NMS keeps every
+    other box; ``lead`` far-away boxes first shift the kept ones by one
+    slot, so that a kept box ends a 64-box word and suppresses the next
+    word's first."""
+    x = 3.0 * np.arange(n)
+    chain = np.stack([x, 0 * x, x + 12, 0 * x + 12], 1)
+    far = [[1000.0 + 20 * i, 1000, 1010 + 20 * i, 1010] for i in range(lead)]
+    return np.concatenate([np.reshape(far, (-1, 4)), chain]).astype(
+        np.float32)
+
+
+def degenerate_boxes(n, seed):
+    """Zero-width, zero-height and inverted (x2 < x1, y2 < y1) boxes among
+    ordinary ones."""
+    b = sorted_boxes(n, seed).copy()
+    b[0::5, 2] = b[0::5, 0]
+    b[1::5, 3] = b[1::5, 1]
+    b[2::5, [0, 2]] = b[2::5, [2, 0]]
+    b[3::7, [1, 3]] = b[3::7, [3, 1]]
+    return b
+
+
+def holes(n):
+    """All valid but a few slots inside words and at their edges."""
+    v = np.ones(n, bool)
+    v[[3, 4, 10, 62, 63, 64, 65, 100, 101, 102, 127, 128]] = False
+    return v
+
+
+# The edges of the kernel's per-word scan: name -> () -> (boxes (N, 4) f32
+# score-sorted, valid (N,) bool, threshold). Ragged last words, suppression
+# chains inside and across words, identical boxes, thresholds under which
+# everything or nothing suppresses, degenerate boxes, invalid slots inside a
+# word. tests/test_torch_nms.py holds the plain version to afan on them.
+NMS_EDGE_CASES = {
+    **{f"n{n}": (lambda n=n: (sorted_boxes(n, n), np.ones(n, bool), 0.6))
+       for n in (1, 63, 64, 65, 6001)},
+    "chain": lambda: (chain_boxes(200), np.ones(200, bool), 0.5),
+    "chain_shifted": lambda: (chain_boxes(200, 1), np.ones(201, bool), 0.5),
+    "identical": lambda: (np.tile(np.float32([[10, 20, 50, 70]]), (150, 1)),
+                          np.ones(150, bool), 0.5),
+    "thr_zero": lambda: (sorted_boxes(150, 7), np.ones(150, bool), 0.0),
+    "thr_above_one": lambda: (sorted_boxes(150, 8), np.ones(150, bool), 1.01),
+    "degenerate": lambda: (degenerate_boxes(300, 9), np.ones(300, bool), 0.3),
+    "invalid_in_word": lambda: (chain_boxes(200), holes(200), 0.5),
+}
+
+
 def cuda(a):
     return torch.from_numpy(np.ascontiguousarray(a)).cuda()
 
@@ -322,11 +378,9 @@ def check_answer(dets, thresh):
         require(prob > thresh, f"prob {prob} not above {thresh}")
 
 
-def detection_phases(card):
-    """Phases 3-6; returns the NMS kernel's entry of the kernels line."""
-    # 3. kernel vs plain
+def nms_kernel_vs_plain(errs):
+    """Phase 3."""
     print("[3] NMS kernel vs plain version")
-    errs = []
     det = np.load(os.path.join(FIXTURES, "nms-large-input.npy"))
     order = np.argsort(-det[:, 4], kind="stable")
     gold = cuda(det[order, :4].astype(np.float32))[None]
@@ -343,6 +397,8 @@ def detection_phases(card):
         b = cuda(sorted_boxes(n, n))[None]
         ones = torch.ones(b.shape[:2], dtype=torch.bool, device="cuda")
         kernel_vs_plain(f"uniform{n}", b, ones, 0.7, True, errs)
+    b = cuda(sorted_boxes(12000, 12, clustered=True))[None]
+    kernel_vs_plain("clustered12000", b, ones, 0.7, True, errs)
     b = cuda(sorted_boxes(2600, 99, clustered=True))[None]
     ones = torch.ones(b.shape[:2], dtype=torch.bool, device="cuda")
     kernel_vs_plain("clustered", b, ones, 0.5, True, errs)
@@ -357,14 +413,27 @@ def detection_phases(card):
                        for i in range(80)]))
     ones = torch.ones(b.shape[:2], dtype=torch.bool, device="cuda")
     kernel_vs_plain("batched", b, ones, 0.3, True, errs)
+    for name, case in NMS_EDGE_CASES.items():
+        boxes, valid, thr = case()
+        for plus_one in (True, False):
+            kernel_vs_plain(name, cuda(boxes)[None], cuda(valid)[None], thr,
+                            plus_one, errs)
 
-    # 4. serve
-    print("[4] serve: FrameBatcher, ResNet-50 Faster R-CNN, 21 classes")
+
+def detector():
+    """The served ResNet-50 Faster R-CNN (21 classes, seeded weights) and
+    its canvas."""
     args = argparse.Namespace(backbone="resnet50", checkpoint=None,
                               image_min_side=MIN_SIDE,
                               image_max_side=MAX_SIDE)
     model, canvas_hw = build_state(args, num_classes=21)
     require(next(model.parameters()).is_cuda, "model is not on the card")
+    return model, canvas_hw
+
+
+def serve(model, canvas_hw, frames):
+    """Phase 4; returns the NMS kernel's launches in the served calls."""
+    print("[4] serve: FrameBatcher, ResNet-50 Faster R-CNN, 21 classes")
     detect_fn = make_detect_fn(model)
     batch_sizes = []
 
@@ -378,8 +447,6 @@ def detection_phases(card):
     batcher.warmup()
     torch.cuda.synchronize()
     print(f"    canvas {canvas_hw}, warmup {time.time() - t0:.1f} s")
-    rng = np.random.RandomState(0)
-    frames = [rng.rand(480, 640, 3).astype(np.float32) for _ in range(9)]
     groups = [frames[0:1], frames[1:2], frames[2:6], frames[6:8]]
     batch_sizes.clear()
     knms.launches = 0
@@ -401,13 +468,13 @@ def detection_phases(card):
           f"{batch_sizes}, detections per frame "
           f"{[len(d) for d in answers]} (>{PROB_THRESH}), {len(zero)} at "
           f"prob_thresh 0; NMS kernel launches {launches}")
+    return launches
 
-    # 5. post-backbone path: kernel vs plain NMS
+
+def path_kernel_vs_plain(model, hw, x4, errs):
+    """Phase 5; returns the NMS inputs of the batch-4 detect call (the
+    proposal NMS and the per-class NMS)."""
     print("[5] path with the kernel vs path with the plain NMS")
-    canvases = np.stack([preprocess_frame(f, canvas_hw, MIN_SIDE, MAX_SIDE)[0]
-                         for f in frames[:MAX_BATCH]])
-    x4 = cuda(canvases)
-    hw = tuple(canvas_hw)
     recorded = []
 
     def recording_kernel(boxes, valid, thr, plus_one=True):
@@ -447,9 +514,11 @@ def detection_phases(card):
     main_inputs = [recorded[1], recorded[2]]
     for boxes_in, valid_in, thr, plus_one in main_inputs:
         kernel_vs_plain("main_path", boxes_in, valid_in, thr, plus_one, errs)
+    return main_inputs
 
-    # 6. timing
-    print(f"[6] timing on {card}")
+
+def time_detect(card, model, x4, frame, canvas_hw):
+    """Phase 6, the detect call and the host's pre-processing."""
     x1 = x4[:1].contiguous()
     with torch.inference_mode():
         for bs, x in ((1, x1), (MAX_BATCH, x4)):
@@ -462,7 +531,6 @@ def detection_phases(card):
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"    peak memory, detect at batch {MAX_BATCH}: {peak:.2f} GiB")
-    frame = frames[0]
     pre_ms = host_ms(lambda: preprocess_frame(frame, canvas_hw, MIN_SIDE,
                                               MAX_SIDE))
     _, scale = preprocess_frame(frame, canvas_hw, MIN_SIDE, MAX_SIDE)
@@ -476,33 +544,101 @@ def detection_phases(card):
           f"median {pre_ms:.3f} ms; one antialiased F.interpolate of the "
           f"same frame {lib_ms:.3f} ms ({torch.get_num_threads()} host "
           f"threads)")
+
+
+def nms_pass_ms(call, n=5):
+    """Device ms per call of the kernel's two passes, from a torch.profiler
+    trace of ``n`` calls: (mask pass, scan pass), or None when the trace
+    holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for part in ("nms_mask_kernel", "nms_scan_kernel"):
+                if part in e.key:
+                    ms[part] = e.self_device_time_total / 1e3 / n
+    if len(ms) < 2:
+        return None
+    return ms["nms_mask_kernel"], ms["nms_scan_kernel"]
+
+
+def time_nms_shape(card, label, boxes, valid, thr, plus_one=True, plain=True):
+    """One shape of phase 6: kept count, the two passes' device time, the
+    kernel's time (calls queued behind a sleep kernel, so that the host's
+    cost per call does not hide the card's), the plain version's and the
+    bound."""
+    call = lambda: knms.nms_sorted_mask(boxes, valid, thr, plus_one)
+    keep = call()
+    kept = keep.sum(1).tolist()
+    k_ms = queued_ms(call, reps=50)
+    p_ms = (cuda_ms(lambda: tnms.nms_sorted_mask_plain(
+        boxes, valid, thr, plus_one), reps=3, warmup=1) if plain else None)
+    b, o = nms_bound_parts(boxes, valid, keep)
+    split = nms_pass_ms(call)
+    parts = ("passes not measured (no device time in the trace)"
+             if split is None else
+             f"mask pass {split[0]:.4f} ms + scan pass {split[1]:.4f} ms")
+    plain_s = "" if p_ms is None else f", plain {p_ms:.3f} ms"
+    print(f"    nms {label} G={valid.shape[0]} N={valid.shape[1]} thr={thr}, "
+          f"kept {kept}: kernel {k_ms:.4f} ms ({parts}){plain_s}, bound "
+          f"max(bytes {b:.6f}, operations {o:.6f}) ms ({card})")
+    return k_ms, p_ms, b, o
+
+
+def time_nms(card, main_inputs):
+    """Phase 6, the kernel: the detect call's two NMS calls (with the plain
+    version), then the shapes where most boxes are kept and the training
+    proposal NMS (12000 in, at 0.7). Returns (ms, plain ms, bound ms,
+    bound_by) per batch-4 detect call."""
     ms = plain_ms = byte_ms = op_ms = 0.0
     for boxes_in, valid_in, thr, plus_one in main_inputs:
-        g, n = valid_in.shape
-        k_ms = cuda_ms(lambda: knms.nms_sorted_mask(boxes_in, valid_in, thr,
-                                                    plus_one), reps=50)
-        p_ms = cuda_ms(lambda: tnms.nms_sorted_mask_plain(
-            boxes_in, valid_in, thr, plus_one), reps=3, warmup=1)
-        keep_in = knms.nms_sorted_mask(boxes_in, valid_in, thr, plus_one)
-        b, o = nms_bound_parts(boxes_in, valid_in, keep_in)
-        ms, plain_ms = ms + k_ms, plain_ms + p_ms
+        k, p, b, o = time_nms_shape(card, "main path", boxes_in, valid_in,
+                                    thr, plus_one)
+        ms, plain_ms = ms + k, plain_ms + p
         byte_ms, op_ms = byte_ms + b, op_ms + o
-        print(f"    nms G={g} N={n} thr={thr}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.3f} ms, bound max(bytes {b:.6f}, operations "
-              f"{o:.6f}) ms ({card})")
     bound = max(byte_ms, op_ms)
     bound_by = "bytes" if byte_ms >= op_ms else "operations"
     print(f"    nms per detect call at batch {MAX_BATCH}: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.3f} ms, bound {bound:.6f} ms ({bound_by})")
-    # random weights keep few proposals; uniform boxes keep most, which
-    # lengthens the kernel's sequential scan
-    b = cuda(np.stack([sorted_boxes(6000, 10 + i) for i in range(4)]))
-    ones = torch.ones(b.shape[:2], dtype=torch.bool, device="cuda")
-    kept = int(knms.nms_sorted_mask(b, ones, 0.7).sum())
-    k_ms = cuda_ms(lambda: knms.nms_sorted_mask(b, ones, 0.7), reps=20)
-    print(f"    nms G=4 N=6000 uniform boxes, {kept} kept: kernel "
-          f"{k_ms:.4f} ms ({card})")
+    # random weights keep few proposals; uniform boxes keep most
+    shapes = [("uniform", 6000, 4, False)] + [
+        ("clustered" if cl else "uniform", 12000, g, cl)
+        for g in (1, 4) for cl in (False, True)]
+    for label, n, g, cl in shapes:
+        b = cuda(np.stack([sorted_boxes(n, 10 + i, clustered=cl)
+                           for i in range(g)]))
+        ones = torch.ones(b.shape[:2], dtype=torch.bool, device="cuda")
+        time_nms_shape(card, label, b, ones, 0.7, plain=False)
+    return ms, plain_ms, bound, bound_by
 
+
+def detection_phases(card, nms_only=False):
+    """Phases 3-6 (with ``nms_only``, phases 3 and 5 and the NMS timings of
+    phase 6: no server, no detect timing); returns the NMS kernel's entry
+    of the kernels line."""
+    errs = []
+    nms_kernel_vs_plain(errs)
+    model, canvas_hw = detector()
+    rng = np.random.RandomState(0)
+    frames = [rng.rand(480, 640, 3).astype(np.float32) for _ in range(9)]
+    launches = None if nms_only else serve(model, canvas_hw, frames)
+    x4 = cuda(np.stack([preprocess_frame(f, canvas_hw, MIN_SIDE, MAX_SIDE)[0]
+                        for f in frames[:MAX_BATCH]]))
+    main_inputs = path_kernel_vs_plain(model, tuple(canvas_hw), x4, errs)
+    print(f"[6] timing on {card}")
+    if not nms_only:
+        time_detect(card, model, x4, frames[0], canvas_hw)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms, plain_ms, bound, bound_by = time_nms(card, main_inputs)
     return {
         "name": "nms", "route": "cuda", "source": "afan_torch/csrc/nms.cu",
         "replaces": "afan/ops/kernels/nms_kernel.py:65",
@@ -1348,7 +1484,7 @@ def classification_phases(card, seg_updates):
             "library_ms": None}
 
 
-GROUPS = ("ce", "seg", "det", "cls")
+GROUPS = ("nms", "ce", "seg", "det", "cls")
 
 
 def main(argv=None):
@@ -1387,8 +1523,8 @@ def main(argv=None):
           f"{os.path.relpath(kbuild.BUILD_DIR, ROOT)}")
 
     entries, seg_updates = [], []
-    if only in (None, "det"):
-        entries.append(detection_phases(card))
+    if only in (None, "det", "nms"):
+        entries.append(detection_phases(card, only == "nms"))
         gc.collect()
         torch.cuda.empty_cache()
     if only in (None, "seg", "ce"):

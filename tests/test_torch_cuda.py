@@ -17,6 +17,7 @@ from afan_torch.ops import resize_ce as trce
 from afan_torch.ops.kernels import nms as knms
 from afan_torch.ops.kernels import pgd_step as kpgd
 from afan_torch.ops.kernels import resize_ce as krce
+from chip_smoke import NMS_EDGE_CASES, sorted_boxes
 
 
 @pytest.fixture
@@ -62,6 +63,33 @@ def test_nms_kernel_batched(card):
     v = torch.ones(b.shape[:2], dtype=torch.bool, device=card)
     got = knms.nms_sorted_mask(b, v, 0.3)
     want = tnms.nms_sorted_mask_plain(b, v, 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plus_one", [True, False])
+@pytest.mark.parametrize("case", sorted(NMS_EDGE_CASES))
+def test_nms_kernel_scan_edges(card, case, plus_one):
+    """The per-word scan's edges (ragged last words, chains across words,
+    thresholds 0 and 1.01, degenerate boxes, invalid slots in a word)."""
+    boxes, valid, thr = NMS_EDGE_CASES[case]()
+    b = torch.from_numpy(boxes).to(card)[None]
+    v = torch.from_numpy(valid).to(card)[None]
+    got = knms.nms_sorted_mask(b, v, thr, plus_one)
+    want = tnms.nms_sorted_mask_plain(b, v, thr, plus_one)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clustered", [False, True])
+def test_nms_kernel_training_size(card, clustered):
+    """G = 1, N = 12000 at 0.7: the training proposal NMS."""
+    b = torch.from_numpy(sorted_boxes(12000, 10, clustered)).to(card)[None]
+    v = torch.ones(b.shape[:2], dtype=torch.bool, device=card)
+    got = knms.nms_sorted_mask(b, v, 0.7)
+    want = tnms.nms_sorted_mask_plain(b, v, 0.7)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
