@@ -67,6 +67,13 @@ def iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(union, min=1e-12)
 
 
+def inside(boxes: torch.Tensor, left: float, top: float, right: float,
+           bottom: float) -> torch.Tensor:
+    """Whether each box lies wholly inside the image."""
+    return ((boxes[..., 0] >= left) & (boxes[..., 1] >= top)
+            & (boxes[..., 2] <= right) & (boxes[..., 3] <= bottom))
+
+
 def clip(boxes: torch.Tensor, left: float, top: float, right: float,
          bottom: float) -> torch.Tensor:
     """Clamp to image bounds."""

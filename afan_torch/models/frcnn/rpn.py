@@ -1,5 +1,6 @@
 """Region Proposal Network — the PyTorch counterpart of
-``afan/models/frcnn/rpn.py`` (eval path: heads and proposal generation).
+``afan/models/frcnn/rpn.py``: the heads, anchor labeling and sampling, the
+two RPN losses and proposal generation.
 
 Module names follow the reference (``_features.0``, ``_anchor_objectness``,
 ``_anchor_transformer``). The heads run in NCHW and their outputs are
@@ -9,13 +10,15 @@ order, the order of :func:`..anchors.generate_anchors`.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from ...ops.nms import nms_select_presorted
 from . import boxes as B
+from .sampling import (Priorities, SampleResult, beta_smooth_l1, gather_rows,
+                       masked_mean, sample_fg_bg, select_fg_bg)
 
 
 def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
@@ -60,6 +63,72 @@ class RPNHeads(nn.Module):
                      self._anchor_transformer):
             lecun_normal_(conv.weight, generator)
             nn.init.zeros_(conv.bias)
+
+
+class RPNTargets(NamedTuple):
+    sample: SampleResult          # (B, S) sampled anchor slots
+    gt_objectness: torch.Tensor   # (B, S) int64 0/1
+    gt_deltas: torch.Tensor       # (B, S, 4)
+
+
+def label_anchors(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                  gt_valid: torch.Tensor, image_width: int,
+                  image_height: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Anchor labels (`region_proposal_network.py:69-83`) for a batch:
+    anchors (A, 4), ground truth (B, G, 4) with validity (B, G) → labels
+    (B, A) (-1 ignore, 0 bg below IoU 0.3, 1 fg at IoU 0.7 or the best
+    anchor of a gt) and the assigned gt (B, A); anchors not wholly inside
+    the image are -1."""
+    ious = B.iou(anchors[None], gt_boxes)                    # (B, A, G)
+    ious = torch.where(gt_valid[:, None, :], ious,
+                       torch.full_like(ious, -1.0))
+    anchor_max, assignment = ious.max(dim=2)
+    gt_max = ious.amax(dim=1, keepdim=True)                   # (B, 1, G)
+    labels = torch.full(anchor_max.shape, -1, dtype=torch.int64,
+                        device=anchors.device)
+    labels = torch.where(anchor_max < 0.3, 0, labels)
+    additions = ((ious > 0) & (ious == gt_max)
+                 & gt_valid[:, None, :]).any(dim=2)
+    labels = torch.where(additions, 1, labels)
+    labels = torch.where(anchor_max >= 0.7, 1, labels)
+    inside = B.inside(anchors, 0, 0, image_width, image_height)
+    return torch.where(inside[None], labels, -1), assignment
+
+
+def rpn_targets(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                gt_valid: torch.Tensor, image_width: int, image_height: int,
+                num_samples: int = 256, fg_cap: int = 128,
+                generator: Optional[torch.Generator] = None,
+                priorities: Optional[Priorities] = None) -> RPNTargets:
+    """Label and sample each image's anchors and gather the regression
+    targets of the sampled slots. ``priorities`` (two (B, A) uniforms)
+    replace the draw from ``generator``."""
+    labels, assignment = label_anchors(anchors, gt_boxes, gt_valid,
+                                       image_width, image_height)
+    fg, bg = labels == 1, labels == 0
+    sample = (sample_fg_bg(generator, fg, bg, num_samples, fg_cap)
+              if priorities is None else
+              select_fg_bg(priorities, fg, bg, num_samples, fg_cap))
+    sel = sample.indices
+    sel_anchors = anchors[sel]
+    sel_gt = gather_rows(gt_boxes, torch.gather(assignment, 1, sel))
+    return RPNTargets(sample=sample, gt_objectness=sample.is_fg.long(),
+                      gt_deltas=B.encode_deltas(sel_anchors, sel_gt))
+
+
+def rpn_loss(objectness: torch.Tensor, deltas: torch.Tensor,
+             targets: RPNTargets, beta: float
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-image (objectness CE, fg smooth-L1) over the sampled anchors
+    (`region_proposal_network.py:175-198`): objectness (B, A, 2), deltas
+    (B, A, 4) → two (B,) vectors."""
+    sel = targets.sample.indices
+    logp = torch.log_softmax(gather_rows(objectness, sel), dim=-1)
+    ce = -torch.gather(logp, 2, targets.gt_objectness[..., None])[..., 0]
+    ce = masked_mean(ce, targets.sample.valid)
+    l1 = beta_smooth_l1(gather_rows(deltas, sel), targets.gt_deltas, beta,
+                        targets.sample.is_fg)
+    return ce, l1
 
 
 def generate_proposals(anchors: torch.Tensor, objectness: torch.Tensor,

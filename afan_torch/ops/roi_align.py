@@ -2,8 +2,9 @@
 ``afan/ops/roi_align.py``.
 
 Features are NCHW ``(B, C, H, W)``; boxes are corner format in absolute
-image coordinates; ``batch_indices`` maps each ROI to its image; outputs are
-``(R, C, ph, pw)``.
+image coordinates; ``batch_indices`` maps each ROI to its image, or the boxes
+come as ``(B, S, 4)``, S per image (:func:`roi_align_per_image`, what the
+model pools); outputs are ``(R, C, ph, pw)``.
 
 Semantics are those of ``afan``: the legacy non-aligned ROIAlign (no -0.5
 offset, ROI sides at least 1) with a static ``sampling_ratio`` (2, where the
@@ -12,7 +13,7 @@ reference's adaptive grid would give a data-dependent shape), samples outside
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,6 +77,41 @@ def roi_align_einsum(feat: torch.Tensor, boxes: torch.Tensor,
         t = torch.einsum("rhH,HWc->rhWc", wy[lo:hi], feat_cat)
         out[lo:hi] = torch.einsum("rhWc,rwW->rchw", t, wx[lo:hi])
     return out.to(feat.dtype)
+
+
+def roi_align_per_image(feat: torch.Tensor, boxes: torch.Tensor,
+                        output_size: Tuple[int, int] = (14, 14),
+                        spatial_scale: float = 1.0 / 16,
+                        sampling_ratio: int = 2) -> torch.Tensor:
+    """:func:`roi_align_einsum` for boxes ``(B, S, 4)``, image b's S ROIs
+    first → ``(B*S, C, ph, pw)``: each image's ROIs are contracted against
+    that image's rows only, a B-fold smaller first contraction than the
+    concatenated one. The second contraction is a batched matmul over
+    (ROI, output row) that reads the ``(ROI, ph, W, C)`` intermediate in
+    place; the result is a view in channels-last order."""
+    ph, pw = output_size
+    s = sampling_ratio
+    B, C, H, W = feat.shape
+    S = boxes.shape[1]
+    f32 = torch.float32
+    dev = feat.device
+    flat = boxes.reshape(-1, 4).to(f32) * spatial_scale
+    x1, y1, x2, y2 = flat.unbind(1)
+    bin_w = torch.clamp(x2 - x1, min=1.0) / pw
+    bin_h = torch.clamp(y2 - y1, min=1.0) / ph
+    ly = torch.arange(H, dtype=torch.int64, device=dev).expand(B * S, H)
+    lx = torch.arange(W, dtype=torch.int64, device=dev).expand(B * S, W)
+    wy = _axis_weights(y1, bin_h, ph, s, H, ly).reshape(B, S * ph, H)
+    wx = _axis_weights(x1, bin_w, pw, s, W, lx).reshape(B, S, 1, pw, W)
+    rows = feat.to(f32).permute(0, 2, 3, 1).reshape(B, H, W * C)
+    out = torch.empty((B, S, ph, pw, C), dtype=f32, device=dev)
+    step = max(1, ROI_CHUNK // B)
+    for lo in range(0, S, step):
+        hi = min(lo + step, S)
+        t = torch.matmul(wy[:, lo * ph:hi * ph], rows)     # (B, s*ph, W*C)
+        out[:, lo:hi] = torch.matmul(wx[:, lo:hi],
+                                     t.reshape(B, hi - lo, ph, W, C))
+    return out.reshape(B * S, ph, pw, C).permute(0, 3, 1, 2).to(feat.dtype)
 
 
 def _bilinear_gather(feat_nhwc: torch.Tensor, batch_idx: torch.Tensor,
@@ -171,13 +207,22 @@ def roi_pool_max(feat: torch.Tensor, boxes: torch.Tensor,
 
 
 def pool_rois(feat: torch.Tensor, boxes: torch.Tensor,
-              batch_indices: torch.Tensor, mode: str = "align"
-              ) -> torch.Tensor:
+              batch_indices: Optional[torch.Tensor] = None,
+              mode: str = "align") -> torch.Tensor:
     """The reference Pooler: ALIGN = ROIAlign 14x14 at scale 1/16, then 2x2
-    max pool → ``(R, C, 7, 7)``; POOLING = :func:`roi_pool_max`."""
+    max pool → ``(R, C, 7, 7)``; POOLING = :func:`roi_pool_max`. Without
+    ``batch_indices`` the boxes are ``(B, S, 4)``, S per image."""
+    if mode not in ("align", "pooling"):
+        raise ValueError(f"unknown pooler mode {mode!r}")
+    if batch_indices is None and mode == "align":
+        x = roi_align_per_image(feat, boxes, (14, 14), 1.0 / 16, 2)
+        return F.max_pool2d(x, 2).contiguous()
+    if batch_indices is None:
+        batch_indices = torch.arange(
+            boxes.shape[0], device=boxes.device).repeat_interleave(
+                boxes.shape[1])
+        boxes = boxes.reshape(-1, 4)
     if mode == "pooling":
         return roi_pool_max(feat, boxes, batch_indices, (7, 7), 1.0 / 16)
-    if mode != "align":
-        raise ValueError(f"unknown pooler mode {mode!r}")
     x = roi_align_einsum(feat, boxes, batch_indices, (14, 14), 1.0 / 16, 2)
     return F.max_pool2d(x, 2)

@@ -10,7 +10,10 @@ stack: for segmentation (:func:`save_checkpoint`) ``model_state``,
 ``optimizer_state``, ``scheduler_state``, ``cur_itrs`` and ``best_score``;
 for classification (:func:`save_classify_checkpoint`,
 `Classification/main_perturb.py:116-136`) ``epoch``, ``state_dict``,
-``optimizer``, ``scheduler``, ``step`` and ``best_prec1``.
+``optimizer``, ``scheduler``, ``step`` and ``best_prec1``; for detection
+(:func:`save_detect_checkpoint`, `Detection/model.py:189-199`)
+``state_dict``, ``step``, ``optimizer_state_dict`` and
+``scheduler_state_dict``.
 """
 from __future__ import annotations
 
@@ -66,6 +69,15 @@ def save_classify_checkpoint(path: str, model: nn.Module,
                          "optimizer": optimizer.state_dict(),
                          "scheduler": scheduler.state_dict(), "step": step,
                          "best_prec1": best_prec1})
+
+
+def save_detect_checkpoint(path: str, model: nn.Module,
+                           optimizer: torch.optim.Optimizer, scheduler,
+                           step: int) -> str:
+    """Write a detection training checkpoint (:func:`_write`)."""
+    return _write(path, {"state_dict": model.state_dict(), "step": step,
+                         "optimizer_state_dict": optimizer.state_dict(),
+                         "scheduler_state_dict": scheduler.state_dict()})
 
 
 def restore_optimizer(optimizer: torch.optim.Optimizer,

@@ -1,13 +1,265 @@
-"""Detection steps — the PyTorch counterpart of
-``afan/train/detect_loop.py``. This slice ports the eval forward only; the
-training steps come with the training path."""
+"""Detection train steps — the PyTorch counterpart of
+``afan/train/detect_loop.py``: the baseline step (`train_baseline.py`), the
+flagship A-FAN step (`train_aug_final.py`: SE backbone tap, SD tap on the
+pooled ROI vector, spectrum, AFN) and the eval forward.
+
+Every forward that samples anchors and proposals runs the proposal NMS,
+which on the card is the hand-written kernel
+(:func:`afan_torch.ops.nms.nms_select_presorted`), and every sign ascent
+ends in the PGD-update kernel (:func:`afan_torch.core.attack.pgd`). There is
+no fallback: a kernel that fails raises.
+
+Freeze (`Detection/backbone/resnet50.py:36-38`, ``afan``'s
+``detection_param_labels``): the stem, ``layer1`` and every FrozenBatchNorm
+weight and bias of the torso (``layer4`` too, which ``detection.hidden``
+shares) take no update and no weight decay; :func:`detection_param_groups`
+turns their gradients off and leaves them out of the optimizer.
+
+Images enter as ``(B, H, W, 3)`` in [0, 1], ground truth as boxes
+``(B, G, 4)``, classes ``(B, G)`` and validity ``(B, G)``, on the model's
+device.
+"""
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import dataclasses
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from ..models.frcnn.model import FasterRCNN
+from ..core.afn import mix_feature
+from ..core.attack import pgd, uniform_init
+from ..core.spectrum import sample_points
+from ..models.frcnn.model import FasterRCNN, Targets
+from ..models.resnet import FrozenBatchNorm
+
+UNPORTED = "not ported yet (ROADMAP.md, queue 1: detection)"
+
+
+def detection_param_groups(model: FasterRCNN, freeze: bool = True
+                           ) -> List[dict]:
+    """The SGD groups of a detection model. With ``freeze`` (the
+    reference's setting; it always starts from ImageNet weights), the
+    stem, ``layer1`` and every FrozenBatchNorm weight and bias of the torso
+    get ``requires_grad_(False)`` and stay out of the groups; without it
+    (training from scratch) every parameter trains."""
+    if freeze:
+        torso = model.features
+        frozen = [torso.conv1, torso.bn1, torso.layer1] + [
+            m for m in torso.modules() if isinstance(m, FrozenBatchNorm)]
+        for m in frozen:
+            m.requires_grad_(False)
+    return [{"params": [p for p in model.parameters() if p.requires_grad]}]
+
+
+StepFn = Callable[..., Dict[str, torch.Tensor]]
+
+
+def make_baseline_det_step(model: FasterRCNN,
+                           optimizer: torch.optim.Optimizer, scheduler
+                           ) -> StepFn:
+    """`train_baseline.py:74-90`: loss = the four losses' means summed, one
+    SGD update. ``step(images, gt_boxes, gt_classes, gt_valid,
+    generator=None, targets=None) -> {"loss"}``; ``targets`` replace the
+    sample drawn from ``generator``."""
+
+    def step_fn(images, gt_boxes, gt_classes, gt_valid,
+                generator: Optional[torch.Generator] = None,
+                targets: Optional[Targets] = None):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss = model.losses(images, gt_boxes, gt_classes, gt_valid,
+                            generator, targets=targets).total()
+        loss.backward()
+        optimizer.step()
+        scheduler.step()
+        return {"loss": loss.detach()}
+
+    return step_fn
+
+
+def make_advtrain_det_step(*args, **kwargs):
+    """Input-PGD adversarial training (`train_baseline_advtrain.py`)."""
+    raise NotImplementedError(f"advtrain is {UNPORTED}")
+
+
+@dataclasses.dataclass(frozen=True)
+class DetAfanConfig:
+    """The A-FAN detection flags (`train_aug_final.py:200-247`), gammas
+    ALREADY /255. ``taps_se`` holds the SE taps (the first carries the
+    spectrum; more than one is the multi-layer variants' extra points, an
+    empty tuple is SD only)."""
+    taps_se: Sequence[int] = (2,)
+    gammas_se: Sequence[float] = (0.9 / 255,)
+    spectrum: int = 5
+    mix_mask: Sequence[int] = (0, 0, 0, 0, 0)  # AFN per spectrum point
+    sd: Optional[str] = "roi"                  # 'roi' | None
+    gamma_sd: float = 0.1 / 255
+    only_roi_sd: bool = True
+    mix_sd: bool = False
+    noise_sd: float = 0.0
+    sd_weight: float = 0.3
+    steps: int = 1
+    eps: float = 2.0 / 255
+    randinit: bool = False
+    clip: bool = False
+    step_mode: str = "sign"
+    random_steps: bool = False
+    remat_tails: bool = False
+    weight_mode: str = "final"      # 'final'; 'sat_preset', 'single' raise
+    share_proposals: bool = True
+    input_adv: bool = False
+
+
+def _refuse_unported(cfg: DetAfanConfig) -> None:
+    if cfg.input_adv:
+        raise NotImplementedError(f"input_adv is {UNPORTED}")
+    if cfg.sd not in ("roi", None):
+        raise NotImplementedError(f"sd={cfg.sd!r} is {UNPORTED}")
+    if cfg.weight_mode != "final":
+        raise NotImplementedError(
+            f"weight_mode {cfg.weight_mode!r} is {UNPORTED}")
+    if cfg.remat_tails:
+        raise NotImplementedError(f"remat_tails is {UNPORTED}")
+    if cfg.taps_se and len(cfg.mix_mask) != cfg.spectrum:
+        raise ValueError(f"mix_mask {cfg.mix_mask} needs {cfg.spectrum} "
+                         f"entries")
+
+
+def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
+                       scheduler, cfg: DetAfanConfig) -> StepFn:
+    """The flagship A-FAN detection step (`train_aug_final.py:70-166`):
+
+    1. the SE features at each tap, detached;
+    2. the SD pass: a clean forward to the pooled ROI vector, detached,
+       with its sample;
+    3. PGD on each SE feature through the four losses, and on the ROI
+       vector through the ROI losses (``only_roi_sd``) or all four;
+    4. AFN and uniform noise on the SD point (``mix_sd``, ``noise_sd``);
+    5. the spectrum on the first SE tap, AFN per ``mix_mask``;
+    6. loss = (clean + spectrum tails + extra taps) / 3 * (1 - w) + SD /
+       3 * w, one SGD update.
+
+    With ``share_proposals`` one clean forward samples the targets that
+    the ascents and the loss forwards reuse; otherwise each forward samples
+    its own. The SD pass samples once: the loss's SD term reuses that
+    sample (``afan`` draws it twice from one key, which gives the same
+    sample), on the clean forward's RPN outputs, which it shares. So a step
+    runs 2 proposal NMS with ``share_proposals`` (one per sampling forward
+    without) and one PGD update per ascent step and tap.
+
+    Each loss term is backpropagated as soon as it is formed (the terms
+    share no activations but the clean forward's), so one forward's graph
+    is alive at a time; the update is the one of the summed loss.
+
+    ``step(images, gt_boxes, gt_classes, gt_valid, generator=None,
+    targets=None)`` returns the detached ``loss``, ``loss_clean``,
+    ``loss_spectrum`` and ``loss_sd``. ``generator`` drives the samples,
+    ``randinit``, ``random_steps`` and ``noise_sd``; ``targets`` may hold
+    ``"clean"`` (the sample ``afan`` draws from its ``r_clean`` key: the
+    shared one, or the clean forward's) and ``"sd"`` (the SD pass's), which
+    then are not drawn.
+    """
+    _refuse_unported(cfg)
+    w_sd = cfg.sd_weight if cfg.sd is not None else 0.0
+    c_main = (1.0 - w_sd) / 3.0
+
+    def attack(loss_fn, x, gamma, generator):
+        return pgd(loss_fn, x, steps=cfg.steps, gamma=gamma, eps=cfg.eps,
+                   randinit=cfg.randinit, clip=cfg.clip, generator=generator,
+                   step_mode=cfg.step_mode, random_steps=cfg.random_steps)
+
+    def step_fn(images, gt_boxes, gt_classes, gt_valid,
+                generator: Optional[torch.Generator] = None,
+                targets: Optional[Mapping[str, Targets]] = None):
+        model.train()
+        targets = dict(targets or {})
+        gt = (gt_boxes, gt_classes, gt_valid)
+        hw = tuple(images.shape[1:3])
+        shared = None
+        if cfg.share_proposals:
+            shared = targets.get("clean")
+            if shared is None:
+                shared = model.compute_targets(images, *gt, generator)
+
+        def tail_loss(tap, feat):
+            return model.losses(images, *gt, generator, tap, feat,
+                                shared).total()
+
+        with torch.no_grad():
+            se_feats = [model.backbone_head(images, tap)
+                        for tap in cfg.taps_se]
+        se_advs = [attack(lambda f, tap=tap: tail_loss(tap, f), feat, g,
+                          generator)
+                   for tap, feat, g in zip(cfg.taps_se, se_feats,
+                                           cfg.gammas_se)]
+
+        adv_sd = sd_targets = None
+        if cfg.sd is not None:
+            with torch.no_grad():
+                rd = model.roi_head_forward(images, *gt, generator,
+                                            targets.get("sd"))
+            sd_targets, sd_clean = rd["targets"], rd["roi_feature_map"]
+
+            def sd_loss(rf):
+                L = model.roi_tail_losses(rd, rf)
+                if cfg.only_roi_sd:
+                    return L.proposal_class.mean() + \
+                        L.proposal_transformer.mean()
+                return L.total()
+
+            adv_sd = attack(sd_loss, sd_clean, cfg.gamma_sd, generator)
+            if cfg.mix_sd:
+                adv_sd = mix_feature(sd_clean, adv_sd)
+            if cfg.noise_sd:
+                adv_sd = adv_sd + uniform_init(
+                    adv_sd.shape, cfg.gamma_sd * cfg.noise_sd, generator,
+                    adv_sd.dtype, adv_sd.device)
+            del rd, sd_clean
+
+        spec_feats = []
+        if cfg.taps_se:
+            with torch.no_grad():
+                spec = sample_points(se_feats[0], se_advs[0], cfg.spectrum)
+                spec_feats = [mix_feature(se_feats[0], spec[i])
+                              if cfg.mix_mask[i] else spec[i]
+                              for i in range(1, cfg.spectrum)]
+            del spec
+
+        optimizer.zero_grad(set_to_none=True)
+        # the clean forward; the SD term's RPN losses use its RPN outputs
+        features = model.features_clean(images.permute(0, 3, 1, 2))
+        rpn_out = model.rpn(features)
+        clean = shared if shared is not None else targets.get("clean")
+        l0 = model._losses_from_features(features, hw, *gt, generator, clean,
+                                         rpn_out).total()
+        first = c_main * l0
+        l_sd = torch.zeros_like(l0)
+        if cfg.sd is not None:
+            l_sd = model.roi_tail_losses(
+                model.roi_dict(*rpn_out, sd_targets), adv_sd).total()
+            first = first + (w_sd / 3.0) * l_sd
+        first.backward()
+        del features, rpn_out, first
+
+        # the spectrum tails, then the extra taps' points, one at a time
+        extra = [(cfg.taps_se[0], f) for f in spec_feats] + list(
+            zip(cfg.taps_se[1:], se_advs[1:]))
+        terms = []
+        for tap, feat in extra:
+            term = tail_loss(tap, feat)
+            (c_main * term).backward()
+            terms.append(term.detach())
+        optimizer.step()
+        scheduler.step()
+        zero = torch.zeros_like(l0)
+        l_spectrum = sum(terms[:len(spec_feats)], zero)
+        l_multi = sum(terms[len(spec_feats):], zero)
+        loss = (c_main * (l0.detach() + l_spectrum + l_multi)
+                + (w_sd / 3.0) * l_sd.detach())
+        return {"loss": loss, "loss_clean": l0.detach(),
+                "loss_spectrum": l_spectrum, "loss_sd": l_sd.detach()}
+
+    return step_fn
 
 
 def make_detect_fn(model: FasterRCNN

@@ -1,6 +1,7 @@
 """SGD and its LR schedules — the PyTorch counterpart of
-``afan/train/optim.py`` (``multistep_warmup_schedule``, ``poly_schedule``,
-``sgd``, ``learnable_tx``).
+``afan/train/optim.py`` (``multistep_warmup_schedule``,
+``warmup_multistep_schedule``, ``poly_schedule``, ``sgd``,
+``learnable_tx``).
 
 ``torch.optim.SGD`` (dampening 0, not Nesterov) applies its update in
 optax's order: weight decay added to the gradient, then the momentum trace
@@ -35,6 +36,27 @@ def multistep_warmup_schedule(base_lr: float,
         if warmup_steps > 1 and count < warmup_steps:
             lr = min(count * base_lr / (warmup_steps - 1), base_lr)
         return lr
+
+    return schedule
+
+
+def warmup_multistep_schedule(base_lr: float,
+                              milestones_steps: Sequence[int],
+                              gamma: float = 0.1,
+                              warmup_factor: float = 1.0 / 3.0,
+                              warmup_iters: int = 500) -> Schedule:
+    """Detection's WarmUpMultiStepLR (`Detection/extension/lr_scheduler.py:
+    13-21`): ``base_lr * gamma^(milestones passed) * (warmup_factor + (1 -
+    warmup_factor) * min(count / warmup_iters, 1))``."""
+    milestones = sorted(milestones_steps)
+
+    def schedule(count: int) -> float:
+        lr = base_lr
+        for m in milestones:
+            if count >= m:
+                lr *= gamma
+        alpha = min(count / max(warmup_iters, 1), 1.0)
+        return lr * (warmup_factor + (1.0 - warmup_factor) * alpha)
 
     return schedule
 

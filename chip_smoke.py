@@ -9,9 +9,9 @@ greedy-NMS kernel alone, no server); ``--only ce`` runs phases 1, 2, 7 and
 the kernel timings of phase 10 (the upsample + CE kernels alone, no
 trainer); ``--only seg`` phases 1, 2 and
 7-10; ``--only det`` phases 1-6; ``--only cls`` phases 1, 2 and 11-14 (phase
-11 then lacks the segmentation ascents' shapes). The kernels line then lists
-the kernels of the phases that ran; without phase 8 the upsample + CE
-kernels have no launch count (null).
+11 then lacks the segmentation ascents' shapes); ``--only dettrain`` phases
+1, 2 and 15-17. The kernels line then lists the kernels of the phases that
+ran; without phase 8 the upsample + CE kernels have no launch count (null).
 
 Phases (any failure exits non-zero):
   1. the device: name, power limit, TF32 settings;
@@ -73,12 +73,34 @@ Phases (any failure exits non-zero):
  14. time the ALFA, base and learnable steps and their peak memory, the
      ALFA step with the plain update in turns with the kernel, profile
      where the ALFA step's device time goes, and time the kernel, its plain
-     version and its bound at the ALFA tap shape.
+     version and its bound at the ALFA tap shape;
+ 15. train the A-FAN Faster R-CNN ResNet-50 at full width through
+     ``afan_torch.cli.train_detect.main`` (VOC final setting 1: batch 8,
+     canvas 608x1008, 12000 -> 2000 proposals at 0.7, SE tap 2 with AFN on
+     the upper spectrum points, SD on the pooled ROI vector; synthetic VOC,
+     seeded random weights, the torso through ``--pretrained_backbone``
+     with its frozen-BatchNorm statistics fitted on a synthetic batch, as
+     an ImageNet torso's fit its data) for a few steps, resume one more step from its
+     checkpoint, train the baseline for two, each run ending with the VOC
+     mAP of the 16 test images: finite losses, the checkpoints, and the
+     proposal-NMS and PGD-update launches of every step (2 and 2 per A-FAN
+     step, 1 and 0 per baseline step) and of each eval (2 per image);
+ 16. one A-FAN detection step with the NMS and PGD-update kernels against
+     one with their plain versions, from the same weights, batch and seeded
+     draws (cuDNN deterministic, no TF32): proposal keep masks identical,
+     losses and updated parameters within 1e-4;
+ 17. time the A-FAN and baseline detection steps and their peak memory,
+     the A-FAN step with each image's ROIs pooled from its own rows in
+     turns with the contraction over all images' rows, profile where the
+     A-FAN step's device time goes, and time the NMS
+     kernel on the step's own proposals (G=8, N=12000) and the PGD update
+     at the step's two ascent shapes, with their plain versions and bounds.
 
 The line before the last lists each kernel with its launches on its main
-path, its largest disagreement with the plain version, its time, the plain
-version's time, its bound and the library's time; the last line is the
-device summary.
+paths, its largest disagreement with the plain version, its time, the plain
+version's time, its bound and the library's time (NMS: per batch-4 detect
+call plus per A-FAN detection step; PGD update: per ALFA step plus per A-FAN
+detection step); the last line is the device summary.
 """
 import argparse
 import asyncio
@@ -98,14 +120,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from afan_torch.cli import infer_classify, train_classify, train_segment
+from afan_torch.cli import (infer_classify, train_classify, train_detect,
+                            train_segment)
 from afan_torch.cli.infer_detect import build_state, preprocess_frame
 from afan_torch.cli.serve_websocket import FrameBatcher
 from afan_torch.core import attack
 from afan_torch.data import cifar
+from afan_torch.data.voc_det import voc_detection_loaders
 from afan_torch.models.deeplab import build_model
 from afan_torch.models.deeplab.modeling import segmentation_param_groups
+from afan_torch.models.frcnn import FasterRCNN, FRCNNConfig, roi_head
 from afan_torch.models.frcnn.rpn import generate_proposals
+from afan_torch.models.resnet import FrozenBatchNorm
 from afan_torch.models.resnet_s import LEARNABLE_TAPS, resnet56
 from afan_torch.ops import nms as tnms
 from afan_torch.ops import pgd_step as tpgd
@@ -115,10 +141,12 @@ from afan_torch.ops.kernels import nms as knms
 from afan_torch.ops.kernels import pgd_step as kpgd
 from afan_torch.ops.kernels import resize_ce as krce
 from afan_torch.train import loop as cls_loop
-from afan_torch.train import segment_loop
+from afan_torch.train import detect_loop, segment_loop
+from afan_torch.train.checkpoint import load_checkpoint, overlap_restore
 from afan_torch.train.detect_loop import make_detect_fn
 from afan_torch.train.optim import (learnable_sgd, multistep_warmup_schedule,
-                                    poly_schedule, sgd)
+                                    poly_schedule, sgd,
+                                    warmup_multistep_schedule)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
@@ -944,18 +972,18 @@ def ce_parts(lo, lab, g):
     return out
 
 
-def profile_step(step, imgs, labs, n=3, label="A-FAN"):
-    """Where the ``label`` step's device time goes: torch.profiler over
-    ``n`` steps after a warmup; the device's busy share of the wall time and
-    the kernels with the most device time."""
+def profile_step(step, n=3, label="A-FAN"):
+    """Where the device time of ``label`` steps (``step()``) goes:
+    torch.profiler over ``n`` steps after a warmup; the device's busy share
+    of the wall time and the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
-    step(imgs, labs)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for _ in range(n):
-            step(imgs, labs)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3 / n
     kernels = [e for e in prof.key_averages()
@@ -989,7 +1017,8 @@ def time_seg_steps(card, model, imgs, labs):
               f"{np.median(t):.3f} ms, p90 {np.percentile(t, 90):.3f} ms over "
               f"{len(t)} steps, {SEG_BATCH * 1e3 / np.median(t):.2f} imgs/s, "
               f"peak memory {peak:.2f} GiB ({card})")
-    profile_step(seg_step(model), imgs, labs)
+    step = seg_step(model)
+    profile_step(lambda: step(imgs, labs))
 
 
 def ptxas_lines(log, key):
@@ -1455,7 +1484,7 @@ def time_classify(card):
         print(f"    ALFA step with {update.__name__}: medians of 6 turns of "
               f"20 steps {[round(m, 3) for m in meds]} ms, their median "
               f"{np.median(meds):.3f} ms ({card})")
-    profile_step(alfa_step, x, y, n=5, label="ALFA")
+    profile_step(lambda: alfa_step(x, y), n=5, label="ALFA")
     k_ms, p_ms, byte_ms, op_ms = time_pgd_update(
         card, (CLS_BATCH, 16, 32, 32))[False]
     print(f"    pgd_update per ALFA step ({ALFA_STEPS} launches): kernel "
@@ -1484,7 +1513,390 @@ def classification_phases(card, seg_updates):
             "library_ms": None}
 
 
-GROUPS = ("nms", "ce", "seg", "det", "cls")
+# recipes/detect_voc07_final_setting1.sh's flags but --bf16 (not ported),
+# its output directory and its length; the data is the synthetic VOC
+DET_BATCH, DET_STEPS = 8, 2
+DET_FLAGS = ["--variant", "afan", "-s", "voc2007", "-b", "resnet50",
+             "--batch_size", str(DET_BATCH), "--learning_rate", "0.008",
+             "--step_lr_sizes", "[6250, 8750]", "--mix_layer", "0011",
+             "--pertub_idx_se", "2", "--gamma_se", "1.0", "--gamma_sd", "0.1",
+             "--sd_adv_loss_weight", "0.3", "--only_roi_sd"]
+DET_OUT = os.path.join("checkpoints", "chip_smoke_detect")
+DET_BACKBONE = os.path.join(DET_OUT, "resnet50_calibrated.pth")
+# proposal NMS and PGD-update launches per step with share_proposals
+DET_NMS_PER_STEP = {"afan": 2, "baseline": 1}
+DET_PGD_PER_STEP = {"afan": 2, "baseline": 0}
+DET_EVAL_IMAGES = 16
+
+
+def det_recipe():
+    args = train_detect.get_parser().parse_args(DET_FLAGS)
+    return train_detect.afan_config_for(args)
+
+
+def calibrated_backbone(seed=0):
+    """Write a seeded random ResNet-50 torso, in torchvision's keys, to
+    ``DET_BACKBONE``, for ``--pretrained_backbone``. The recipe starts from
+    an ImageNet backbone whose frozen BatchNorms fit their inputs; with
+    identity statistics the random torso's activations grow block by block
+    and the recipe's SGD diverges within a few steps. So each frozen
+    BatchNorm takes its input's per-channel mean and variance on a
+    synthetic VOC batch, in one forward in which each one is set before it
+    runs."""
+    torso = det_model(seed, backbone=None).features
+
+    def fit(bn, inputs):
+        var, mean = torch.var_mean(inputs[0], dim=(0, 2, 3), correction=0)
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(var)
+
+    hooks = [m.register_forward_pre_hook(fit) for m in torso.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    try:
+        with torch.no_grad():
+            torso(det_batch(seed + 1)[0].permute(0, 3, 1, 2), 0, 4)
+    finally:
+        for h in hooks:
+            h.remove()
+    os.makedirs(DET_OUT, exist_ok=True)
+    torch.save(torso.state_dict(), DET_BACKBONE)
+    return DET_BACKBONE
+
+
+def run_detect_cli(variant, steps, tag, extra=()):
+    """One run of the detection CLI at full width with the recipe's flags,
+    until step ``steps``, and its final mAP. Returns (per-step (NMS,
+    PGD-update) launches, losses, NMS launches of the final eval, mAP,
+    output directory)."""
+    out = os.path.join(DET_OUT, tag)
+    if not extra:
+        shutil.rmtree(out, ignore_errors=True)
+    per_step, losses = [], []
+    factory = ("make_afan_det_step" if variant == "afan"
+               else "make_baseline_det_step")
+    real = getattr(train_detect, factory)
+
+    def recording(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(*args):
+            before = (knms.launches, kpgd.launches)
+            res = step(*args)
+            per_step.append((knms.launches - before[0],
+                             kpgd.launches - before[1]))
+            losses.append({k: float(v) for k, v in res.items()})
+            return res
+        return run
+
+    setattr(train_detect, factory, recording)
+    knms.launches = kpgd.launches = 0
+    t0 = time.time()
+    try:
+        mean_ap = train_detect.main(
+            DET_FLAGS + ["--variant", variant, "-o", out, "--data_dir",
+                         os.path.join(ROOT, "no_voc_here"),
+                         "--num_steps_to_finish", str(steps),
+                         "--num_steps_to_snapshot", str(steps),
+                         "--num_steps_to_display", "1",
+                         "--pretrained_backbone", DET_BACKBONE]
+            + list(extra))
+        torch.cuda.synchronize()
+    finally:
+        setattr(train_detect, factory, real)
+    secs = time.time() - t0
+    eval_nms = knms.launches - sum(n for n, _ in per_step)
+    require(all(np.isfinite(v) for rec in losses for v in rec.values()),
+            f"{tag}: non-finite loss in {losses}")
+    require(per_step == [(DET_NMS_PER_STEP[variant],
+                          DET_PGD_PER_STEP[variant])] * len(per_step),
+            f"{tag}: (NMS, PGD-update) launches per step {per_step}")
+    require(eval_nms == 2 * DET_EVAL_IMAGES,
+            f"{tag}: {eval_nms} NMS launches in the final eval (expected 2 "
+            f"per image)")
+    saved = torch.load(os.path.join(out, f"model-{steps}.pt"),
+                       map_location="cpu", weights_only=True)
+    require(saved["step"] == steps
+            and saved["scheduler_state_dict"]["last_epoch"] == steps
+            and len(saved["optimizer_state_dict"]["state"]) > 0
+            and all(bool(torch.isfinite(v).all())
+                    for v in saved["state_dict"].values()
+                    if v.is_floating_point()),
+            f"{tag}: model-{steps}.pt is not the finished run's")
+    require(0.0 <= mean_ap <= 1.0, f"{tag}: mAP {mean_ap}")
+    print(f"    {tag}: {len(per_step)} steps + the final mAP of "
+          f"{DET_EVAL_IMAGES} images in {secs:.1f} s (the first step "
+          f"includes cuDNN set-up); losses "
+          f"{[round(r['loss'], 4) for r in losses]}; (NMS, PGD-update) "
+          f"launches per step {per_step[0] if per_step else None}, NMS in "
+          f"the eval {eval_nms}; mAP {mean_ap:.4f}; model-{steps}.pt")
+    return per_step, losses, eval_nms, mean_ap, out
+
+
+def train_detect_full_width():
+    """Phase 15; returns the (NMS, PGD-update) kernel launches of the
+    training path (steps and final evals) and the A-FAN steps' losses."""
+    print(f"[15] train: A-FAN Faster R-CNN ResNet-50, VOC final setting 1, "
+          f"batch {DET_BATCH}, synthetic VOC")
+    print(f"    backbone: seeded random weights, frozen-BatchNorm statistics "
+          f"fitted on a synthetic VOC batch: {calibrated_backbone()}")
+    afan, afan_losses, ev1, _, out = run_detect_cli("afan", DET_STEPS,
+                                                    "afan")
+    resumed, _, ev2, _, _ = run_detect_cli(
+        "afan", DET_STEPS + 1, "afan",
+        ["--resume_checkpoint", os.path.join(out, f"model-{DET_STEPS}.pt")])
+    require(len(resumed) == 1, f"the resumed run took {len(resumed)} steps")
+    base, _, ev3, _, _ = run_detect_cli("baseline", 2, "baseline")
+    steps = afan + resumed + base
+    nms = sum(n for n, _ in steps) + ev1 + ev2 + ev3
+    pgd = sum(p for _, p in steps)
+    print(f"    NMS launches {nms} ({len(afan) + len(resumed)} A-FAN steps x "
+          f"2 + {len(base)} baseline steps x 1 + 3 evals x "
+          f"{2 * DET_EVAL_IMAGES}); PGD-update launches {pgd}")
+    return nms, pgd, afan_losses
+
+
+def det_batch(seed=0):
+    loader, _, _ = voc_detection_loaders(None, DET_BATCH, MIN_SIDE, MAX_SIDE,
+                                         seed)
+    b = next(iter(loader))
+    return (cuda(b.images), cuda(b.boxes), cuda(b.labels.astype(np.int64)),
+            cuda(b.valid))
+
+
+def det_model(seed=0, backbone=DET_BACKBONE):
+    """The recipe's ResNet-50 Faster R-CNN (21 classes) on the card, from
+    seeded weights, its torso from ``backbone`` where given."""
+    model = FasterRCNN(FRCNNConfig())
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    if backbone:
+        overlap_restore(model.features, load_checkpoint(backbone))
+    return model.cuda()
+
+
+def det_step(model, afan=True):
+    opt, sched = sgd(detect_loop.detection_param_groups(model),
+                     warmup_multistep_schedule(0.008, [6250, 8750]), 0.008,
+                     0.9, 5e-4)
+    if afan:
+        return detect_loop.make_afan_det_step(model, opt, sched,
+                                              det_recipe())
+    return detect_loop.make_baseline_det_step(model, opt, sched)
+
+
+def recording_nms(fn, calls):
+    """NMS keep-mask function that runs ``fn`` and appends its inputs and
+    keep mask to ``calls``."""
+    def run(boxes, valid, thr, plus_one=True):
+        keep = fn(boxes, valid, thr, plus_one)
+        calls.append((boxes.clone(), valid.clone(), thr, plus_one,
+                      keep.clone()))
+        return keep
+    return run
+
+
+def det_step_kernel_vs_plain(model, batch):
+    """Phase 16: one A-FAN step with the NMS and PGD-update kernels and one
+    with their plain versions, from the same weights and batch and the same
+    seeded generator (so the same draws), in full f32. Returns the recorded
+    NMS calls of the kernel step and the PGD updates' inputs."""
+    print("[16] A-FAN detection step with the kernels vs with the plain "
+          "NMS and PGD update")
+    state = copy.deepcopy(model.state_dict())
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs, updates = [], []
+
+    def update_recorder(fn):
+        def update(x, g, center=None, **kw):
+            updates.append((x.contiguous().clone(), g.contiguous().clone()))
+            return fn(x, g, center, **kw)
+        return update
+
+    try:
+        for nms_fn, update in ((knms.nms_sorted_mask, tpgd.pgd_update),
+                               (tnms.nms_sorted_mask_plain,
+                                tpgd.pgd_update_plain)):
+            model.load_state_dict(state)
+            step = det_step(model)
+            calls = []
+            with patched_nms(recording_nms(nms_fn, calls)), \
+                    patched_update(update_recorder(update)):
+                out = step(*batch, torch.Generator("cuda").manual_seed(0))
+            params = {n: p.detach().clone()
+                      for n, p in model.named_parameters() if p.requires_grad}
+            runs.append(({k: float(v) for k, v in out.items()}, calls,
+                         params))
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32) = flags
+        model.load_state_dict(state)
+    (lk, ck, pk), (lp, cp, pp) = runs
+    require(len(ck) == len(cp) == 2, f"{len(ck)}, {len(cp)} NMS calls")
+    for (bk, vk, _, _, kk), (bp, vp, _, _, kp) in zip(ck, cp):
+        require(torch.equal(bk, bp) and torch.equal(vk, vp),
+                "the NMS inputs differ between the kernel and plain steps")
+        require(torch.equal(kk, kp), "keep masks differ")
+    loss_err = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lk)
+    param_err = max(float(torch.linalg.vector_norm(pk[n] - pp[n])
+                          / torch.linalg.vector_norm(pp[n]).clamp_min(1e-30))
+                    for n in pk)
+    kept = [c[4].sum(1).tolist() for c in ck]
+    print(f"    proposal NMS G={ck[0][0].shape[0]} N={ck[0][0].shape[1]}: "
+          f"keep masks identical, kept per image {kept}")
+    print(f"    losses kernel {lk}")
+    print(f"    losses plain  {lp}")
+    print(f"    largest loss rel err {loss_err:.3e}; updated parameters "
+          f"{len(pk)} tensors, largest L2 rel err {param_err:.3e}")
+    require(loss_err <= 1e-4, f"step losses differ by {loss_err}")
+    require(param_err <= 1e-4, f"updated parameters differ by {param_err}")
+    return ck, updates[:len(updates) // 2]
+
+
+def time_det_steps(card, model, batch):
+    """Phase 17, the steps: the A-FAN and baseline steps' times and peak
+    memory, and where the A-FAN step's device time goes."""
+    gen = torch.Generator("cuda").manual_seed(1)
+    medians = {}
+    for afan, name, n in ((True, "A-FAN", 8), (False, "baseline", 10)):
+        step = det_step(model, afan)
+        t = cuda_samples(lambda: step(*batch, gen), n, warmup=2)
+        torch.cuda.reset_peak_memory_stats()
+        step(*batch, gen)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        medians[name] = float(np.median(t))
+        print(f"    {name} detection step, batch {DET_BATCH}, canvas "
+              f"{tuple(batch[0].shape[1:3])}: median {np.median(t):.3f} ms, "
+              f"p90 {np.percentile(t, 90):.3f} ms over {len(t)} steps, "
+              f"{DET_BATCH * 1e3 / np.median(t):.2f} imgs/s, peak memory "
+              f"{peak:.2f} GiB ({card})")
+    step = det_step(model)
+    # the A-FAN step with each image's ROIs pooled from its own rows (the
+    # path) in turns with the concatenated contraction over all images'
+    # rows: per-image, concatenated, concatenated, per-image, twice
+    turns = {"per-image": [], "concatenated": []}
+    for how in ("per-image", "concatenated") * 2:
+        for name in (how, "per-image" if how == "concatenated"
+                     else "concatenated"):
+            with patched_pooler(name == "concatenated"):
+                t = cuda_samples(lambda: step(*batch, gen), 4, warmup=1)
+            turns[name].append(float(np.median(t)))
+    for name, meds in turns.items():
+        print(f"    A-FAN step with the {name} ROIAlign contraction: medians "
+              f"of 4 turns of 4 steps {[round(m, 3) for m in meds]} ms, "
+              f"their median {np.median(meds):.3f} ms ({card})")
+    profile_step(lambda: step(*batch, gen), n=3, label="A-FAN detection")
+    return medians
+
+
+@contextlib.contextmanager
+def patched_pooler(concatenated):
+    """With ``concatenated``, pool each image's boxes through the contraction
+    over all images' rows (``roi_align_einsum`` with batch indices) instead
+    of the per-image one, for the duration of the block."""
+    saved = roi_head.pool_rois
+    if concatenated:
+        def pool(feat, boxes, batch_indices=None, mode="align"):
+            bidx = torch.arange(boxes.shape[0], device=boxes.device)
+            return saved(feat, boxes.reshape(-1, 4),
+                         bidx.repeat_interleave(boxes.shape[1]), mode)
+        roi_head.pool_rois = pool
+    try:
+        yield
+    finally:
+        roi_head.pool_rois = saved
+
+
+def time_det_kernels(card, nms_calls, updates, afan_ms):
+    """Phase 17, the kernels at the A-FAN step's own shapes: the proposal
+    NMS on the step's real proposals (G=8, N=12000; both of the step's
+    launches take the same proposals) and the two PGD updates (the layer-2
+    feature and the pooled ROI vector). Returns their per-step entries."""
+    boxes, valid, thr, plus_one, _ = nms_calls[0]
+    require(all(torch.equal(boxes, c[0]) for c in nms_calls),
+            "the step's two proposal NMS took different proposals")
+    k, p, b, o = time_nms_shape(card, "training proposals", boxes, valid,
+                                thr, plus_one)
+    n = DET_NMS_PER_STEP["afan"]
+    print(f"    nms per A-FAN step ({n} launches): kernel {n * k:.4f} ms = "
+          f"{100 * n * k / afan_ms:.3f}% of the step, plain {n * p:.3f} ms, "
+          f"bound {n * max(b, o):.6f} ms ({card})")
+    nms = {"ms": n * k, "plain_ms": n * p, "bound_ms": n * max(b, o),
+           "bound_by": "bytes" if b >= o else "operations"}
+    pgd = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    parts = []
+    for x, _ in updates:
+        k_ms, p_ms, byte_ms, op_ms = time_pgd_update(card,
+                                                     tuple(x.shape))[False]
+        pgd["ms"] += k_ms
+        pgd["plain_ms"] += p_ms
+        pgd["bound_ms"] += max(byte_ms, op_ms)
+        parts.append("bytes" if byte_ms >= op_ms else "operations")
+    pgd["bound_by"] = max(set(parts), key=parts.count)
+    print(f"    pgd_update per A-FAN step ({len(updates)} launches, shapes "
+          f"{[tuple(x.shape) for x, _ in updates]}): kernel {pgd['ms']:.5f} "
+          f"ms = {100 * pgd['ms'] / afan_ms:.4f}% of the step, plain "
+          f"{pgd['plain_ms']:.5f} ms, bound {pgd['bound_ms']:.5f} ms "
+          f"({card})")
+    return nms, pgd
+
+
+def detection_training_phases(card):
+    """Phases 15-17; returns the NMS and PGD-update kernels' entries for
+    the detection training path."""
+    nms_launches, pgd_launches, _ = train_detect_full_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, batch = det_model(), det_batch()
+    nms_calls, updates = det_step_kernel_vs_plain(model, batch)
+    nms_err = [0.0]
+    for boxes, valid, thr, plus_one, _ in nms_calls:
+        kernel_vs_plain("training proposals", boxes, valid, thr, plus_one,
+                        nms_err)
+    pgd_err = []
+    for x, g in updates:
+        for clip in (False, True):
+            pgd_case(f"detection ascent {tuple(x.shape)}", x, g, x, clip,
+                     pgd_err)
+    print(f"[17] timing on {card}")
+    medians = time_det_steps(card, model, batch)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    nms, pgd = time_det_kernels(card, nms_calls, updates, medians["A-FAN"])
+    return (
+        {"name": "nms", "route": "cuda", "source": "afan_torch/csrc/nms.cu",
+         "replaces": "afan/ops/kernels/nms_kernel.py:65",
+         "launches": nms_launches, "max_abs_err": max(nms_err), **nms,
+         "library_ms": None},
+        {"name": "pgd_update", "route": "cuda",
+         "source": "afan_torch/csrc/pgd_step.cu",
+         "replaces": "afan/ops/kernels/pgd_step.py:40",
+         "launches": pgd_launches, "max_abs_err": max(pgd_err), **pgd,
+         "library_ms": None})
+
+
+def merge_entry(entries, extra):
+    """Add the detection training path's part to a kernel's entry: the
+    launches, times and bounds of both paths summed, the larger error."""
+    for e in entries:
+        if e["name"] != extra["name"]:
+            continue
+        if e["bound_ms"] < extra["bound_ms"]:
+            e["bound_by"] = extra["bound_by"]
+        for key in ("ms", "plain_ms", "bound_ms"):
+            e[key] += extra[key]
+        e["launches"] = (e["launches"] or 0) + extra["launches"]
+        e["max_abs_err"] = max(e["max_abs_err"], extra["max_abs_err"])
+        return
+    entries.append(extra)
+
+
+GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain")
 
 
 def main(argv=None):
@@ -1534,6 +1946,11 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if only in (None, "cls"):
         entries.append(classification_phases(card, seg_updates))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if only in (None, "dettrain"):
+        for extra in detection_training_phases(card):
+            merge_entry(entries, extra)
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -273,3 +273,61 @@ def test_pgd_step_kernel_refuses_what_it_does_not_take(card):
         kpgd.pgd_update(x, x[:4], gamma=0.1)
     with pytest.raises(ValueError):
         kpgd.pgd_update(x, x, gamma=0.1, clip=True)
+
+
+@pytest.mark.cuda
+def test_afan_detection_step_kernels_match_plain(card):
+    """One tiny A-FAN detection step (ResNet-18, 64x96 canvas, 128 → 32
+    proposals) with the NMS and PGD-update kernels and one with their plain
+    versions, from the same weights, batch and seeded draws: the proposal
+    keep masks identical, losses within 1e-4; 2 NMS and 2 PGD-update
+    launches per step."""
+    from afan_torch.core import attack
+    from afan_torch.data.voc_det import voc_detection_loaders
+    from afan_torch.models.frcnn import FasterRCNN, FRCNNConfig
+    from afan_torch.train import detect_loop
+    from afan_torch.train.optim import sgd
+
+    cfg = FRCNNConfig(backbone="resnet18", num_classes=21,
+                      anchor_sizes=(32, 64), train_pre_nms_top_n=128,
+                      train_post_nms_top_n=32, roi_samples=8, roi_fg_cap=2,
+                      rpn_samples=16, rpn_fg_cap=8)
+    model = FasterRCNN(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(card)
+    batch = next(iter(voc_detection_loaders(None, 2, 64, 96)[0]))
+    args = [torch.from_numpy(a).to(card) for a in
+            (batch.images, batch.boxes, batch.labels.astype(np.int64),
+             batch.valid)]
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = []
+    saved = (tnms.nms_sorted_mask, attack.pgd_update)
+    try:
+        for nms_fn, update in ((knms.nms_sorted_mask, tpgd.pgd_update),
+                               (tnms.nms_sorted_mask_plain,
+                                tpgd.pgd_update_plain)):
+            model.load_state_dict(state)
+            opt, sched = sgd(detect_loop.detection_param_groups(model),
+                             lambda c: 0.01, 0.01, 0.9, 5e-4)
+            step = detect_loop.make_afan_det_step(
+                model, opt, sched, detect_loop.DetAfanConfig(
+                    spectrum=3, mix_mask=(0, 1, 0), mix_sd=True))
+            keeps = []
+
+            def nms(*a, fn=nms_fn):
+                keeps.append(fn(*a))
+                return keeps[-1]
+            tnms.nms_sorted_mask, attack.pgd_update = nms, update
+            before = (knms.launches, kpgd.launches)
+            out = step(*args, torch.Generator(card).manual_seed(0))
+            launched = (knms.launches - before[0], kpgd.launches - before[1])
+            runs.append(({k: float(v) for k, v in out.items()}, keeps,
+                         launched))
+    finally:
+        tnms.nms_sorted_mask, attack.pgd_update = saved
+    (lk, kk, nk), (lp, kp, np_) = runs
+    assert nk == (2, 2) and np_ == (0, 0)
+    assert len(kk) == len(kp) == 2
+    assert all(torch.equal(a, b) for a, b in zip(kk, kp))
+    for k in lk:
+        assert abs(lk[k] - lp[k]) <= 1e-4 * max(abs(lp[k]), 1e-6), k
