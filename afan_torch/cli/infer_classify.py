@@ -5,15 +5,21 @@ checkpoint into ResNet-56s and report test-set top-1 on the card unless
 
 It reads this port's ``checkpoint.pt`` / ``best_model.pt`` and the
 reference's own checkpoints (``sequential_model.*`` keys, bare or under
-``state_dict``), by overlap restore. ``--pgd`` (robust accuracy) raises
-until ``eval/robustness.py`` is ported.
+``state_dict``), by overlap restore. ``--pgd`` reports robust accuracy
+instead, under input PGD-``--pgd_steps`` (`afan/cli/infer_classify.py:72-86`:
+steps of ``--pgd_gamma``/255 from a uniform start within ``--pgd_eps``/255),
+through :func:`afan_torch.eval.robustness.make_robust_eval_step`, whose
+sign steps run the PGD-update kernel on the card.
 """
 from __future__ import annotations
 
 import argparse
 import os
 
+import torch
+
 from ..data.cifar import cifar10_dataloaders, cifar100_dataloaders
+from ..eval.robustness import make_robust_eval_step
 from ..models.resnet_s import resnet56
 from ..train.checkpoint import load_checkpoint, overlap_restore
 from ..train.loop import make_eval_step
@@ -35,18 +41,13 @@ def main(argv=None):
                    help="checkpoint path (checkpoint.pt / best_model.pt or "
                         "a reference checkpoint)")
     p.add_argument("--pgd", action="store_true",
-                   help="robust accuracy under input PGD (not ported yet: "
-                        "raises)")
+                   help="report robust accuracy under input PGD")
     p.add_argument("--pgd_steps", type=int, default=3)
     p.add_argument("--pgd_gamma", type=float, default=2.0)
     p.add_argument("--pgd_eps", type=float, default=8.0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.pgd:
-        raise NotImplementedError(
-            "--pgd needs eval/robustness.py, which is not ported yet "
-            "(ROADMAP queue 1: robust eval)")
     device = resolve_device(args.device)
     Log.initialize()
     if not os.path.exists(args.pretrained):
@@ -62,6 +63,15 @@ def main(argv=None):
     model.to(device)
     Log.i(f"loaded {frac:.1%} of the model from {args.pretrained}")
 
+    if args.pgd:
+        generator = torch.Generator(device=device).manual_seed(args.seed)
+        step = make_robust_eval_step(
+            model, classes, steps=args.pgd_steps, gamma=args.pgd_gamma / 255,
+            eps=args.pgd_eps / 255, generator=generator)
+        acc = validate(step, test_loader, device)
+        Log.i(f"robust accuracy (PGD-{args.pgd_steps}): {acc:.2f}% of "
+              f"{len(test_loader.x)} images")
+        return acc
     acc = validate(make_eval_step(model), test_loader, device)
     Log.i(f"test accuracy: {acc:.2f}% of {len(test_loader.x)} images")
     return acc

@@ -12,8 +12,13 @@ The model is ResNet-56s at full width; weights start from a seeded random
 init. Data is CIFAR from ``--data`` or, where none is found, ``afan``'s
 deterministic synthetic CIFAR. Augmentation (crop + flip) runs on the card
 unless ``--host_aug``; ``--device_data`` keeps the whole train split on the
-card (ALFA mode). Outputs, as the reference's: per-epoch train/val/test
-accuracy, ``checkpoint.pt`` and best-on-val ``best_model.pt``
+card (ALFA mode), and ``--epoch_scan`` (ALFA mode; it implies
+``--device_data``) trains each epoch as replays of one CUDA graph of the
+step (:class:`afan_torch.train.loop.AlfaEpochScan`; eagerly on the CPU).
+Base and ALFA run SGD with its lr and step count on the device
+(:class:`afan_torch.train.optim.CapturableSGD`). Outputs, as the
+reference's: per-epoch train/val/test accuracy, ``checkpoint.pt`` and
+best-on-val ``best_model.pt``
 (`main_perturb.py:116-136`), ``result.pkl`` accuracy curves and
 ``result_norm.pkl`` perturbation-norm telemetry (`main_perturb.py:138-150`)
 in ``--save_dir``.
@@ -37,8 +42,11 @@ from ..train.checkpoint import (load_checkpoint, load_training_state,
                                 save_classify_checkpoint)
 from ..train.loop import (AlfaConfig, LearnableConfig, make_alfa_step,
                           make_base_step, make_device_data_alfa_step,
-                          make_eval_step, make_learnable_step)
-from ..train.optim import learnable_sgd, multistep_warmup_schedule, sgd
+                          make_epoch_scan_alfa, make_eval_step,
+                          make_learnable_step)
+from ..train.optim import (capturable_sgd, learnable_sgd,
+                           multistep_warmup_schedule,
+                           multistep_warmup_schedule_tensor)
 from ..utils.device import resolve_device
 from ..utils.logging import Log
 from ..utils.meters import AverageMeter
@@ -105,8 +113,9 @@ def get_parser() -> argparse.ArgumentParser:
                    help="keep the whole train split on the card and "
                         "gather + augment each batch there (alfa mode)")
     p.add_argument("--epoch_scan", action="store_true",
-                   help="a whole epoch in one dispatch (not ported yet: "
-                        "raises)")
+                   help="alfa mode: train each epoch as replays of one "
+                        "CUDA graph of the device-data step (implies "
+                        "--device_data; base and learnable ignore it)")
     return p
 
 
@@ -117,10 +126,6 @@ def refuse_unported(args) -> None:
         raise NotImplementedError(
             "--bf16 is not ported yet (ROADMAP queue 1: bf16; the PGD-step "
             "kernel takes float32)")
-    if args.epoch_scan:
-        raise NotImplementedError(
-            "--epoch_scan is not ported yet (ROADMAP queue 1: a CUDA-graph "
-            "capture of the epoch is its analog)")
     if args.num_devices is not None and args.num_devices > 1:
         raise NotImplementedError(
             "--num_devices > 1 is not ported yet (ROADMAP queue 1: data "
@@ -134,26 +139,37 @@ def build_model(args, generator: torch.Generator) -> ResNetS:
 
 
 def build_optimizer(args, model: ResNetS, steps_per_epoch: int):
+    """SGD at the warmup + multistep schedule. The one-group modes (base,
+    alfa) keep its lr and step count on the device (:class:`CapturableSGD`,
+    which ``--epoch_scan`` needs); learnable's two groups are
+    ``torch.optim.SGD`` under ``LambdaLR``."""
     milestones = [int(e) * steps_per_epoch
                   for e in args.decreasing_lr.split(",")]
-    schedule = multistep_warmup_schedule(args.lr, milestones, 0.1,
-                                         warmup_steps=steps_per_epoch)
     if args.mode == "learnable":
+        schedule = multistep_warmup_schedule(args.lr, milestones, 0.1,
+                                             warmup_steps=steps_per_epoch)
         return learnable_sgd(model, schedule, args.lr, args.w_lr,
                              args.momentum, args.weight_decay)
-    return sgd([{"params": list(model.parameters())}], schedule, args.lr,
-               args.momentum, args.weight_decay)
+    return capturable_sgd(
+        list(model.parameters()),
+        multistep_warmup_schedule_tensor(args.lr, milestones, 0.1,
+                                         warmup_steps=steps_per_epoch),
+        args.lr, args.momentum, args.weight_decay)
+
+
+def alfa_config(args) -> AlfaConfig:
+    return AlfaConfig(tap=args.perturb_idx, steps=args.steps,
+                      gamma=args.gamma / 255, eps=args.eps / 255,
+                      randinit=args.randinit, clip=args.clip,
+                      step_mode=args.pgd_step_mode,
+                      random_steps=args.pgd_random_steps)
 
 
 def build_step(args, model, optimizer, scheduler, device_data: bool):
     if args.mode == "base":
         return make_base_step(model, optimizer, scheduler)
     if args.mode == "alfa":
-        cfg = AlfaConfig(tap=args.perturb_idx, steps=args.steps,
-                         gamma=args.gamma / 255, eps=args.eps / 255,
-                         randinit=args.randinit, clip=args.clip,
-                         step_mode=args.pgd_step_mode,
-                         random_steps=args.pgd_random_steps)
+        cfg = alfa_config(args)
         if device_data:
             return make_device_data_alfa_step(model, optimizer, scheduler,
                                               cfg, args.batch_size)
@@ -188,7 +204,8 @@ def main(argv=None):
                else cifar100_dataloaders)
     train_loader, val_loader, test_loader = loaders(
         args.batch_size, args.batch_size, data_dir=args.data, seed=seed)
-    device_data = args.device_data and args.mode == "alfa"
+    device_data = (args.device_data or args.epoch_scan) and args.mode == "alfa"
+    scan = args.epoch_scan and device_data
     device_aug = not args.host_aug and args.dataset == "cifar10"
     if device_aug:
         train_loader.raw = True          # uint8 batches, augmented on device
@@ -200,7 +217,12 @@ def main(argv=None):
     torch.manual_seed(seed)
     model = build_model(args, torch.Generator().manual_seed(seed)).to(device)
     optimizer, scheduler = build_optimizer(args, model, steps_per_epoch)
-    train_step = build_step(args, model, optimizer, scheduler, device_data)
+    if scan:
+        epoch_fn = make_epoch_scan_alfa(model, optimizer, alfa_config(args),
+                                        args.batch_size, steps_per_epoch)
+    else:
+        train_step = build_step(args, model, optimizer, scheduler,
+                                device_data)
     eval_step = make_eval_step(model)
     generator = torch.Generator(device=device).manual_seed(seed)
 
@@ -233,6 +255,12 @@ def main(argv=None):
         if device_data:
             perm = torch.randperm(len(data_x), generator=generator,
                                   device=device)
+        if scan:
+            seen = scan_epoch(epoch_fn, data_x, data_y, perm, generator,
+                              epoch, (losses, top1, norm_l2, norm_linf))
+            step += steps_per_epoch
+            batches = ()
+        elif device_data:
             batches = range(steps_per_epoch)
         else:
             batches = Prefetcher(train_loader)
@@ -292,6 +320,30 @@ def main(argv=None):
 
     Log.i(f"done; best val accuracy {best_prec1:.2f}")
     return best_prec1
+
+
+def scan_epoch(epoch_fn, data_x, data_y, perm, generator, epoch,
+               meters) -> int:
+    """One ``--epoch_scan`` epoch: the stacked losses are checked once, and
+    the meters take the epoch's means. Returns the images seen."""
+    losses, top1, norm_l2, norm_linf = meters
+    em = {k: v.cpu().numpy()
+          for k, v in epoch_fn(data_x, data_y, perm, generator).items()}
+    bad = np.flatnonzero(~np.isfinite(em["loss"]))
+    if bad.size:
+        raise FloatingPointError(
+            f"loss {em['loss'][bad[0]]} at epoch {epoch} batch {bad[0]}")
+    seen = epoch_fn.steps_per_epoch * epoch_fn.batch_size
+    losses.update(float(em["loss"].mean()), seen)
+    top1.update(float(em["accuracy"].mean()), seen)
+    norm_l2.update(float(em["pert_l2"].mean()))
+    norm_linf.update(float(em["pert_linf"].mean()))
+    Log.i(f"Epoch: [{epoch}] {epoch_fn.steps_per_epoch} steps "
+          f"({epoch_fn.eager_steps} eager and {epoch_fn.replays} graph "
+          f"replays so far): last-step loss {em['loss'][-1]:.4f}, "
+          f"mean loss {losses.avg:.4f}, mean acc {top1.avg:.3f}, "
+          f"perturbation L2 {norm_l2.avg:.4f} Linf {norm_linf.avg:.6f}")
+    return seen
 
 
 def _dump_results(save_dir, all_result, all_norm):

@@ -8,11 +8,16 @@ tail leaves no ``.grad`` on its parameters. A sign step goes through
 :func:`afan_torch.ops.pgd_step.pgd_update`: one hand-written kernel on the
 card (step and L-inf projection fused), the same PyTorch ops as ``afan``'s
 update (`attack.py:126-133`) on the CPU. A ``'grad'`` step stays eager.
+
+The sign and grad paths issue no host sync, so a CUDA graph can capture
+them; ``bailout_tol`` (a host check of the loss per step) raises under a
+capture, and ``random_steps`` reads its step sizes back to the host.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.pgd_step import pgd_update
@@ -32,8 +37,8 @@ def uniform_init(shape, scale, generator: Optional[torch.Generator] = None,
 def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
         eps: Optional[float] = None, randinit: bool = False,
         clip: bool = False, generator: Optional[torch.Generator] = None,
-        step_mode: str = "sign", random_steps: bool = False
-        ) -> torch.Tensor:
+        step_mode: str = "sign", random_steps: bool = False,
+        bailout_tol: Optional[float] = None) -> torch.Tensor:
     """k-step gradient ascent on ``x`` maximizing ``loss_fn``; returns the
     adversarial tensor, detached.
 
@@ -43,11 +48,20 @@ def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
     to unit L∞; ``random_steps`` draws each step size uniformly from
     ``(0, 2 * gamma)``. Randomness comes from ``generator`` (on ``x``'s
     device).
+
+    ``bailout_tol=t`` (evaluation only, ``afan``'s `attack.py:141-166`)
+    stops after the step at which the relative change of the loss from the
+    previous step, ``|l - l_prev| / max(|l|, 1)`` in float32, is at most
+    ``t``; each step then reads its loss back to the host.
     """
     if step_mode not in ("sign", "grad"):
         raise ValueError(f"unknown step_mode {step_mode!r}")
     if clip and eps is None:
         raise ValueError("clip=True requires eps")
+    if (bailout_tol is not None and x.is_cuda
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError("bailout_tol checks the loss on the host at each "
+                           "step and cannot run under a capture")
     x = x.detach()
     x_adv = x
     if randinit:
@@ -61,10 +75,12 @@ def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
         step_sizes = (2.0 * gamma * u).tolist()
     else:
         step_sizes = [gamma] * steps
+    prev = None
     for gamma_t in step_sizes:
         x_adv = x_adv.detach().requires_grad_(True)
         with torch.enable_grad():
-            (g,) = torch.autograd.grad(loss_fn(x_adv), x_adv)
+            loss = loss_fn(x_adv)
+            (g,) = torch.autograd.grad(loss, x_adv)
         if step_mode == "sign":
             x_adv = pgd_update(x_adv.detach(), g, x, gamma=gamma_t, eps=eps,
                                clip=clip)
@@ -72,6 +88,12 @@ def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
             x_adv = x_adv.detach() + gamma_t * _grad_direction(g)
             if clip:
                 x_adv = linfball_proj(x, eps, x_adv)
+        if bailout_tol is not None:
+            cur = np.float32(float(loss.detach()))
+            if prev is not None and (np.abs(cur - prev) / np.maximum(
+                    np.abs(cur), np.float32(1.0))) <= bailout_tol:
+                break
+            prev = cur
     return x_adv.detach()
 
 

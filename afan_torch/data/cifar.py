@@ -213,14 +213,42 @@ def augment_batch_device(x_uint8: torch.Tensor,
     distribution (crop offsets uniform in 0..8 per axis, flip with
     probability 1/2, per sample), drawn from ``generator`` (on the batch's
     device), so not the same draws. Returns float32 in [0, 1]."""
+    offsets, flip = augment_draws(x_uint8.shape[0], generator,
+                                  x_uint8.device)
+    return apply_augment(x_uint8, offsets, flip)
+
+
+def augment_draws(n: int, generator: Optional[torch.Generator] = None,
+                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The draws of :func:`augment_batch_device`, in its order: crop
+    offsets ``(n, 2)`` int64 in 0..8 (rows, columns), then flips ``(n,)``
+    bool."""
+    offsets = torch.randint(0, 9, (n, 2), generator=generator, device=device)
+    flip = torch.rand(n, generator=generator, device=device) < 0.5
+    return offsets, flip
+
+
+def apply_augment(x_uint8: torch.Tensor, offsets: torch.Tensor,
+                  flip: torch.Tensor) -> torch.Tensor:
+    """Crop each padded image at its offsets and flip it where ``flip``;
+    float32 in [0, 1]."""
     x = x_uint8.to(torch.float32) / 255.0
     n = x.shape[0]
     dev = x.device
     padded = F.pad(x, (0, 0, 4, 4, 4, 4))
-    offsets = torch.randint(0, 9, (n, 2), generator=generator, device=dev)
     idx = torch.arange(32, device=dev)
     rows = (offsets[:, 0, None] + idx)[:, :, None]      # (n, 32, 1)
     cols = (offsets[:, 1, None] + idx)[:, None, :]      # (n, 1, 32)
     out = padded[torch.arange(n, device=dev)[:, None, None], rows, cols]
-    flip = torch.rand(n, generator=generator, device=dev) < 0.5
     return torch.where(flip[:, None, None, None], out.flip(2), out)
+
+
+def batch_indices(perm: torch.Tensor, i: torch.Tensor,
+                  batch_size: int) -> torch.Tensor:
+    """The indices of batch ``i`` of an epoch's permutation, ``i`` an int64
+    tensor on ``perm``'s device (no host sync): ``afan``'s
+    ``dynamic_slice(perm, (i * batch_size,), (batch_size,))``
+    (`afan/train/loop.py:211-213`), whose start is clamped into range."""
+    start = torch.clamp(i * batch_size, 0, perm.shape[0] - batch_size)
+    offsets = torch.arange(batch_size, device=perm.device)
+    return perm.index_select(0, start + offsets)

@@ -20,6 +20,10 @@ the learnable step) get a zero one before ``optimizer.step()``, so weight
 decay and momentum move them as optax's ``add_decayed_weights`` does in
 ``afan``; ``torch.optim.SGD`` would skip them.
 
+:class:`AlfaEpochScan` (:func:`make_epoch_scan_alfa`) is ``afan``'s
+``--epoch_scan``: on the card, the device-data ALFA step captured once as a
+CUDA graph and replayed for every step, with no Python between steps.
+
 Images enter as ``(B, 32, 32, 3)`` in [0, 1] and labels as ``(B,)`` int64,
 on the model's device. Steps return detached metric tensors (no host sync)
 under ``afan``'s names.
@@ -33,9 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from ..core.attack import perturbation_norms, pgd
-from ..data.cifar import augment_batch_device
+from ..data.cifar import apply_augment, augment_draws, batch_indices
 from ..models.resnet import frozen_bn_stats
 from ..models.resnet_s import LEARNABLE_TAPS, ResNetS
+from .optim import CapturableSGD, StepCount
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -162,23 +167,170 @@ def make_alfa_step(model: ResNetS, optimizer: torch.optim.Optimizer,
 
 def make_device_data_alfa_step(model: ResNetS,
                                optimizer: torch.optim.Optimizer, scheduler,
-                               cfg: AlfaConfig, batch_size: int):
+                               cfg: AlfaConfig, batch_size: int,
+                               record_augment: bool = False):
     """ALFA training from a train split kept on the device (45k images =
     138 MB of uint8): each step gathers its batch from a per-epoch
     permutation, augments it on the device and runs the ALFA step, with no
     host data in the loop. Returns ``step(data_x_uint8, data_y, perm, i,
-    generator=None)``; build ``perm`` per epoch with ``torch.randperm`` on
-    the device."""
+    generator=None)``, ``i`` an int or an int64 tensor on the device; build
+    ``perm`` per epoch with ``torch.randperm`` on the device. With
+    ``record_augment`` the metrics add the step's draws, ``crop`` (B, 2)
+    and ``flip`` (B,)."""
     alfa = make_alfa_step(model, optimizer, scheduler, cfg)
 
     def step_fn(data_x: torch.Tensor, data_y: torch.Tensor,
-                perm: torch.Tensor, i: int,
+                perm: torch.Tensor, i,
                 generator: Optional[torch.Generator] = None) -> Metrics:
-        idx = perm[i * batch_size:(i + 1) * batch_size]
-        x = augment_batch_device(data_x[idx], generator)
-        return alfa(x, data_y[idx], generator)
+        if not torch.is_tensor(i):
+            i = torch.full((), i, dtype=torch.int64, device=perm.device)
+        idx = batch_indices(perm, i, batch_size)
+        offsets, flip = augment_draws(batch_size, generator, data_x.device)
+        x = apply_augment(data_x.index_select(0, idx), offsets, flip)
+        metrics = alfa(x, data_y.index_select(0, idx), generator)
+        if record_augment:
+            metrics.update(crop=offsets, flip=flip)
+        return metrics
 
     return step_fn
+
+
+# Eager steps before the capture: they are real training steps, and they
+# initialise what must not initialise inside a capture (cuDNN's plans, the
+# allocator's blocks, the PGD-update library's CUDA runtime and module).
+GRAPH_WARMUP_STEPS = 3
+
+
+class AlfaEpochScan:
+    """``afan``'s ``make_epoch_scan_alfa`` (`afan/train/loop.py:193`): one
+    call trains one epoch of :func:`make_device_data_alfa_step` steps and
+    returns each metric stacked along a leading ``(steps_per_epoch,)`` axis.
+
+    Every step runs one body on static buffers: gather batch ``i`` of the
+    epoch's ``perm`` (``i`` an int64 tensor on the device), augment it, the
+    ALFA step with a :class:`CapturableSGD` (its device count is the step
+    count and sets the lr), the metrics written into row ``i``, ``i + 1``.
+    On a CPU tensor the body runs eagerly at every step. On the card the
+    first :data:`GRAPH_WARMUP_STEPS` steps run it eagerly on a side stream;
+    the next step captures it with ``torch.cuda.graph`` and every
+    step from there, in this epoch and the later ones, is a replay. The
+    host copies ``perm`` into its buffer and zeroes ``i`` once per epoch,
+    and does nothing between replays. A failed capture raises; nothing
+    falls back to eager steps.
+
+    Gradients are set to None inside the body (the step's
+    ``zero_grad(set_to_none=True)``), so the capture allocates them, with
+    every other temporary, in the graph's private pool, at the addresses
+    every replay writes. The run's generator is registered with the graph,
+    so each replay draws anew from it. ``data_x``, ``data_y`` and the
+    generator must be the first call's. ``eager_steps`` and ``replays``
+    count the steps run each way.
+    """
+
+    def __init__(self, model: ResNetS, optimizer: CapturableSGD,
+                 cfg: AlfaConfig, batch_size: int, steps_per_epoch: int,
+                 record_augment: bool = False):
+        if cfg.random_steps:
+            raise NotImplementedError(
+                "random_steps in an epoch scan: its step sizes are read back "
+                "to the host (ROADMAP.md queue 1: a step size in device "
+                "memory for the PGD-update kernel)")
+        if not isinstance(optimizer, CapturableSGD):
+            raise TypeError("an epoch scan needs a CapturableSGD, whose lr "
+                            "lives on the device")
+        self.step = make_device_data_alfa_step(
+            model, optimizer, StepCount(optimizer), cfg, batch_size,
+            record_augment)
+        self.batch_size = batch_size
+        self.steps_per_epoch = steps_per_epoch
+        self.record_augment = record_augment
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.eager_steps = 0
+        self.replays = 0
+        self._static: Optional[dict] = None
+        self._stream: Optional[torch.cuda.Stream] = None
+
+    def _buffers(self, data_x, data_y, perm, generator) -> dict:
+        dev = perm.device
+        n, b = self.steps_per_epoch, self.batch_size
+        rows = {k: torch.zeros(n, dtype=torch.float32, device=dev)
+                for k in ("loss", "accuracy", "pert_l2", "pert_linf")}
+        if self.record_augment:
+            rows["crop"] = torch.zeros(n, b, 2, dtype=torch.int64,
+                                       device=dev)
+            rows["flip"] = torch.zeros(n, b, dtype=torch.bool, device=dev)
+        return {"data_x": data_x, "data_y": data_y, "generator": generator,
+                "perm": perm.clone(), "rows": rows,
+                "i": torch.zeros((), dtype=torch.int64, device=dev)}
+
+    def _body(self) -> None:
+        st = self._static
+        metrics = self.step(st["data_x"], st["data_y"], st["perm"], st["i"],
+                            st["generator"])
+        for k, row in st["rows"].items():
+            row.index_copy_(0, st["i"].view(1), metrics[k].unsqueeze(0))
+        st["i"].add_(1)
+
+    def _eager_on_side_stream(self) -> None:
+        self._stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self._stream):
+            self._body()
+        torch.cuda.current_stream().wait_stream(self._stream)
+        self.eager_steps += 1
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        generator = self._static["generator"]
+        if generator is not None:
+            graph.register_generator_state(generator)
+        with torch.cuda.graph(graph, stream=self._stream):
+            self._body()
+        self.graph = graph
+
+    def _replay(self) -> None:
+        self.graph.replay()
+        self.replays += 1
+
+    def __call__(self, data_x: torch.Tensor, data_y: torch.Tensor,
+                 perm: torch.Tensor,
+                 generator: Optional[torch.Generator] = None) -> Metrics:
+        st = self._static
+        if st is None:
+            st = self._static = self._buffers(data_x, data_y, perm,
+                                              generator)
+        else:
+            if (data_x is not st["data_x"] or data_y is not st["data_y"]
+                    or generator is not st["generator"]):
+                raise ValueError("an epoch scan runs on the data tensors and "
+                                 "the generator of its first call")
+            st["perm"].copy_(perm)
+        st["i"].zero_()
+        if perm.device.type != "cuda":
+            for _ in range(self.steps_per_epoch):
+                self._body()
+        else:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(perm.device)
+            for _ in range(self.steps_per_epoch):
+                if self.graph is not None:
+                    self._replay()
+                elif self.eager_steps < GRAPH_WARMUP_STEPS:
+                    self._eager_on_side_stream()
+                else:
+                    self._capture()
+                    self._replay()
+        return {k: v.clone() for k, v in st["rows"].items()}
+
+
+def make_epoch_scan_alfa(model: ResNetS, optimizer: CapturableSGD,
+                         cfg: AlfaConfig, batch_size: int,
+                         steps_per_epoch: int,
+                         record_augment: bool = False) -> AlfaEpochScan:
+    """``epoch_fn(data_x_uint8, data_y, perm, generator) -> metrics``, each
+    metric with a leading ``(steps_per_epoch,)`` axis
+    (:class:`AlfaEpochScan`)."""
+    return AlfaEpochScan(model, optimizer, cfg, batch_size, steps_per_epoch,
+                         record_augment)
 
 
 def make_learnable_step(model: ResNetS, optimizer: torch.optim.Optimizer,

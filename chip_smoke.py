@@ -10,8 +10,9 @@ the kernel timings of phase 10 (the upsample + CE kernels alone, no
 trainer); ``--only seg`` phases 1, 2 and
 7-10; ``--only det`` phases 1-6; ``--only cls`` phases 1, 2 and 11-14 (phase
 11 then lacks the segmentation ascents' shapes); ``--only dettrain`` phases
-1, 2 and 15-17. The kernels line then lists the kernels of the phases that
-ran; without phase 8 the upsample + CE kernels have no launch count (null).
+1, 2 and 15-17; ``--only scan`` phases 1, 2 and 18-21. The kernels line
+then lists the kernels of the phases that ran; without phase 8 the upsample
++ CE kernels have no launch count (null).
 
 Phases (any failure exits non-zero):
   1. the device: name, power limit, TF32 settings;
@@ -94,13 +95,43 @@ Phases (any failure exits non-zero):
      turns with the contraction over all images' rows, profile where the
      A-FAN step's device time goes, and time the NMS
      kernel on the step's own proposals (G=8, N=12000) and the PGD update
-     at the step's two ascent shapes, with their plain versions and bounds.
+     at the step's two ascent shapes, with their plain versions and bounds;
+ 18. train ALFA ResNet-56 at full width through
+     ``train_classify.main --epoch_scan`` (batch 128, 24 steps per epoch):
+     2 epochs, a resume for a third (step count 72, the lr of count 72), and
+     one epoch with clip and randinit, then 2 whole epochs (351 steps
+     each); each run's first 3 steps are eager
+     and the rest are replays of one captured CUDA graph of the step:
+     finite losses, the checkpoints, 20 PGD-update launches counted by the
+     wrapper (3 eager steps and the capture), and exactly 5 PGD-update
+     kernels (5 clipped) per replay in a profiler trace of 24 more replays
+     of each run's graph;
+ 19. 8 steps of the epoch scan (3 eager, 5 replays) against 8 eager
+     device-data steps from the same weights, permutation and generator
+     seed (cuDNN deterministic, no TF32): crop offsets and flips equal step
+     by step, consecutive replays drawing anew, metrics, parameters and
+     BatchNorm buffers within 1e-5;
+ 20. time the graphed ALFA step and the eager device-data step in turns
+     (graph, eager, eager, graph, three times, 20 steps each), their peak
+     memory (the graph's pool reserved), the host time per replay, the
+     device busy share and kernels per step from profiles of 5 replays and
+     of 3 eager steps;
+ 21. robust evaluation: the PGD update at the input shape (128, 32, 32, 3)
+     against its plain version, bit for bit; a batch-128 PGD-3 robust-eval
+     batch timed; ``infer_classify --pgd`` on the best checkpoint of
+     phase 18's whole-epoch run:
+     robust accuracy at most the clean one, 3 PGD-update launches per
+     batch; the kernel, its plain version and bound at that shape.
 
 The line before the last lists each kernel with its launches on its main
 paths, its largest disagreement with the plain version, its time, the plain
 version's time, its bound and the library's time (NMS: per batch-4 detect
 call plus per A-FAN detection step; PGD update: per ALFA step plus per A-FAN
-detection step); the last line is the device summary.
+detection step plus per robust-eval batch). Launches are the wrappers'
+counts: a graph replay runs kernels that no wrapper call counts, so phase
+18 prints the PGD-update kernels its replays ran (the profiled kernels per
+replay times the replays) beside the wrapper's count. The last line is the
+device summary.
 """
 import argparse
 import asyncio
@@ -127,6 +158,7 @@ from afan_torch.cli.serve_websocket import FrameBatcher
 from afan_torch.core import attack
 from afan_torch.data import cifar
 from afan_torch.data.voc_det import voc_detection_loaders
+from afan_torch.eval.robustness import make_robust_eval_step
 from afan_torch.models.deeplab import build_model
 from afan_torch.models.deeplab.modeling import segmentation_param_groups
 from afan_torch.models.frcnn import FasterRCNN, FRCNNConfig, roi_head
@@ -144,7 +176,9 @@ from afan_torch.train import loop as cls_loop
 from afan_torch.train import detect_loop, segment_loop
 from afan_torch.train.checkpoint import load_checkpoint, overlap_restore
 from afan_torch.train.detect_loop import make_detect_fn
-from afan_torch.train.optim import (learnable_sgd, multistep_warmup_schedule,
+from afan_torch.train.optim import (capturable_sgd, learnable_sgd,
+                                    multistep_warmup_schedule,
+                                    multistep_warmup_schedule_tensor,
                                     poly_schedule, sgd,
                                     warmup_multistep_schedule)
 
@@ -876,32 +910,41 @@ def seg_step(model, afan=True):
     return segment_loop.make_seg_base_step(model, opt, sched)
 
 
-def step_kernel_vs_plain(model, imgs, labs):
-    """Phase 9: one A-FAN step with the kernels and one with the plain op
-    from the same weights, batch and dropout masks, in full f32."""
-    print("[9] A-FAN step with the kernels vs with the plain op")
-    state = copy.deepcopy(model.state_dict())
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN deterministic, no TF32, for the block."""
     flags = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.allow_tf32 = False
-    runs = []
     try:
-        for op in (trce.fused_resize_nll_sums,
-                   trce.fused_resize_nll_sums_plain):
-            model.load_state_dict(state)
-            step = seg_step(model)
-            torch.manual_seed(0)
-            with patched_site_op(op):
-                out = step(imgs, labs)
-            conv = model.classifier.classifier[3]
-            runs.append(({k: float(v) for k, v in out.items()},
-                         conv.weight.grad.clone(), conv.bias.grad.clone()))
-        torch.cuda.synchronize()
+        yield
     finally:
         (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
          torch.backends.cudnn.allow_tf32) = flags
+
+
+def step_kernel_vs_plain(model, imgs, labs):
+    """Phase 9: one A-FAN step with the kernels and one with the plain op
+    from the same weights, batch and dropout masks, in full f32."""
+    print("[9] A-FAN step with the kernels vs with the plain op")
+    state = copy.deepcopy(model.state_dict())
+    runs = []
+    try:
+        with deterministic():
+            for op in (trce.fused_resize_nll_sums,
+                       trce.fused_resize_nll_sums_plain):
+                model.load_state_dict(state)
+                step = seg_step(model)
+                torch.manual_seed(0)
+                with patched_site_op(op):
+                    out = step(imgs, labs)
+                conv = model.classifier.classifier[3]
+                runs.append(({k: float(v) for k, v in out.items()},
+                             conv.weight.grad.clone(), conv.bias.grad.clone()))
+            torch.cuda.synchronize()
+    finally:
         model.load_state_dict(state)
     (lk, wk, bk), (lp, wp, bp) = runs
     loss_err = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lk)
@@ -972,35 +1015,43 @@ def ce_parts(lo, lab, g):
     return out
 
 
-def profile_step(step, n=3, label="A-FAN"):
-    """Where the device time of ``label`` steps (``step()``) goes:
-    torch.profiler over ``n`` steps after a warmup; the device's busy share
-    of the wall time and the kernels with the most device time."""
+def profile_step(step, n=3, label="A-FAN", per_call=1):
+    """Where the device time of ``label`` steps goes: torch.profiler over
+    ``n`` calls of ``step()`` (each ``per_call`` steps) after a warmup call;
+    the device's busy share of the wall time and the kernels with the most
+    device time. Returns the per-step wall and busy ms and the kernel
+    events (None when the trace holds no device time)."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
+    steps = n * per_call
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3 / n
+        wall_ms = (time.time() - t0) * 1e3 / steps
+    # user annotations (the optimizer's "Optimizer.step#..." range) are
+    # spans over kernels, not kernels
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if not busy_ms:
         print("    profile: the trace holds no device time (not measured)")
-        return
-    launches = sum(e.count for e in kernels) / n
-    print(f"    profile of {n} {label} steps: {wall_ms:.3f} ms wall per step, "
-          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-          f"{launches:.0f} device kernels per step; top kernels by device "
-          f"time per step:")
+        return None
+    launches = sum(e.count for e in kernels) / steps
+    print(f"    profile of {steps} {label} steps: {wall_ms:.3f} ms wall per "
+          f"step, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} device kernels "
+          f"per step; top kernels by device time per step:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        ms = e.self_device_time_total / 1e3 / n
+        ms = e.self_device_time_total / 1e3 / steps
         print(f"      {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% "
-              f"x{e.count // n:<4d} {e.key[:90]}")
+              f"x{e.count // steps:<4d} {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": kernels,
+            "steps": steps}
 
 
 def time_seg_steps(card, model, imgs, labs):
@@ -1316,21 +1367,26 @@ def cls_batch(seed):
 
 def cls_step(mode, schedule=None, seed=0):
     """A fresh seeded ResNet-56 on the card and a ``mode`` step with the
-    CLI's optimizer (lr 0.1, momentum 0.9, wd 5e-4; by default the CLI's
-    warmup + multistep schedule at 351 steps per epoch)."""
+    CLI's optimizer (lr 0.1, momentum 0.9, wd 5e-4, the CLI's warmup +
+    multistep schedule at 351 steps per epoch; base and alfa on the device
+    count of a ``CapturableSGD``, whose schedule ``schedule`` replaces)."""
     spe = 45000 // CLS_BATCH
-    if schedule is None:
-        schedule = multistep_warmup_schedule(0.1, [50 * spe, 150 * spe],
-                                             warmup_steps=spe)
+    milestones = [50 * spe, 150 * spe]
     init = 1.0 / 9 if mode == "learnable" else 1.0
     model = resnet56(init_weight_eta=init,
                      generator=torch.Generator().manual_seed(seed)).cuda()
     if mode == "learnable":
-        opt, sched = learnable_sgd(model, schedule, 0.1, 0.01, 0.9, 5e-4)
+        opt, sched = learnable_sgd(
+            model, multistep_warmup_schedule(0.1, milestones,
+                                             warmup_steps=spe),
+            0.1, 0.01, 0.9, 5e-4)
         return model, cls_loop.make_learnable_step(
             model, opt, sched, cls_loop.LearnableConfig())
-    opt, sched = sgd([{"params": list(model.parameters())}], schedule, 0.1,
-                     0.9, 5e-4)
+    if schedule is None:
+        schedule = multistep_warmup_schedule_tensor(0.1, milestones,
+                                                    warmup_steps=spe)
+    opt, sched = capturable_sgd(list(model.parameters()), schedule, 0.1,
+                                0.9, 5e-4)
     if mode == "base":
         return model, cls_loop.make_base_step(model, opt, sched)
     return model, cls_loop.make_alfa_step(model, opt, sched,
@@ -1343,36 +1399,32 @@ def alfa_step_kernel_vs_plain():
     cuDNN."""
     print("[13] ALFA step with the kernel vs with the plain update")
     x, y = cls_batch(0)
-    flags = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.allow_tf32 = False
     real_pgd = cls_loop.pgd
     runs = []
     try:
-        for update in (tpgd.pgd_update, tpgd.pgd_update_plain):
-            # a constant lr: the CLI's schedule starts at lr 0
-            model, step = cls_step("alfa", schedule=lambda count: 0.1)
-            advs = []
+        with deterministic():
+            for update in (tpgd.pgd_update, tpgd.pgd_update_plain):
+                # a constant lr: the CLI's schedule starts at lr 0
+                model, step = cls_step(
+                    "alfa", schedule=lambda count: torch.full_like(
+                        count, 0.1, dtype=torch.float64))
+                advs = []
 
-            def recording_pgd(*a, **kw):
-                advs.append(real_pgd(*a, **kw))
-                return advs[-1]
+                def recording_pgd(*a, **kw):
+                    advs.append(real_pgd(*a, **kw))
+                    return advs[-1]
 
-            cls_loop.pgd = recording_pgd
-            kpgd.launches = 0
-            with patched_update(update):
-                out = step(x, y)
-            torch.cuda.synchronize()
-            runs.append(({k: float(v) for k, v in out.items()}, advs[0],
-                         {k: v.detach().clone()
-                          for k, v in model.state_dict().items()
-                          if v.is_floating_point()}, kpgd.launches))
+                cls_loop.pgd = recording_pgd
+                kpgd.launches = 0
+                with patched_update(update):
+                    out = step(x, y)
+                torch.cuda.synchronize()
+                runs.append(({k: float(v) for k, v in out.items()}, advs[0],
+                             {k: v.detach().clone()
+                              for k, v in model.state_dict().items()
+                              if v.is_floating_point()}, kpgd.launches))
     finally:
         cls_loop.pgd = real_pgd
-        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-         torch.backends.cudnn.allow_tf32) = flags
     (mk, ak, pk, lk), (mp, ap, pp, lp) = runs
     metric_err = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mk)
     param_err = max(float((pk[k] - pp[k]).abs().max())
@@ -1702,11 +1754,6 @@ def det_step_kernel_vs_plain(model, batch):
     print("[16] A-FAN detection step with the kernels vs with the plain "
           "NMS and PGD update")
     state = copy.deepcopy(model.state_dict())
-    flags = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.allow_tf32 = False
     runs, updates = [], []
 
     def update_recorder(fn):
@@ -1716,23 +1763,23 @@ def det_step_kernel_vs_plain(model, batch):
         return update
 
     try:
-        for nms_fn, update in ((knms.nms_sorted_mask, tpgd.pgd_update),
-                               (tnms.nms_sorted_mask_plain,
-                                tpgd.pgd_update_plain)):
-            model.load_state_dict(state)
-            step = det_step(model)
-            calls = []
-            with patched_nms(recording_nms(nms_fn, calls)), \
-                    patched_update(update_recorder(update)):
-                out = step(*batch, torch.Generator("cuda").manual_seed(0))
-            params = {n: p.detach().clone()
-                      for n, p in model.named_parameters() if p.requires_grad}
-            runs.append(({k: float(v) for k, v in out.items()}, calls,
-                         params))
-        torch.cuda.synchronize()
+        with deterministic():
+            for nms_fn, update in ((knms.nms_sorted_mask, tpgd.pgd_update),
+                                   (tnms.nms_sorted_mask_plain,
+                                    tpgd.pgd_update_plain)):
+                model.load_state_dict(state)
+                step = det_step(model)
+                calls = []
+                with patched_nms(recording_nms(nms_fn, calls)), \
+                        patched_update(update_recorder(update)):
+                    out = step(*batch, torch.Generator("cuda").manual_seed(0))
+                params = {n: p.detach().clone()
+                          for n, p in model.named_parameters()
+                          if p.requires_grad}
+                runs.append(({k: float(v) for k, v in out.items()}, calls,
+                             params))
+            torch.cuda.synchronize()
     finally:
-        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-         torch.backends.cudnn.allow_tf32) = flags
         model.load_state_dict(state)
     (lk, ck, pk), (lp, cp, pp) = runs
     require(len(ck) == len(cp) == 2, f"{len(ck)}, {len(cp)} NMS calls")
@@ -1880,6 +1927,372 @@ def detection_training_phases(card):
          "library_ms": None})
 
 
+# --epoch_scan at full width: 24 steps per epoch (the CLI's --limit_batches)
+# for 2 epochs, then a resume for a third; the timing turns run 20 steps
+# each, as 4 calls of a 5-step epoch scan.
+SCAN_BATCHES, SCAN_EPOCHS = 24, 2
+SCAN_CALL_STEPS, SCAN_TURN_CALLS = 5, 4
+TRAIN_SPLIT = 45000
+ROBUST_STEPS = 3
+
+
+class RecordingScan:
+    """The CLI's epoch scan, recorded: the data and generator of its calls
+    and each epoch's metrics on the host."""
+
+    def __init__(self, scan):
+        self.scan = scan
+        self.args = None
+        self.epochs = []
+
+    def __getattr__(self, name):
+        return getattr(self.scan, name)
+
+    def __call__(self, data_x, data_y, perm, generator):
+        self.args = (data_x, data_y, generator)
+        out = self.scan(data_x, data_y, perm, generator)
+        self.epochs.append({k: v.cpu().numpy() for k, v in out.items()})
+        return out
+
+
+def pgd_per_replay(scan, clip):
+    """PGD-update kernels per replay, by kernel name (the clipped
+    instantiation with ``clip``), in a profiler trace of
+    ``SCAN_BATCHES`` more replays of ``scan``'s own graph, its step index
+    reset to row 0 first. The replays train the model on: run it after the
+    run's checkpoint is written."""
+    from torch.profiler import ProfilerActivity, profile
+    scan.scan._static["i"].zero_()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SCAN_BATCHES):
+            scan.graph.replay()
+        torch.cuda.synchronize()
+    want = "pgd_step_vec4<true>" if clip else "pgd_step_vec4<false>"
+    found = {e.key: e.count for e in prof.key_averages()
+             if "pgd_step" in e.key}
+    other = [k for k in found if want not in k]
+    require(not other, f"PGD kernels {found} in {SCAN_BATCHES} replays")
+    return sum(found.values()) / SCAN_BATCHES
+
+
+def run_scan_cli(flags, epochs, tag, resume=False, batches=SCAN_BATCHES):
+    """One ``train_classify --mode alfa --epoch_scan`` run at full width,
+    ``batches`` steps per epoch (0: the whole split's 351); checks its
+    losses, graph and checkpoint, then profiles its graph
+    (:func:`pgd_per_replay`). Returns (the recorded scan, save_dir, the
+    PGD-update launches the wrapper counted in the run, the kernels per
+    replay in the trace)."""
+    spe = batches or TRAIN_SPLIT // CLS_BATCH
+    save_dir = os.path.join("checkpoints", f"chip_smoke_classify_{tag}")
+    if not resume:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    scans = []
+    real = train_classify.make_epoch_scan_alfa
+
+    def recording(*a, **kw):
+        scans.append(RecordingScan(real(*a, **kw)))
+        return scans[-1]
+
+    train_classify.make_epoch_scan_alfa = recording
+    kpgd.launches = 0
+    t0 = time.time()
+    try:
+        train_classify.main(
+            ["--mode", "alfa", "--epoch_scan", "--epochs", str(epochs),
+             "--limit_batches", str(batches), "--batch_size",
+             str(CLS_BATCH), "--seed", "0", "--data",
+             os.path.join(ROOT, "no_cifar_here"), "--save_dir", save_dir]
+            + flags + (["--resume"] if resume else []))
+        torch.cuda.synchronize()
+    finally:
+        train_classify.make_epoch_scan_alfa = real
+    secs = time.time() - t0
+    wrapper = kpgd.launches
+    (scan,) = scans
+    ran = len(scan.epochs)
+    losses = np.concatenate([e["loss"] for e in scan.epochs])
+    require(ran >= 1 and len(losses) == ran * spe
+            and np.isfinite(losses).all(), f"{tag}: losses {losses}")
+    eager = cls_loop.GRAPH_WARMUP_STEPS
+    require(scan.graph is not None and scan.eager_steps == eager
+            and scan.replays == ran * spe - eager
+            and wrapper == ALFA_STEPS * (eager + 1),
+            f"{tag}: {scan.eager_steps} eager steps, {scan.replays} replays, "
+            f"{wrapper} PGD-update launches from the wrapper")
+    saved = torch.load(os.path.join(save_dir, "checkpoint.pt"),
+                       map_location="cpu", weights_only=True)
+    host_lr = multistep_warmup_schedule(
+        0.1, [50 * spe, 150 * spe], warmup_steps=spe)(epochs * spe)
+    require(saved["epoch"] == epochs and saved["step"] == epochs * spe
+            and saved["scheduler"]["last_epoch"] == epochs * spe
+            and saved["optimizer"]["param_groups"][0]["lr"] == host_lr
+            and all(bool(torch.isfinite(v).all())
+                    for v in saved["state_dict"].values()
+                    if v.is_floating_point()),
+            f"{tag}: checkpoint epoch {saved['epoch']} step {saved['step']}")
+    with open(os.path.join(save_dir, "result.pkl"), "rb") as f:
+        result = pickle.load(f)
+    replays = scan.replays
+    per = pgd_per_replay(scan, clip="--clip" in flags)
+    print(f"    {tag}: {ran} epoch(s) of {spe} steps + validation "
+          f"and test in {secs:.1f} s: {scan.eager_steps} eager steps, "
+          f"{replays} graph replays; per-epoch mean loss "
+          f"{[round(float(e['loss'].mean()), 4) for e in scan.epochs]}, "
+          f"last-step loss {losses[-1]:.4f}; checkpoint step "
+          f"{saved['step']}, lr {host_lr}; val accuracy {result['ta']}; "
+          f"PGD-update launches counted by the wrapper {wrapper} (eager "
+          f"steps and the capture); kernels per replay in a profiler trace "
+          f"of {SCAN_BATCHES} replays of this graph {per:g}, so "
+          f"{per * replays:g} run by the run's replays")
+    require(per == ALFA_STEPS, f"{tag}: {per} PGD-update kernels per replay")
+    return scan, save_dir, wrapper, per * replays
+
+
+def train_scan_full_width():
+    """Phase 18; returns the PGD-update launches the wrapper counted in the
+    runs and the directory of the last run, two whole epochs (a model that
+    has learned the synthetic classes, for phase 21)."""
+    print(f"[18] train_classify --epoch_scan: ALFA ResNet-56, batch "
+          f"{CLS_BATCH}, {SCAN_BATCHES} steps per epoch, each epoch replays "
+          f"one CUDA graph of the step")
+    runs = [run_scan_cli([], SCAN_EPOCHS, "scan")]
+    runs.append(run_scan_cli([], SCAN_EPOCHS + 1, "scan", resume=True))
+    require(len(runs[-1][0].epochs) == 1,
+            "the resume trained more than 1 epoch")
+    runs.append(run_scan_cli(["--clip", "--randinit"], 1,
+                             "scan_clip_randinit"))
+    runs.append(run_scan_cli([], SCAN_EPOCHS, "scan_full", batches=0))
+    full_dir = runs[-1][1]
+    wrapper = sum(r[2] for r in runs)
+    replayed = sum(r[3] for r in runs)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    PGD-update launches counted by the wrapper in the four runs "
+          f"{wrapper}; kernels run by their graph replays (profiled "
+          f"kernels per replay x replays) {replayed:g}")
+    return wrapper, full_dir
+
+
+def device_split():
+    x, y, _, _ = cifar.synthetic_arrays(seed=0)
+    return cuda(x[:TRAIN_SPLIT]), cuda(y[:TRAIN_SPLIT])
+
+
+def alfa_optimizer(model):
+    spe = TRAIN_SPLIT // CLS_BATCH
+    return capturable_sgd(
+        list(model.parameters()),
+        multistep_warmup_schedule_tensor(0.1, [50 * spe, 150 * spe],
+                                         warmup_steps=spe), 0.1, 0.9, 5e-4)
+
+
+def scan_graph_vs_eager(split, steps=8):
+    """Phase 19: ``steps`` steps through the epoch scan (3 eager, then
+    replays) against as many eager device-data steps, from the same
+    weights, permutation and generator seed."""
+    print(f"[19] epoch scan (graph replays) vs eager device-data steps, "
+          f"{steps} steps from the same weights and draws (cuDNN "
+          f"deterministic, no TF32)")
+    data_x, data_y = split
+    runs = []
+    with deterministic():
+        for graphed in (True, False):
+            model = resnet56(generator=torch.Generator().manual_seed(0))
+            model.cuda()
+            opt, count = alfa_optimizer(model)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            perm = torch.randperm(len(data_x), generator=gen, device="cuda")
+            if graphed:
+                scan = cls_loop.make_epoch_scan_alfa(
+                    model, opt, cls_loop.AlfaConfig(), CLS_BATCH, steps,
+                    record_augment=True)
+                out = scan(data_x, data_y, perm, gen)
+            else:
+                step = cls_loop.make_device_data_alfa_step(
+                    model, opt, count, cls_loop.AlfaConfig(), CLS_BATCH,
+                    record_augment=True)
+                ms = [step(data_x, data_y, perm, i, gen)
+                      for i in range(steps)]
+                out = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+            torch.cuda.synchronize()
+            runs.append((out, {k: v.detach().clone()
+                               for k, v in model.state_dict().items()}))
+    (mg, sg), (me, se) = runs
+    draws_equal = [bool(torch.equal(mg["crop"][i], me["crop"][i])
+                        and torch.equal(mg["flip"][i], me["flip"][i]))
+                   for i in range(steps)]
+    first = scan.eager_steps
+    fresh = all(not torch.equal(mg["crop"][i], mg["crop"][i + 1])
+                for i in range(first, steps - 1))
+    metric_err = max(float(((mg[k] - me[k]).abs()
+                            / me[k].abs().clamp_min(1e-30)).max())
+                     for k in ("loss", "accuracy", "pert_l2", "pert_linf"))
+    param_err = max(float((sg[k] - v).abs().max())
+                    / max(float(v.abs().max()), 1e-30)
+                    for k, v in se.items() if v.is_floating_point())
+    ints_equal = all(torch.equal(sg[k], v) for k, v in se.items()
+                     if not v.is_floating_point())
+    bits = all(torch.equal(sg[k], v) for k, v in se.items())
+    print(f"    {first} eager steps then {scan.replays} replays; crop "
+          f"offsets and flips equal per step {draws_equal}; consecutive "
+          f"replays draw anew {fresh}; loss graph "
+          f"{[round(float(v), 6) for v in mg['loss']]}, eager "
+          f"{[round(float(v), 6) for v in me['loss']]}; largest metric rel "
+          f"err {metric_err:.3e}; largest parameter / BatchNorm-buffer rel "
+          f"err {param_err:.3e} (bit-equal {bits})")
+    require(all(draws_equal), "the graph's augmentation draws differ")
+    require(fresh, "two consecutive replays drew the same crop offsets")
+    require(metric_err <= 1e-5 and param_err <= 1e-5 and ints_equal,
+            f"graph and eager differ: metrics {metric_err}, parameters "
+            f"{param_err}")
+
+
+def scan_turn(scan, args):
+    def run():
+        for _ in range(SCAN_TURN_CALLS):
+            scan(*args)
+    return run
+
+
+def time_scan(card, split):
+    """Phase 20: the graphed ALFA step and the eager device-data step in
+    turns (graph, eager, eager, graph, three times, 20 steps each), peak
+    memory, host time per replay, and a profile of 5 replays; then the
+    robust-eval batch."""
+    print(f"[20] timing on {card}")
+    data_x, data_y = split
+    cfg = cls_loop.AlfaConfig()
+    gen_g = torch.Generator(device="cuda").manual_seed(1)
+    gen_e = torch.Generator(device="cuda").manual_seed(1)
+    perm = torch.randperm(len(data_x), generator=gen_g, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model_g = resnet56(generator=torch.Generator().manual_seed(1)).cuda()
+    opt_g, _ = alfa_optimizer(model_g)
+    scan = cls_loop.make_epoch_scan_alfa(model_g, opt_g, cfg, CLS_BATCH,
+                                         SCAN_CALL_STEPS)
+    args = (data_x, data_y, perm, gen_g)
+    scan(*args)                          # 3 eager steps, capture, 2 replays
+    torch.cuda.synchronize()
+    peak_g = torch.cuda.max_memory_allocated() / 2**30
+    reserved_g = torch.cuda.memory_reserved() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    model_e = resnet56(generator=torch.Generator().manual_seed(1)).cuda()
+    opt_e, count_e = alfa_optimizer(model_e)
+    step = cls_loop.make_device_data_alfa_step(model_e, opt_e, count_e, cfg,
+                                               CLS_BATCH)
+    steps_per_turn = SCAN_CALL_STEPS * SCAN_TURN_CALLS
+
+    def eager_turn():
+        for i in range(steps_per_turn):
+            step(data_x, data_y, perm, i, gen_e)
+
+    eager_turn()
+    torch.cuda.synchronize()
+    peak_e = torch.cuda.max_memory_allocated() / 2**30
+    turns = {"graph": [], "eager": []}
+    runs = {"graph": scan_turn(scan, args), "eager": eager_turn}
+    for name in ("graph", "eager", "eager", "graph") * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) * 1e3 / steps_per_turn)
+    for name, ts in turns.items():
+        med = float(np.median(ts))
+        print(f"    ALFA step, {name}: ms per step in 6 turns of "
+              f"{steps_per_turn} steps {[round(t, 3) for t in ts]}; median "
+              f"{med:.3f} ms, p90 {np.percentile(ts, 90):.3f} ms, "
+              f"{CLS_BATCH * 1e3 / med:.1f} imgs/s ({card})")
+    print(f"    peak memory allocated: graph {peak_g:.3f} GiB (its eager "
+          f"steps and the capture; {reserved_g:.3f} GiB reserved with the "
+          f"graph's pool), eager {peak_e:.3f} GiB ({card})")
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        t0 = time.perf_counter()
+        scan(*args)
+        host.append((time.perf_counter() - t0) * 1e6 / SCAN_CALL_STEPS)
+    torch.cuda.synchronize()
+    print(f"    host time per replay, the card kept busy: "
+          f"{[round(h, 1) for h in host]} us (a 5-step call: its replays, "
+          f"the permutation copy and the metric rows' clones) ({card})")
+    graph = profile_step(lambda: scan(*args), n=1, label="graphed ALFA",
+                         per_call=SCAN_CALL_STEPS)
+    eager = profile_step(lambda: step(data_x, data_y, perm, 0, gen_e), n=3,
+                         label="eager device-data ALFA")
+    if graph and eager:
+        print(f"    device busy share: graph "
+              f"{100 * graph['busy_ms'] / graph['wall_ms']:.1f}%, eager "
+              f"{100 * eager['busy_ms'] / eager['wall_ms']:.1f}% ({card})")
+    del scan, step, model_g, model_e, opt_g, opt_e
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def robust_eval_phase(card, split, ckpt_dir, errs):
+    """Phase 21: the PGD update against its plain version at the input
+    shape, a robust-eval batch timed, and ``infer_classify --pgd`` on the
+    epoch-scan run's best checkpoint. Returns the kernel's launches and its
+    times per robust-eval batch."""
+    shape = (CLS_BATCH, 32, 32, 3)
+    print(f"[21] robust evaluation: input PGD-{ROBUST_STEPS} at {shape}")
+    for clip in (False, True):
+        pgd_case("robust eval input", *pgd_inputs(shape, 21), clip, errs,
+                 gamma=2.0 / 255, eps=8.0 / 255)
+    model = resnet56(generator=torch.Generator().manual_seed(2)).cuda()
+    x = split[0][:CLS_BATCH].float() / 255
+    y = split[1][:CLS_BATCH]
+    rob = make_robust_eval_step(
+        model, 10, generator=torch.Generator(device="cuda").manual_seed(0))
+    t = cuda_samples(lambda: rob(x, y), 10)
+    print(f"    robust-eval batch (PGD-{ROBUST_STEPS}, ResNet-56, batch "
+          f"{CLS_BATCH}): median {np.median(t):.3f} ms, p90 "
+          f"{np.percentile(t, 90):.3f} ms over {len(t)} batches ({card})")
+    del model
+    best = os.path.join(ckpt_dir, "best_model.pt")
+    common = ["--pretrained", best, "--batch_size", str(CLS_BATCH), "--data",
+              os.path.join(ROOT, "no_cifar_here")]
+    clean = infer_classify.main(common)
+    kpgd.launches = 0
+    robust = infer_classify.main(common + ["--pgd"])
+    torch.cuda.synchronize()
+    launches = kpgd.launches
+    batches = -(-10000 // CLS_BATCH)
+    print(f"    infer_classify on {best}: clean {clean:.2f}%, robust "
+          f"(PGD-{ROBUST_STEPS}) {robust:.2f}%; PGD-update launches "
+          f"{launches} over {batches} batches")
+    require(robust <= clean, f"robust accuracy {robust} > clean {clean}")
+    require(launches == ROBUST_STEPS * batches,
+            f"{launches} PGD-update launches in {batches} batches")
+    k_ms, p_ms, byte_ms, op_ms = time_pgd_update(card, shape)[False]
+    return launches, {
+        "ms": ROBUST_STEPS * k_ms, "plain_ms": ROBUST_STEPS * p_ms,
+        "bound_ms": ROBUST_STEPS * max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def epoch_scan_phases(card):
+    """Phases 18-21; returns the PGD-update kernel's part: the launches of
+    the epoch-scan runs and of the robust evaluation, its times per
+    robust-eval batch."""
+    launches, ckpt_dir = train_scan_full_width()
+    split = device_split()
+    scan_graph_vs_eager(split)
+    gc.collect()
+    torch.cuda.empty_cache()
+    time_scan(card, split)
+    errs = []
+    rob_launches, times = robust_eval_phase(card, split, ckpt_dir, errs)
+    return {"name": "pgd_update", "route": "cuda",
+            "source": "afan_torch/csrc/pgd_step.cu",
+            "replaces": "afan/ops/kernels/pgd_step.py:40",
+            "launches": launches + rob_launches, "max_abs_err": max(errs),
+            **times, "library_ms": None}
+
+
 def merge_entry(entries, extra):
     """Add the detection training path's part to a kernel's entry: the
     launches, times and bounds of both paths summed, the larger error."""
@@ -1896,7 +2309,7 @@ def merge_entry(entries, extra):
     entries.append(extra)
 
 
-GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain")
+GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain", "scan")
 
 
 def main(argv=None):
@@ -1951,6 +2364,10 @@ def main(argv=None):
     if only in (None, "dettrain"):
         for extra in detection_training_phases(card):
             merge_entry(entries, extra)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if only in (None, "scan"):
+        merge_entry(entries, epoch_scan_phases(card))
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -331,3 +331,136 @@ def test_afan_detection_step_kernels_match_plain(card):
     assert all(torch.equal(a, b) for a, b in zip(kk, kp))
     for k in lk:
         assert abs(lk[k] - lp[k]) <= 1e-4 * max(abs(lp[k]), 1e-6), k
+
+
+@pytest.fixture
+def deterministic():
+    """cuDNN deterministic and no TF32, restored after the test."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+     torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _tiny_split(card, n=64):
+    rng = np.random.RandomState(0)
+    y = rng.randint(0, 4, n)
+    x = np.clip(rng.rand(n, 32, 32, 3) * 0.1 + y[:, None, None, None] * 0.25,
+                0, 1)
+    return (torch.from_numpy((x * 255).astype(np.uint8)).to(card),
+            torch.from_numpy(y).to(card))
+
+
+@pytest.mark.cuda
+def test_alfa_epoch_scan_graph_matches_eager(card, deterministic):
+    """A tiny ALFA epoch scan (ResNet-s (1, 1, 1), 4 classes, batch 16, 5
+    PGD steps): three eager steps, then a captured graph replayed for the
+    other five steps of two epochs, against eight eager device-data steps
+    from the same weights, permutations and generator seed. The draws and
+    metrics are bit-equal, the parameters within 1e-5 of each tensor's
+    largest value; the wrapper counts 5 PGD-update launches for each eager
+    step and 5 for the capture and none at a replay, and a profiler trace of
+    the second epoch's four replays holds 20 PGD-update kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from afan_torch.models.resnet_s import ResNetS
+    from afan_torch.train import loop, optim
+
+    data_x, data_y = _tiny_split(card)
+    cfg = loop.AlfaConfig(tap=5, steps=5)
+    sched = optim.multistep_warmup_schedule_tensor(0.1, [6], 0.1, 3)
+    runs = []
+    for graphed in (True, False):
+        model = ResNetS((1, 1, 1), 4,
+                        generator=torch.Generator().manual_seed(0)).to(card)
+        opt, count = optim.capturable_sgd(list(model.parameters()), sched,
+                                          0.1, 0.9, 5e-4)
+        gen = torch.Generator(card).manual_seed(7)
+        if graphed:
+            scan = loop.make_epoch_scan_alfa(model, opt, cfg, 16, 4,
+                                             record_augment=True)
+            before = kpgd.launches
+            ms = [scan(data_x, data_y, torch.randperm(64, generator=gen,
+                                                      device=card), gen)]
+            wrapper = kpgd.launches - before
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                ms.append(scan(data_x, data_y,
+                               torch.randperm(64, generator=gen,
+                                              device=card), gen))
+                torch.cuda.synchronize()
+            at_replays = kpgd.launches - before - wrapper
+            traced = sum(e.count for e in prof.key_averages()
+                         if "pgd_step" in e.key)
+        else:
+            step = loop.make_device_data_alfa_step(model, opt, count, cfg, 16,
+                                                   record_augment=True)
+            ms = []
+            for _ in range(2):
+                perm = torch.randperm(64, generator=gen, device=card)
+                out = [step(data_x, data_y, perm, i, gen) for i in range(4)]
+                ms.append({k: torch.stack([o[k] for o in out])
+                           for k in out[0]})
+        torch.cuda.synchronize()
+        runs.append((ms, {k: v.detach().clone()
+                          for k, v in model.state_dict().items()},
+                     int(opt.count)))
+    (mg, sg, cg), (me, se, ce) = runs
+    assert loop.GRAPH_WARMUP_STEPS == 3
+    assert scan.eager_steps == 3 and scan.replays == 5
+    assert wrapper == 5 * (3 + 1) and at_replays == 0
+    assert traced == 5 * 4
+    assert cg == ce == 8
+    for a, b in zip(mg, me):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+        assert not torch.equal(a["crop"][1], a["crop"][2])
+    for k, v in se.items():
+        if v.is_floating_point():
+            err = float((sg[k] - v).abs().max())
+            assert err <= 1e-5 * max(float(v.abs().max()), 1e-30), (k, err)
+        else:
+            assert torch.equal(sg[k], v), k
+
+
+@pytest.mark.cuda
+def test_robust_eval_kernel_matches_plain(card, deterministic):
+    """A tiny robust-eval batch (batch 8, 32x32, PGD-3 from a seeded random
+    start) with the PGD-update kernel and with the plain update: the
+    adversarial images bit-equal, the same correct count, 3 launches."""
+    from afan_torch.core import attack
+    from afan_torch.eval import robustness
+    from afan_torch.models.resnet_s import ResNetS
+
+    model = ResNetS((1, 1, 1), 4,
+                    generator=torch.Generator().manual_seed(0)).to(card)
+    data_x, data_y = _tiny_split(card, 8)
+    x = data_x.float() / 255
+    runs = []
+    saved = (attack.pgd_update, robustness.pgd)
+    try:
+        for update in (tpgd.pgd_update, tpgd.pgd_update_plain):
+            advs = []
+
+            def recording(*a, **kw):
+                advs.append(saved[1](*a, **kw))
+                return advs[-1]
+            attack.pgd_update, robustness.pgd = update, recording
+            step = robustness.make_robust_eval_step(
+                model, 4, generator=torch.Generator(card).manual_seed(1))
+            before = kpgd.launches
+            out = step(x, data_y)
+            torch.cuda.synchronize()
+            runs.append((advs[0], int(out["correct"]),
+                         kpgd.launches - before))
+    finally:
+        attack.pgd_update, robustness.pgd = saved
+    (ak, ck, lk), (ap, cp, lp) = runs
+    assert (lk, lp) == (3, 0)
+    assert _bits_equal(ak, ap) and ck == cp
