@@ -1,6 +1,13 @@
 """Detection training CLI — the PyTorch counterpart of
-``afan/cli/train_detect.py`` for the baseline and the flagship A-FAN
-variant, on the card unless ``--device cpu``.
+``afan/cli/train_detect.py``, on the card unless ``--device cpu``.
+
+``--variant`` picks one of the reference's train scripts: ``baseline``,
+``advtrain`` (input PGD, the adversarial loss alone), ``afan`` (the
+flagship), the SAT family (``sat``, ``sat3``/``sat7``/``sat10``,
+``sat_clean``: the SAT loss presets, no SD tap, input PGD on the clean term
+but for ``*_clean``), the multi-layer family (``multi``, ``sat_multi``,
+their ``*_clean``: SE taps 3, 1 and 2) and ``single`` (one adversarial
+point, half the loss).
 
 Canonical run: VOC2007 final setting 1
 (`Detection/sh/voc2007/clean50/090_final_setting1.sh`,
@@ -43,8 +50,8 @@ from ..train.checkpoint import (load_checkpoint, load_training_state,
                                 overlap_restore, restore_optimizer,
                                 save_detect_checkpoint)
 from ..train.detect_loop import (DetAfanConfig, detection_param_groups,
-                                 make_afan_det_step, make_baseline_det_step,
-                                 make_detect_fn)
+                                 make_advtrain_det_step, make_afan_det_step,
+                                 make_baseline_det_step, make_detect_fn)
 from ..train.optim import sgd, warmup_multistep_schedule
 from ..utils.device import resolve_device
 from ..utils.logging import Log
@@ -52,7 +59,6 @@ from ..utils.logging import Log
 VARIANTS = ("baseline", "advtrain", "afan", "sat", "sat_clean", "sat3",
             "sat7", "sat10", "multi", "multi_clean", "sat_multi",
             "sat_multi_clean", "single")
-PORTED_VARIANTS = ("baseline", "afan")
 
 
 def get_parser():
@@ -143,11 +149,10 @@ def get_parser():
 
 
 def refuse_unported(args) -> None:
-    """The variants and flags whose paths are not ported yet raise, naming
-    the ROADMAP, instead of running something else."""
+    """The flags whose paths are not ported yet raise, naming the ROADMAP,
+    instead of running something else (``--pertub_idx_sd rpn`` and
+    ``--remat_tails`` raise in the step's factory)."""
     where = "not ported yet (ROADMAP.md, queue 1: detection)"
-    if args.variant not in PORTED_VARIANTS:
-        raise NotImplementedError(f"--variant {args.variant} is {where}")
     if args.bf16:
         raise NotImplementedError(f"--bf16 is {where}")
     if args.num_devices is not None and args.num_devices > 1:
@@ -197,7 +202,8 @@ def afan_config_for(args) -> DetAfanConfig:
         noise_sd=args.noise_sd, sd_weight=args.sd_adv_loss_weight,
         steps=args.steps, randinit=args.randinit, clip=args.clip,
         step_mode=args.pgd_step_mode, random_steps=args.pgd_random_steps,
-        weight_mode=weight_mode, input_adv=input_adv, share_proposals=args.share_proposals,
+        weight_mode=weight_mode, loss_setting=args.loss_settings,
+        input_adv=input_adv, share_proposals=args.share_proposals,
         remat_tails=args.remat_tails)
 
 
@@ -254,6 +260,8 @@ def main(argv=None):
 
     if args.variant == "baseline":
         train_step = make_baseline_det_step(model, optimizer, scheduler)
+    elif args.variant == "advtrain":
+        train_step = make_advtrain_det_step(model, optimizer, scheduler)
     else:
         train_step = make_afan_det_step(model, optimizer, scheduler,
                                         afan_config_for(args))

@@ -1,6 +1,12 @@
 """Segmentation training CLI — the PyTorch counterpart of
-``afan/cli/train_segment.py`` for the baseline and the flagship A-FAN
-variant, on the card unless ``--device cpu``.
+``afan/cli/train_segment.py``, on the card unless ``--device cpu``.
+
+``--variant`` picks one of the reference's nine mains: ``baseline``
+(`main_ori.py`), ``advtrain`` (`main_advtrain.py`: input PGD, the
+adversarial loss alone), ``afan`` (`main_aug_final.py`), and the
+``sat``/``multi``/``sat_multi`` ablations with (input PGD on the clean
+term) or without (``*_clean``) input-adversarial training
+(`main_aug_{sat,muti,sat_muti}_{advt,clean}.py`).
 
 Canonical run: the Cityscapes "final" recipe — DeepLabv3+ ResNet-50 at
 output stride 16, crop 768, batch 4, poly lr 0.1, SE tap 2, SD tap concat,
@@ -36,13 +42,15 @@ from ..models.deeplab import build_model
 from ..models.deeplab.modeling import segmentation_param_groups
 from ..train.checkpoint import (load_checkpoint, load_training_state,
                                 overlap_restore, save_checkpoint)
-from ..train.optim import poly_schedule, sgd
+from ..train.optim import poly_schedule, sgd, step_schedule
 from ..train.segment_loop import (SegAfanConfig, make_afan_seg_step,
-                                  make_seg_base_step, make_seg_eval_step)
+                                  make_seg_advtrain_step, make_seg_base_step,
+                                  make_seg_eval_step)
 from ..utils.device import resolve_device
 from ..utils.logging import Log
 
-VARIANTS = ("baseline", "afan")
+VARIANTS = ("baseline", "advtrain", "afan", "sat", "sat_clean", "multi",
+            "multi_clean", "sat_multi", "sat_multi_clean")
 
 
 def get_parser():
@@ -61,6 +69,10 @@ def get_parser():
                    help="stop after this many iterations (the poly "
                         "schedule still spans --total_itrs)")
     p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--lr_policy", choices=["poly", "step"], default="poly")
+    p.add_argument("--step_size", type=int, default=10000,
+                   help="--lr_policy step: lr x0.1 every this many "
+                        "iterations")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--crop_size", type=int, default=768)
     p.add_argument("--weight_decay", type=float, default=1e-4)
@@ -88,28 +100,82 @@ def get_parser():
     p.add_argument("--mix_sd", action="store_true")
     p.add_argument("--noise_sd", type=float, default=0.0)
     p.add_argument("--steps", type=int, default=1)
+    p.add_argument("--loss_settings", type=int, default=1,
+                   help="the sat/multi loss preset (1-4 sat, 1-2 multi)")
     p.add_argument("--eps", type=float, default=2.0)
     p.add_argument("--randinit", action="store_true")
     p.add_argument("--clip", action="store_true")
+    p.add_argument("--pgd_step_mode", choices=("sign", "grad"),
+                   default="sign",
+                   help="grad: raw-gradient steps normalized per sample, "
+                        "for every ascent of the step")
+    p.add_argument("--pgd_random_steps", action="store_true",
+                   help="per-step random step sizes in (0, 2 gamma)")
+    p.add_argument("--mix_all", action="store_true",
+                   help="AFN on every adversarial point: the spectrum's, "
+                        "the SD point and each extra tap's")
+    p.add_argument("--input_adv", action="store_true",
+                   help="input PGD on the clean term of --variant afan (the "
+                        "sat/multi variants but *_clean imply it)")
     return p
 
 
 def afan_config(args) -> SegAfanConfig:
-    """The flagship's config from the flags (gammas and eps in /255
-    units, the spectrum's AFN mask from ``--mix_layer``)."""
-    spectrum = 3
+    """The A-FAN family's config of ``args.variant`` (``afan``'s
+    `cli/train_segment.py:170-212`; gammas and eps in /255 units, the
+    spectrum's AFN mask from ``--mix_layer``)."""
+    base = args.variant.replace("_clean", "")
+    spectrum = {"afan": 3, "sat": 3, "multi": 2, "sat_multi": 3}[base]
     mask = [0] * spectrum
     for i, ch in enumerate(args.mix_layer[:spectrum - 1]):
         if ch == "1":
             mask[i + 1] = 1
+    if args.mix_all:
+        mask = [0] + [1] * (spectrum - 1)
+    input_adv = args.input_adv or (args.variant != "afan"
+                                   and not args.variant.endswith("_clean"))
+    weight_mode = {"afan": "final", "sat": "sat_preset",
+                   "multi": "multi_preset", "sat_multi": "multi_preset"}[base]
+    if base in ("multi", "sat_multi"):
+        # `main_aug_muti_advt.py:180-197`: taps 1-4, gamma .1/255 on tap 3
+        # (which carries the spectrum), .001/255 on the others
+        tap_se, extra, extra_gammas = 3, (1, 2, 4), (0.001 / 255,) * 3
+        gamma_se = 0.1 / 255
+    else:
+        tap_se, extra, extra_gammas = args.pertub_idx_se, (), ()
+        gamma_se = args.gamma_se / 255
     return SegAfanConfig(
-        tap_se=args.pertub_idx_se,
+        tap_se=tap_se, extra_taps=extra, extra_gammas=extra_gammas,
         sd=None if args.pertub_idx_sd == "none" else args.pertub_idx_sd,
-        steps=args.steps, gamma_se=args.gamma_se / 255,
+        steps=args.steps, gamma_se=gamma_se,
         gamma_sd=args.gamma_sd / 255, eps=args.eps / 255,
-        spectrum=spectrum, mix_mask=tuple(mask), mix_sd=args.mix_sd,
+        spectrum=spectrum, mix_mask=tuple(mask),
+        mix_sd=args.mix_sd or args.mix_all, mix_all=args.mix_all,
         noise_sd=args.noise_sd, randinit=args.randinit, clip=args.clip,
-        use_focal=args.loss_type == "focal_loss")
+        step_mode=args.pgd_step_mode, random_steps=args.pgd_random_steps,
+        use_focal=args.loss_type == "focal_loss", weight_mode=weight_mode,
+        loss_setting=args.loss_settings, input_adv=input_adv)
+
+
+def build_step(args, model, optimizer, scheduler):
+    """The train step of ``args.variant``."""
+    if args.variant == "baseline":
+        return make_seg_base_step(model, optimizer, scheduler,
+                                  args.loss_type == "focal_loss")
+    if args.variant == "advtrain":
+        return make_seg_advtrain_step(model, optimizer, scheduler,
+                                      steps=args.steps,
+                                      gamma=args.gamma_se / 255,
+                                      eps=args.eps / 255)
+    return make_afan_seg_step(model, optimizer, scheduler, afan_config(args))
+
+
+def lr_schedule(args):
+    """PolyLR over ``--total_itrs`` or StepLR(``--step_size``, 0.1)
+    (`main_aug_final.py:84-87`)."""
+    if args.lr_policy == "step":
+        return step_schedule(args.lr, args.step_size)
+    return poly_schedule(args.lr, args.total_itrs, 0.9)
 
 
 def experiment_name(args) -> str:
@@ -141,8 +207,7 @@ def main(argv=None):
     total = args.limit_itrs or args.total_itrs
     optimizer, scheduler = sgd(
         segmentation_param_groups(model),
-        poly_schedule(args.lr, args.total_itrs, 0.9), args.lr, 0.9,
-        args.weight_decay)
+        lr_schedule(args), args.lr, 0.9, args.weight_decay)
 
     cur_itrs, best_score = 0, 0.0
     if args.ckpt and os.path.isfile(args.ckpt):
@@ -156,12 +221,7 @@ def main(argv=None):
             best_score = float(saved["best_score"])
             Log.i(f"Training state restored at itrs {cur_itrs}")
 
-    if args.variant == "baseline":
-        step = make_seg_base_step(model, optimizer, scheduler,
-                                  args.loss_type == "focal_loss")
-    else:
-        step = make_afan_seg_step(model, optimizer, scheduler,
-                                  afan_config(args))
+    step = build_step(args, model, optimizer, scheduler)
     eval_step = make_seg_eval_step(model, num_classes)
 
     def to_device(imgs, labs):

@@ -97,6 +97,19 @@ def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
     return x_adv.detach()
 
 
+def input_pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
+              eps: Optional[float] = None, randinit: bool = False,
+              clip: bool = False, generator: Optional[torch.Generator] = None,
+              step_mode: str = "sign", random_steps: bool = False
+              ) -> torch.Tensor:
+    """Input-space PGD (``afan``'s `attack.py:163-183`): :func:`pgd` on an
+    image in [0, 1], then a clamp of the result to [0, 1]."""
+    x_adv = pgd(loss_fn, x, steps=steps, gamma=gamma, eps=eps,
+                randinit=randinit, clip=clip, generator=generator,
+                step_mode=step_mode, random_steps=random_steps)
+    return x_adv.clamp(0.0, 1.0)
+
+
 def _grad_direction(g: torch.Tensor) -> torch.Tensor:
     """The raw gradient normalized per sample to unit L-inf."""
     flat = g.abs().reshape(g.shape[0], -1) if g.dim() > 1 else \

@@ -16,7 +16,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 ROI_CHUNK = 256   # ROIs per contraction: bounds the (r, ph, W, C) transient
 
@@ -206,6 +205,15 @@ def roi_pool_max(feat: torch.Tensor, boxes: torch.Tensor,
     return vals.permute(0, 3, 1, 2)
 
 
+def _max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2/2 max pool of ``(R, C, 2h, 2w)``. Its gradient splits evenly
+    among tied maxima (``amax``'s, as ``afan``'s ``jnp.max``), where
+    ``max_pool2d`` would send it all to one: ReLU zeros under a whole
+    bin tie, and the SE ascent at layer 3 reads that gradient."""
+    r, c, h, w = x.shape
+    return x.reshape(r, c, h // 2, 2, w // 2, 2).amax(dim=(3, 5))
+
+
 def pool_rois(feat: torch.Tensor, boxes: torch.Tensor,
               batch_indices: Optional[torch.Tensor] = None,
               mode: str = "align") -> torch.Tensor:
@@ -215,8 +223,8 @@ def pool_rois(feat: torch.Tensor, boxes: torch.Tensor,
     if mode not in ("align", "pooling"):
         raise ValueError(f"unknown pooler mode {mode!r}")
     if batch_indices is None and mode == "align":
-        x = roi_align_per_image(feat, boxes, (14, 14), 1.0 / 16, 2)
-        return F.max_pool2d(x, 2).contiguous()
+        return _max_pool_2x2(roi_align_per_image(feat, boxes, (14, 14),
+                                                 1.0 / 16, 2))
     if batch_indices is None:
         batch_indices = torch.arange(
             boxes.shape[0], device=boxes.device).repeat_interleave(
@@ -224,5 +232,5 @@ def pool_rois(feat: torch.Tensor, boxes: torch.Tensor,
         boxes = boxes.reshape(-1, 4)
     if mode == "pooling":
         return roi_pool_max(feat, boxes, batch_indices, (7, 7), 1.0 / 16)
-    x = roi_align_einsum(feat, boxes, batch_indices, (14, 14), 1.0 / 16, 2)
-    return F.max_pool2d(x, 2)
+    return _max_pool_2x2(roi_align_einsum(feat, boxes, batch_indices,
+                                          (14, 14), 1.0 / 16, 2))

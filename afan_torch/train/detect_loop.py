@@ -1,7 +1,9 @@
 """Detection train steps — the PyTorch counterpart of
 ``afan/train/detect_loop.py``: the baseline step (`train_baseline.py`), the
-flagship A-FAN step (`train_aug_final.py`: SE backbone tap, SD tap on the
-pooled ROI vector, spectrum, AFN) and the eval forward.
+input-adversarial step (`train_baseline_advtrain.py`), the A-FAN family
+(`train_aug_final.py`: SE backbone tap, SD tap on the pooled ROI vector,
+spectrum, AFN; and its SAT, multi-layer and single-point variants) and the
+eval forward.
 
 Every forward that samples anchors and proposals runs the proposal NMS,
 which on the card is the hand-written kernel
@@ -27,7 +29,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from ..core.afn import mix_feature
-from ..core.attack import pgd, uniform_init
+from ..core.attack import input_pgd, pgd, uniform_init
 from ..core.spectrum import sample_points
 from ..models.frcnn.model import FasterRCNN, Targets
 from ..models.resnet import FrozenBatchNorm
@@ -77,17 +79,42 @@ def make_baseline_det_step(model: FasterRCNN,
     return step_fn
 
 
-def make_advtrain_det_step(*args, **kwargs):
-    """Input-PGD adversarial training (`train_baseline_advtrain.py`)."""
-    raise NotImplementedError(f"advtrain is {UNPORTED}")
+def make_advtrain_det_step(model: FasterRCNN,
+                           optimizer: torch.optim.Optimizer, scheduler,
+                           steps: int = 5, gamma: float = 2.0 / 255,
+                           eps: float = 8.0 / 255, randinit: bool = True
+                           ) -> StepFn:
+    """Input-PGD adversarial training (`train_baseline_advtrain.py:75-89`):
+    ``steps`` ascent steps on the image through the four losses, no
+    projection, a clamp to [0, 1], then one SGD update on the adversarial
+    image's losses alone. Each forward samples its own anchors and
+    proposals, so a step runs ``steps + 1`` proposal NMS.
+    ``step(images, gt_boxes, gt_classes, gt_valid, generator=None) ->
+    {"loss"}``; ``generator`` drives the samples and ``randinit``."""
+
+    def step_fn(images, gt_boxes, gt_classes, gt_valid,
+                generator: Optional[torch.Generator] = None):
+        model.train()
+        gt = (gt_boxes, gt_classes, gt_valid)
+        adv = input_pgd(lambda x: model.losses(x, *gt, generator).total(),
+                        images, steps=steps, gamma=gamma, eps=eps,
+                        randinit=randinit, generator=generator)
+        optimizer.zero_grad(set_to_none=True)
+        loss = model.losses(adv, *gt, generator).total()
+        loss.backward()
+        optimizer.step()
+        scheduler.step()
+        return {"loss": loss.detach()}
+
+    return step_fn
 
 
 @dataclasses.dataclass(frozen=True)
 class DetAfanConfig:
-    """The A-FAN detection flags (`train_aug_final.py:200-247`), gammas
-    ALREADY /255. ``taps_se`` holds the SE taps (the first carries the
-    spectrum; more than one is the multi-layer variants' extra points, an
-    empty tuple is SD only)."""
+    """The A-FAN detection flags (`train_aug_final.py:200-247` and the
+    variants), gammas ALREADY /255. ``taps_se`` holds the SE taps (the
+    first carries the spectrum; more than one is the multi-layer variants'
+    extra points, an empty tuple is SD only)."""
     taps_se: Sequence[int] = (2,)
     gammas_se: Sequence[float] = (0.9 / 255,)
     spectrum: int = 5
@@ -105,19 +132,42 @@ class DetAfanConfig:
     step_mode: str = "sign"
     random_steps: bool = False
     remat_tails: bool = False
-    weight_mode: str = "final"      # 'final'; 'sat_preset', 'single' raise
+    # 'final' (`train_aug_final.py:156`), 'sat_preset'
+    # (`train_aug_sat_advt.py:119-132`, by loss_setting) or 'single'
+    # (`train_aug_single_advt.py:95`); the last two leave SD out of the loss
+    weight_mode: str = "final"
+    loss_setting: int = 1
     share_proposals: bool = True
+    # the *_advt variants: the clean term's forward takes an input-PGD
+    # image (`train_aug_sat_advt.py:78`)
     input_adv: bool = False
+    input_adv_steps: int = 5
+    input_adv_gamma: float = 0.3 / 255
+    input_adv_eps: float = 2.0 / 255
+
+
+# sat_preset: loss = a * lca + b * l0 with lca = 0.2 * (l0 + the SE terms)
+SAT_PRESETS = {1: (1.0, 0.0), 2: (0.5, 0.5), 3: (0.4, 0.6), 4: (0.3, 0.7)}
+
+
+def loss_weights(cfg: DetAfanConfig) -> Tuple[float, float, float]:
+    """The weights of the clean loss, of each SE term (spectrum tail or
+    extra tap) and of the SD loss under ``cfg``'s weight mode."""
+    if cfg.weight_mode == "final":
+        w_sd = cfg.sd_weight if cfg.sd is not None else 0.0
+        return (1.0 - w_sd) / 3.0, (1.0 - w_sd) / 3.0, w_sd / 3.0
+    if cfg.weight_mode == "single":
+        return 0.5, 0.5, 0.0
+    if cfg.weight_mode == "sat_preset" and cfg.loss_setting in SAT_PRESETS:
+        a, b = SAT_PRESETS[cfg.loss_setting]
+        return 0.2 * a + b, 0.2 * a, 0.0
+    raise ValueError(f"weight_mode {cfg.weight_mode!r} with loss_setting "
+                     f"{cfg.loss_setting} is not a preset")
 
 
 def _refuse_unported(cfg: DetAfanConfig) -> None:
-    if cfg.input_adv:
-        raise NotImplementedError(f"input_adv is {UNPORTED}")
     if cfg.sd not in ("roi", None):
         raise NotImplementedError(f"sd={cfg.sd!r} is {UNPORTED}")
-    if cfg.weight_mode != "final":
-        raise NotImplementedError(
-            f"weight_mode {cfg.weight_mode!r} is {UNPORTED}")
     if cfg.remat_tails:
         raise NotImplementedError(f"remat_tails is {UNPORTED}")
     if cfg.taps_se and len(cfg.mix_mask) != cfg.spectrum:
@@ -127,8 +177,11 @@ def _refuse_unported(cfg: DetAfanConfig) -> None:
 
 def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
                        scheduler, cfg: DetAfanConfig) -> StepFn:
-    """The flagship A-FAN detection step (`train_aug_final.py:70-166`):
+    """The A-FAN detection step (`train_aug_final.py:70-166` and the
+    variants):
 
+    0. with ``input_adv``, input PGD (random start, projection) on the
+       image; only the clean loss term sees the result;
     1. the SE features at each tap, detached;
     2. the SD pass: a clean forward to the pooled ROI vector, detached,
        with its sample;
@@ -136,16 +189,20 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
        vector through the ROI losses (``only_roi_sd``) or all four;
     4. AFN and uniform noise on the SD point (``mix_sd``, ``noise_sd``);
     5. the spectrum on the first SE tap, AFN per ``mix_mask``;
-    6. loss = (clean + spectrum tails + extra taps) / 3 * (1 - w) + SD /
-       3 * w, one SGD update.
+    6. loss = the weight mode's mix (:func:`loss_weights`; ``final``:
+       (clean + spectrum tails + extra taps) / 3 * (1 - w) + SD / 3 * w),
+       one SGD update. The other modes leave the SD loss out; it is still
+       computed and reported.
 
     With ``share_proposals`` one clean forward samples the targets that
-    the ascents and the loss forwards reuse; otherwise each forward samples
-    its own. The SD pass samples once: the loss's SD term reuses that
-    sample (``afan`` draws it twice from one key, which gives the same
-    sample), on the clean forward's RPN outputs, which it shares. So a step
-    runs 2 proposal NMS with ``share_proposals`` (one per sampling forward
-    without) and one PGD update per ascent step and tap.
+    the ascents (the input ascent too) and the loss forwards reuse;
+    otherwise each forward samples its own. The SD pass samples once: the
+    loss's SD term reuses that sample (``afan`` draws it twice from one
+    key, which gives the same sample), on the RPN outputs of the clean
+    image: the clean term's forward's, or under ``input_adv`` a forward of
+    its own. So a step runs 2 proposal NMS with ``share_proposals`` and an
+    SD tap, 1 without the tap (one per sampling forward without
+    ``share_proposals``), and one PGD update per ascent step and tap.
 
     Each loss term is backpropagated as soon as it is formed (the terms
     share no activations but the clean forward's), so one forward's graph
@@ -154,14 +211,13 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
     ``step(images, gt_boxes, gt_classes, gt_valid, generator=None,
     targets=None)`` returns the detached ``loss``, ``loss_clean``,
     ``loss_spectrum`` and ``loss_sd``. ``generator`` drives the samples,
-    ``randinit``, ``random_steps`` and ``noise_sd``; ``targets`` may hold
-    ``"clean"`` (the sample ``afan`` draws from its ``r_clean`` key: the
-    shared one, or the clean forward's) and ``"sd"`` (the SD pass's), which
-    then are not drawn.
+    the input ascent's random start, ``randinit``, ``random_steps`` and
+    ``noise_sd``; ``targets`` may hold ``"clean"`` (the sample ``afan``
+    draws from its ``r_clean`` key: the shared one, or the clean forward's)
+    and ``"sd"`` (the SD pass's), which then are not drawn.
     """
     _refuse_unported(cfg)
-    w_sd = cfg.sd_weight if cfg.sd is not None else 0.0
-    c_main = (1.0 - w_sd) / 3.0
+    c_clean, c_se, c_sd = loss_weights(cfg)
 
     def attack(loss_fn, x, gamma, generator):
         return pgd(loss_fn, x, steps=cfg.steps, gamma=gamma, eps=cfg.eps,
@@ -184,6 +240,16 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
         def tail_loss(tap, feat):
             return model.losses(images, *gt, generator, tap, feat,
                                 shared).total()
+
+        images_l0 = images
+        if cfg.input_adv:
+            images_l0 = input_pgd(
+                lambda x: model.losses(x, *gt, generator,
+                                       targets=shared).total(),
+                images, steps=cfg.input_adv_steps,
+                gamma=cfg.input_adv_gamma, eps=cfg.input_adv_eps,
+                randinit=True, clip=True, generator=generator,
+                step_mode=cfg.step_mode, random_steps=cfg.random_steps)
 
         with torch.no_grad():
             se_feats = [model.backbone_head(images, tap)
@@ -225,21 +291,33 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
                               for i in range(1, cfg.spectrum)]
             del spec
 
+        def sd_term(rpn_out):
+            return model.roi_tail_losses(
+                model.roi_dict(*rpn_out, sd_targets), adv_sd).total()
+
         optimizer.zero_grad(set_to_none=True)
-        # the clean forward; the SD term's RPN losses use its RPN outputs
-        features = model.features_clean(images.permute(0, 3, 1, 2))
+        # the clean term's forward; without input_adv the SD term's RPN
+        # losses use its RPN outputs, which are the clean image's
+        features = model.features_clean(images_l0.permute(0, 3, 1, 2))
         rpn_out = model.rpn(features)
         clean = shared if shared is not None else targets.get("clean")
         l0 = model._losses_from_features(features, hw, *gt, generator, clean,
                                          rpn_out).total()
-        first = c_main * l0
+        first = c_clean * l0
         l_sd = torch.zeros_like(l0)
-        if cfg.sd is not None:
-            l_sd = model.roi_tail_losses(
-                model.roi_dict(*rpn_out, sd_targets), adv_sd).total()
-            first = first + (w_sd / 3.0) * l_sd
+        if cfg.sd is not None and not cfg.input_adv:
+            with torch.set_grad_enabled(c_sd > 0):
+                l_sd = sd_term(rpn_out)
+            if c_sd:
+                first = first + c_sd * l_sd
         first.backward()
         del features, rpn_out, first
+        if cfg.sd is not None and cfg.input_adv:
+            with torch.set_grad_enabled(c_sd > 0):
+                l_sd = sd_term(model.rpn(model.features_clean(
+                    images.permute(0, 3, 1, 2))))
+            if c_sd:
+                (c_sd * l_sd).backward()
 
         # the spectrum tails, then the extra taps' points, one at a time
         extra = [(cfg.taps_se[0], f) for f in spec_feats] + list(
@@ -247,15 +325,15 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
         terms = []
         for tap, feat in extra:
             term = tail_loss(tap, feat)
-            (c_main * term).backward()
+            (c_se * term).backward()
             terms.append(term.detach())
         optimizer.step()
         scheduler.step()
         zero = torch.zeros_like(l0)
         l_spectrum = sum(terms[:len(spec_feats)], zero)
         l_multi = sum(terms[len(spec_feats):], zero)
-        loss = (c_main * (l0.detach() + l_spectrum + l_multi)
-                + (w_sd / 3.0) * l_sd.detach())
+        loss = (c_clean * l0.detach() + c_se * (l_spectrum + l_multi)
+                + c_sd * l_sd.detach())
         return {"loss": loss, "loss_clean": l0.detach(),
                 "loss_spectrum": l_spectrum, "loss_sd": l_sd.detach()}
 

@@ -102,6 +102,17 @@ def poly_schedule(base_lr: float, max_steps: int, power: float = 0.9,
     return schedule
 
 
+def step_schedule(base_lr: float, step_size: int,
+                  gamma: float = 0.1) -> Schedule:
+    """StepLR (`Segmentation/main_aug_final.py:87`): ``base_lr *
+    gamma^(count // step_size)``."""
+
+    def schedule(count: int) -> float:
+        return base_lr * gamma ** (count // step_size)
+
+    return schedule
+
+
 def sgd(param_groups: List[dict], schedule: Schedule, base_lr: float,
         momentum: float = 0.9, weight_decay: float = 0.0
         ) -> Tuple[torch.optim.SGD, torch.optim.lr_scheduler.LambdaLR]:

@@ -1,8 +1,10 @@
 """Segmentation train steps — the PyTorch counterpart of
 ``afan/train/segment_loop.py``: the baseline step (`main_ori.py`), the
-flagship A-FAN step (`main_aug_final.py`: SE backbone tap + SD aspp/concat
-decoder tap, spectrum, AFN, loss 0.7 clean + 0.1 per adversarial site) and
-the eval step.
+input-adversarial step (`main_advtrain.py`), the A-FAN family
+(`main_aug_final.py`: SE backbone tap + SD aspp/concat decoder tap,
+spectrum, AFN, loss 0.7 clean + 0.1 per adversarial site; and its sat and
+multi variants: input PGD on the clean term, extra SE taps, the loss
+presets) and the eval step.
 
 Every loss site and every ascent site ends in
 :func:`afan_torch.ops.resize_ce.fused_resize_nll_sums`, which on the card
@@ -11,8 +13,9 @@ version. There is no fallback: a kernel that fails raises.
 
 BatchNorm rule (``afan/train/segment_loop.py:9-13``, ``loop.py:16-23``):
 every forward of the step normalizes with batch statistics, and the running
-statistics are updated once per step, from the clean forward only; every
-other forward runs under :func:`frozen_bn_stats`. Each spectrum point runs
+statistics are updated once per step, from the forward of the clean loss
+term only (of the input-adversarial image where there is one); every other
+forward runs under :func:`frozen_bn_stats`. Each spectrum point runs
 its own tail forward, so each gets its own batch statistics, as ``afan``'s
 ``vmap`` gives them.
 
@@ -27,7 +30,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from ..core.afn import mix_feature
-from ..core.attack import pgd, uniform_init
+from ..core.attack import input_pgd, pgd, uniform_init
 from ..core.spectrum import sample_points
 from ..eval.seg_miou import confusion_matrix
 from ..models.deeplab.modeling import DeepLab
@@ -60,8 +63,17 @@ def seg_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class SegAfanConfig:
-    """The flagship's flags (`main_aug_final.py`; gammas ALREADY /255)."""
+    """The A-FAN family's flags (`main_aug_final.py` and the sat/multi
+    variants; gammas ALREADY /255).
+
+    The multi-layer variants (`main_aug_muti_advt.py:180-232`) add
+    ``extra_taps``, each with its own gamma and one adversarial point; the
+    first tap carries the spectrum. ``input_adv`` trains the clean term on
+    an input-PGD image (the ``*_advt`` variants).
+    """
     tap_se: int = 2                    # pertub_idx_se (backbone layer)
+    extra_taps: Sequence[int] = ()     # multi variants: extra SE taps
+    extra_gammas: Sequence[float] = ()
     sd: Optional[str] = "concat"       # 'aspp' | 'concat' | None
     steps: int = 1
     gamma_se: float = 0.02 / 255
@@ -70,6 +82,7 @@ class SegAfanConfig:
     spectrum: int = 3
     mix_mask: Sequence[int] = (0, 0, 0)
     mix_sd: bool = False
+    mix_all: bool = False              # AFN on each extra tap's point too
     noise_sd: float = 0.0
     clean_weight: float = 0.7          # loss = .7 l0 + .1 each (`:229`)
     adv_weight: float = 0.1
@@ -78,7 +91,38 @@ class SegAfanConfig:
     step_mode: str = "sign"            # 'sign' | 'grad'
     random_steps: bool = False
     use_focal: bool = False
+    # 'final' (the .7/.1 rule) | 'sat_preset' (`main_aug_sat_advt.py:
+    # 189-200`) | 'multi_preset' (`main_aug_muti_advt.py`), by loss_setting
     weight_mode: str = "final"
+    loss_setting: int = 1
+    input_adv: bool = False
+    input_adv_steps: int = 3
+    input_adv_gamma: float = 0.3 / 255
+    input_adv_eps: float = 2.0 / 255
+
+
+# (clean weight, weight of the sum of the n adversarial terms) per preset
+# (``afan/train/segment_loop.py:466-481``)
+LOSS_PRESETS = {
+    "sat_preset": {1: lambda n: (1.0 / (1 + n), 1.0 / (1 + n)),
+                   2: lambda n: (0.5, 0.5 / max(n, 1)),
+                   3: lambda n: (0.8, 0.2 / max(n, 1)),
+                   4: lambda n: (0.9, 0.1 / max(n, 1))},
+    "multi_preset": {1: lambda n: (0.8, 0.2 / max(n, 1)),
+                     2: lambda n: (0.6, 0.4 / max(n, 1))},
+}
+
+
+def loss_weights(cfg: SegAfanConfig) -> Tuple[float, float]:
+    """(weight of the clean loss, weight of each adversarial loss) of
+    ``cfg``'s weight mode."""
+    if cfg.weight_mode == "final":
+        return cfg.clean_weight, cfg.adv_weight
+    if cfg.loss_setting not in LOSS_PRESETS.get(cfg.weight_mode, {}):
+        raise ValueError(f"weight_mode {cfg.weight_mode!r} has no "
+                         f"loss_setting {cfg.loss_setting}")
+    n_adv = (cfg.spectrum - 1) + len(cfg.extra_taps) + (cfg.sd is not None)
+    return LOSS_PRESETS[cfg.weight_mode][cfg.loss_setting](n_adv)
 
 
 def _nchw(images: torch.Tensor) -> torch.Tensor:
@@ -121,27 +165,64 @@ def make_seg_base_step(model: DeepLab, optimizer: torch.optim.Optimizer,
     return step_fn
 
 
+def make_seg_advtrain_step(model: DeepLab, optimizer: torch.optim.Optimizer,
+                           scheduler, steps: int = 3,
+                           gamma: float = 2.0 / 255, eps: float = 8.0 / 255,
+                           randinit: bool = True):
+    """`main_advtrain.py:185-200`: input PGD (no projection) clamped to
+    [0, 1], then one SGD update on the adversarial image's loss alone,
+    whose forward updates the running statistics.
+    ``step(images, labels, generator=None) -> {"loss"}``; ``generator``
+    drives ``randinit``."""
+
+    def step_fn(images: torch.Tensor, labels: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        model.train()
+        site = _site_loss(labels, None)
+        with frozen_bn_stats(model):
+            adv = input_pgd(
+                lambda im: site(model.forward_logits(_nchw(im)))[0], images,
+                steps=steps, gamma=gamma, eps=eps, randinit=randinit,
+                generator=generator)
+        optimizer.zero_grad(set_to_none=True)
+        loss = site(model.forward_logits(_nchw(adv)))[0]
+        loss.backward()
+        optimizer.step()
+        scheduler.step()
+        return {"loss": loss.detach()}
+
+    return step_fn
+
+
 def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
                        scheduler, cfg: SegAfanConfig):
-    """The flagship A-FAN segmentation step (`main_aug_final.py:152-232`):
+    """The A-FAN segmentation step (`main_aug_final.py:152-232` and the
+    sat/multi variants):
 
+    0. with ``input_adv``, input PGD (random start, projection) on the
+       image; only the clean loss term sees the result;
     1. one attack-side forward → SE tap feature, low_level and the SD
        decoder feature, all detached;
-    2. PGD on SE through the full tail and on SD through the classifier;
+    2. PGD on SE through the full tail, on each extra tap's feature through
+       its tail (AFN under ``mix_all``), and on SD through the classifier;
     3. optional AFN + noise on SD;
     4. spectrum on SE with AFN per the mix mask;
-    5. loss = .7 clean + .1 * each adversarial forward; one SGD update.
+    5. loss = the weight mode's mix of the clean and adversarial terms; one
+       SGD update.
 
     ``step(images, labels, generator=None)`` returns the detached
     ``loss``, ``loss_clean``, ``loss_spectrum`` and ``loss_sd``;
-    ``generator`` drives ``randinit``, ``random_steps`` and ``noise_sd``.
+    ``generator`` drives the input ascent's random start, ``randinit``,
+    ``random_steps`` and ``noise_sd``.
     """
     n_spec = cfg.spectrum
     if len(cfg.mix_mask) != n_spec:
         raise ValueError(f"mix_mask {cfg.mix_mask} needs {n_spec} entries")
-    if cfg.weight_mode != "final":
-        raise NotImplementedError(
-            f"weight_mode {cfg.weight_mode!r} is not ported yet")
+    if len(cfg.extra_gammas) != len(cfg.extra_taps):
+        raise ValueError(f"extra_gammas {cfg.extra_gammas} needs one entry "
+                         f"per extra tap {cfg.extra_taps}")
+    w_clean, w_adv = loss_weights(cfg)
     focal = FOCAL if cfg.use_focal else None
 
     def attack(loss_fn, x, gamma, generator):
@@ -157,6 +238,15 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
         site = _site_loss(labels, focal)
 
         with frozen_bn_stats(model):
+            x_l0 = x
+            if cfg.input_adv:
+                x_l0 = _nchw(input_pgd(
+                    lambda im: site(model.forward_logits(_nchw(im)))[0],
+                    images, steps=cfg.input_adv_steps,
+                    gamma=cfg.input_adv_gamma, eps=cfg.input_adv_eps,
+                    randinit=True, clip=True, generator=generator,
+                    step_mode=cfg.step_mode, random_steps=cfg.random_steps))
+
             with torch.no_grad():
                 if cfg.sd is not None:
                     feat_se, low_level, sd_dict = model.attack_features(
@@ -164,11 +254,23 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
                 else:
                     feat_se, low_level = model.backbone_head(x, cfg.tap_se)
 
-            # the ascent differentiates w.r.t. the feature only, so the
+            # the ascents differentiate w.r.t. the feature only, so the
             # detached low_level is exact here
-            adv_se = attack(lambda f: site(model.forward_tail_logits(
-                f, low_level, cfg.tap_se))[0], feat_se, cfg.gamma_se,
-                generator)
+            def tail_site(tap):
+                return lambda f: site(model.forward_tail_logits(
+                    f, low_level, tap))[0]
+
+            adv_se = attack(tail_site(cfg.tap_se), feat_se, cfg.gamma_se,
+                            generator)
+
+            extra_advs = []
+            for tap, gamma in zip(cfg.extra_taps, cfg.extra_gammas):
+                with torch.no_grad():
+                    f_t = model.backbone_head(x, tap)[0]
+                a = attack(tail_site(tap), f_t, gamma, generator)
+                extra_advs.append((tap, mix_feature(f_t, a) if cfg.mix_all
+                                   else a))
+                del f_t
 
             adv_sd = None
             if cfg.sd is not None:
@@ -190,11 +292,19 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
                               for i in range(1, n_spec)]
 
         optimizer.zero_grad(set_to_none=True)
-        # The clean forward is the one that updates the running stats. Its
-        # low_level stays in the graph: the reference does not detach it,
-        # so the spectrum (and aspp SD) tails backprop into stem + layer1.
-        out, low_diff = model.backbone_head(x, 4)
-        parts = [model.classifier(out, low_diff)]
+        # The clean-term forward is the one that updates the running stats.
+        # The tails' low_level stays in the graph: the reference does not
+        # detach it, so the spectrum, extra-tap (and aspp SD) tails
+        # backprop into stem + layer1. It is the clean image's: without
+        # input_adv the clean-term forward's own, with it a stem + layer1
+        # forward of its own.
+        if cfg.input_adv:
+            parts = [model.forward_logits(x_l0)]
+            with frozen_bn_stats(model):
+                low_diff = model.low_level_feature(x)
+        else:
+            out, low_diff = model.backbone_head(x, 4)
+            parts = [model.classifier(out, low_diff)]
         with frozen_bn_stats(model):
             parts.append(torch.cat([
                 model.forward_tail_logits(f, low_diff, cfg.tap_se)
@@ -202,14 +312,16 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
             if cfg.sd is not None:
                 parts.append(model.sd_tail_logits(
                     {"low_level": low_diff}, cfg.sd, adv_sd))
+            parts += [model.forward_tail_logits(a, low_diff, tap)
+                      for tap, a in extra_advs]
         group = torch.cat([site(p) for p in parts])
 
         l0 = group[0]
         l_adv = group[1:n_spec].sum()
+        idx = n_spec + (cfg.sd is not None)
         l_sd = group[n_spec] if cfg.sd is not None else torch.zeros_like(l0)
-        loss = cfg.clean_weight * l0 + cfg.adv_weight * l_adv
-        if cfg.sd is not None:
-            loss = loss + cfg.adv_weight * l_sd
+        l_multi = group[idx:].sum()
+        loss = w_clean * l0 + w_adv * (l_adv + l_multi + l_sd)
         loss.backward()
         optimizer.step()
         scheduler.step()

@@ -10,9 +10,11 @@ the kernel timings of phase 10 (the upsample + CE kernels alone, no
 trainer); ``--only seg`` phases 1, 2 and
 7-10; ``--only det`` phases 1-6; ``--only cls`` phases 1, 2 and 11-14 (phase
 11 then lacks the segmentation ascents' shapes); ``--only dettrain`` phases
-1, 2 and 15-17; ``--only scan`` phases 1, 2 and 18-21. The kernels line
-then lists the kernels of the phases that ran; without phase 8 the upsample
-+ CE kernels have no launch count (null).
+1, 2 and 15-17; ``--only scan`` phases 1, 2 and 18-21; ``--only variants``
+phases 1, 2 and 22-26. The kernels line then lists the kernels of the
+phases that ran; without phase 8 the upsample + CE kernels have no launch
+count (null), and under ``--only variants`` only the PGD update has
+times.
 
 Phases (any failure exits non-zero):
   1. the device: name, power limit, TF32 settings;
@@ -121,23 +123,53 @@ Phases (any failure exits non-zero):
      batch timed; ``infer_classify --pgd`` on the best checkpoint of
      phase 18's whole-epoch run:
      robust accuracy at most the clean one, 3 PGD-update launches per
-     batch; the kernel, its plain version and bound at that shape.
+     batch; the kernel, its plain version and bound at that shape;
+ 22. train the segmentation variants at full width through
+     ``train_segment.main`` with phase 8's flags and ``--variant
+     advtrain``, ``sat`` and ``sat_multi --mix_all`` (input PGD, extra SE
+     taps 1, 2 and 4, the SAT and multi loss presets), 2 iterations and one
+     validation each: finite losses, a checkpoint, and the upsample + CE
+     and PGD-update launches of every step equal to what the step's config
+     implies (``seg_launches_per_step``);
+ 23. train the detection variants at full width through
+     ``train_detect.main`` with phase 15's flags and ``--variant
+     advtrain``, ``sat``, ``multi`` and ``single``, 2 steps and the final
+     mAP each: finite losses, the checkpoints, and the proposal-NMS and
+     PGD-update launches of every step as the config implies
+     (``det_launches_per_step``; ``advtrain`` samples in each of its 5
+     ascent forwards and its loss forward);
+ 24. one segmentation ``sat_multi --mix_all`` step and one detection
+     ``multi`` step with the kernels against the same step with the plain
+     upsample + CE, NMS and PGD update, from the same weights, batch and
+     seeded draws (cuDNN deterministic, no TF32): phase 9's and phase 16's
+     checks; the segmentation step's input ascent is held apart first (its
+     gradient within 1e-4), and its adversarial image is then shared by
+     both steps, since a sign step turns float differences at near-zero
+     gradient entries into whole steps on those pixels;
+ 25. the PGD-update shapes and clip modes that phases 22-24 record go to
+     phase 11's bit-for-bit cases (with ``--only variants``, which skips
+     phase 11, the same check runs here);
+ 26. time each variant step of phases 22 and 23 (median and p90 of 5
+     steps, peak memory), and the PGD-update kernel at the two input
+     shapes, clipped and unclipped, with its plain version and bound.
 
 The line before the last lists each kernel with its launches on its main
 paths, its largest disagreement with the plain version, its time, the plain
 version's time, its bound and the library's time (NMS: per batch-4 detect
 call plus per A-FAN detection step; PGD update: per ALFA step plus per A-FAN
-detection step plus per robust-eval batch). Launches are the wrappers'
-counts: a graph replay runs kernels that no wrapper call counts, so phase
+detection step plus per robust-eval batch); its launches include the variant
+runs of phases 22 and 23. Launches are the wrappers' counts: a graph replay runs kernels that no wrapper call counts, so phase
 18 prints the PGD-update kernels its replays ran (the profiled kernels per
-replay times the replays) beside the wrapper's count. The last line is the
-device summary.
+replay times the replays) beside the wrapper's count. Before the kernels
+line the script prints its total time; the last line is the device
+summary.
 """
 import argparse
 import asyncio
 import contextlib
 import copy
 import gc
+import inspect
 import itertools
 import json
 import os
@@ -163,7 +195,7 @@ from afan_torch.models.deeplab import build_model
 from afan_torch.models.deeplab.modeling import segmentation_param_groups
 from afan_torch.models.frcnn import FasterRCNN, FRCNNConfig, roi_head
 from afan_torch.models.frcnn.rpn import generate_proposals
-from afan_torch.models.resnet import FrozenBatchNorm
+from afan_torch.models.resnet import FrozenBatchNorm, frozen_bn_stats
 from afan_torch.models.resnet_s import LEARNABLE_TAPS, resnet56
 from afan_torch.ops import nms as tnms
 from afan_torch.ops import pgd_step as tpgd
@@ -840,16 +872,13 @@ def train_full_width():
                               kpgd.launches)
     secs = time.time() - t0
     cfg = configs[0]
-    sd = cfg.sd is not None
-    per_step = sites_per_step(cfg)
+    per_step, pgd_per_step = seg_launches_per_step(cfg)
     require(len(losses) == SEG_ITRS, f"{len(losses)} steps ran")
     require(all(np.isfinite(v) for rec in losses for v in rec.values()),
             f"non-finite loss in {losses}")
     require(fwd == bwd == SEG_ITRS * per_step,
             f"resize+CE launches fwd={fwd} bwd={bwd} in {SEG_ITRS} steps "
             f"(expected {per_step} each per step)")
-    # one PGD-update launch per sign step of each ascent (SE, and SD)
-    pgd_per_step = (1 + sd) * cfg.steps
     require(cfg.step_mode == "sign"
             and pgd_launches == len(updates) == SEG_ITRS * pgd_per_step,
             f"PGD-update launches {pgd_launches} ({len(updates)} updates) in "
@@ -880,12 +909,22 @@ def seg_recipe():
     return train_segment.afan_config(args)
 
 
-def sites_per_step(cfg):
-    """Upsample + CE launches, each way, per A-FAN step: one per PGD step
-    of each ascent (SE, and SD when set), and one per loss site (clean, the
-    stacked spectrum tails, and SD when set)."""
-    sd = cfg.sd is not None
-    return (1 + sd) * cfg.steps + (2 + sd)
+def seg_launches_per_step(cfg, advtrain_steps=None):
+    """(upsample + CE launches each way, PGD-update launches) per
+    segmentation step of ``cfg`` (an A-FAN family config; None for the
+    baseline; ``advtrain_steps`` for the input-adversarial step). A site
+    launches once per forward: one per PGD step of each ascent (the input
+    under ``input_adv``, SE, each extra tap, SD when set) and one per loss
+    site (clean, the stacked spectrum tails, SD, each extra tap); each sign
+    step launches one update."""
+    if advtrain_steps is not None:
+        return advtrain_steps + 1, advtrain_steps
+    if cfg is None:
+        return 1, 0
+    sd, extra = cfg.sd is not None, len(cfg.extra_taps)
+    updates = (cfg.input_adv * cfg.input_adv_steps
+               + (1 + sd + extra) * cfg.steps)
+    return updates + 2 + sd + extra, updates * (cfg.step_mode == "sign")
 
 
 def seg_batch(seed=0):
@@ -901,12 +940,18 @@ def seg_model_and_batch(seed=0):
     return (model.cuda(),) + seg_batch(seed)
 
 
-def seg_step(model, afan=True):
-    opt, sched = sgd(segmentation_param_groups(model),
-                     poly_schedule(0.1, 30000), 0.1, 0.9, 1e-4)
+def seg_optimizer(model):
+    return sgd(segmentation_param_groups(model), poly_schedule(0.1, 30000),
+               0.1, 0.9, 1e-4)
+
+
+def seg_step(model, afan=True, cfg=None):
+    """The recipe's A-FAN step (``cfg``: another A-FAN family config) or
+    the base step, with the recipe's optimizer."""
+    opt, sched = seg_optimizer(model)
     if afan:
         return segment_loop.make_afan_seg_step(model, opt, sched,
-                                               seg_recipe())
+                                               cfg or seg_recipe())
     return segment_loop.make_seg_base_step(model, opt, sched)
 
 
@@ -925,26 +970,62 @@ def deterministic():
          torch.backends.cudnn.allow_tf32) = flags
 
 
-def step_kernel_vs_plain(model, imgs, labs):
+def step_kernel_vs_plain(model, imgs, labs, cfg=None, updates=None,
+                         label="[9] A-FAN step with the kernels vs with the "
+                               "plain op"):
     """Phase 9: one A-FAN step with the kernels and one with the plain op
-    from the same weights, batch and dropout masks, in full f32."""
-    print("[9] A-FAN step with the kernels vs with the plain op")
+    from the same weights, batch and dropout masks, in full f32. With
+    ``updates`` (phase 24: ``cfg``, another A-FAN family config), the plain
+    step's PGD updates are the plain version too, and the kernel step's
+    (shape, clip) are appended to ``updates``.
+
+    With input-adversarial training (``cfg.input_adv``) the input ascent's
+    gradient is held to the plain one first, and the plain step then takes
+    the kernel step's adversarial image: a sign step turns the kernels'
+    float differences at gradient entries near zero into whole steps of
+    gamma on those pixels (:func:`input_grad_kernel_vs_plain`)."""
+    print(label)
+    pin = cfg is not None and cfg.input_adv
+    if pin:
+        input_grad_kernel_vs_plain(model, imgs, labs)
     state = copy.deepcopy(model.state_dict())
+    kernel_update = (tpgd.pgd_update if updates is None
+                     else recording_update(updates))
+    plain_update = (tpgd.pgd_update if updates is None
+                    else tpgd.pgd_update_plain)
+    real_input_pgd, adv_images = segment_loop.input_pgd, []
+
+    def recording_input_pgd(*a, **kw):
+        adv_images.append(real_input_pgd(*a, **kw))
+        return adv_images[-1]
+
+    def pinned_input_pgd(*a, **kw):
+        # the plain ascent runs all the same, so that both steps draw the
+        # same dropout masks after it
+        real_input_pgd(*a, **kw)
+        return adv_images[0]
+
     runs = []
     try:
         with deterministic():
-            for op in (trce.fused_resize_nll_sums,
-                       trce.fused_resize_nll_sums_plain):
+            for op, update, input_pgd in (
+                    (trce.fused_resize_nll_sums, kernel_update,
+                     recording_input_pgd if pin else real_input_pgd),
+                    (trce.fused_resize_nll_sums_plain, plain_update,
+                     pinned_input_pgd if pin else real_input_pgd)):
                 model.load_state_dict(state)
-                step = seg_step(model)
+                step = seg_step(model, cfg=cfg)
                 torch.manual_seed(0)
-                with patched_site_op(op):
-                    out = step(imgs, labs)
+                segment_loop.input_pgd = input_pgd
+                with patched_site_op(op), patched_update(update):
+                    out = step(imgs, labs,
+                               torch.Generator("cuda").manual_seed(0))
                 conv = model.classifier.classifier[3]
                 runs.append(({k: float(v) for k, v in out.items()},
                              conv.weight.grad.clone(), conv.bias.grad.clone()))
             torch.cuda.synchronize()
     finally:
+        segment_loop.input_pgd = real_input_pgd
         model.load_state_dict(state)
     (lk, wk, bk), (lp, wp, bp) = runs
     loss_err = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lk)
@@ -956,6 +1037,35 @@ def step_kernel_vs_plain(model, imgs, labs):
           f"{rel_err(bk, bp):.3e})")
     require(loss_err <= 1e-4, f"step losses differ by {loss_err}")
     require(grad_err <= 1e-4, f"logits-conv gradients differ by {grad_err}")
+
+
+def input_grad_kernel_vs_plain(model, imgs, labs):
+    """Phase 24, the input ascent: the gradient of the clean loss with
+    respect to the image through the upsample + CE kernels and through the
+    plain version, on the same image and dropout masks (train-mode
+    BatchNorm, running statistics untouched): within 1e-4 (max abs error
+    over max abs value); the entries whose sign differs are counted."""
+    size = tuple(labs.shape[1:])
+    npix = (labs != 255).sum().clamp_min(1)
+    grads = []
+    with deterministic(), frozen_bn_stats(model):
+        model.train()
+        for op in (trce.fused_resize_nll_sums,
+                   trce.fused_resize_nll_sums_plain):
+            torch.manual_seed(0)
+            x = imgs.clone().requires_grad_(True)
+            lo = model.forward_logits(x.permute(0, 3, 1, 2))
+            (g,) = torch.autograd.grad(op(lo, labs, size).sum() / npix, x)
+            grads.append(g)
+        torch.cuda.synchronize()
+    gk, gp = grads
+    err = rel_err(gk, gp)
+    flips = int((torch.sign(gk) != torch.sign(gp)).sum())
+    print(f"    input gradient {tuple(gk.shape)}, kernels vs plain: rel err "
+          f"{err:.3e}; sign differs at {flips} of {gk.numel()} entries (a "
+          f"sign step moves those pixels by 2 gamma), so the plain step "
+          f"below takes the kernel step's adversarial image")
+    require(err <= 1e-4, f"input gradients differ by {err}")
 
 
 def ce_parts(lo, lab, g):
@@ -1153,7 +1263,8 @@ def segmentation_phases(card, kernels_only=False):
     (shape, clip) of the PGD updates of the segmentation trainer."""
     errs = {"fwd": [], "bwd": []}
     ce_kernels_vs_plain(errs)
-    per_step, launches, updates = sites_per_step(seg_recipe()), None, []
+    per_step, launches, updates = (seg_launches_per_step(seg_recipe())[0],
+                                   None, [])
     if kernels_only:
         print(f"[10] upsample + CE kernel timing on {card} (no trainer)")
         _, labs = seg_batch()
@@ -1219,7 +1330,8 @@ def pgd_case(name, x, g, c, clip, errs, gamma=ALFA_GAMMA, eps=ALFA_EPS):
 
 
 def pgd_kernel_vs_plain(seg_updates, errs):
-    """Phase 11."""
+    """Phase 11; ``seg_updates`` holds the (shape, clip) that the
+    segmentation trainer and the variant paths recorded."""
     print("[11] PGD-update kernel vs plain version")
     special = torch.tensor(SPECIAL + (2.0, -3.0), device="cuda")
     print(f"    torch.sign on the card of {special.tolist()}: "
@@ -1233,12 +1345,13 @@ def pgd_kernel_vs_plain(seg_updates, errs):
     del model, feats
     # the sizes of tests/test_kernels.py:9-31, odd counts (a float4 pass
     # and a scalar tail; fewer than 4 elements), the ALFA and learnable taps
-    # and the segmentation trainer's ascents
+    # and the segmentation trainer's and the variant paths' ascents
     cases = [((128,), False), ((4, 33, 7), False), ((2, 16, 16, 16), False),
              ((3, 50), True), ((1001,), False), ((1001,), True),
              ((3,), True), ((2_097_153,), True)]
     cases += [(s, clip) for s in cls_shapes for clip in (False, True)]
-    cases += [(s, clip) for s, _ in seg_updates for clip in (False, True)]
+    cases += [(s, clip) for s in sorted({s for s, _ in seg_updates})
+              for clip in (False, True)]
     for i, (shape, clip) in enumerate(cases):
         pgd_case(f"case {i}", *pgd_inputs(shape, i), clip, errs)
     x, g, c = pgd_inputs((4097,), 99)
@@ -1253,8 +1366,8 @@ def pgd_kernel_vs_plain(seg_updates, errs):
         pgd_case("special x and centre", x, g, c, clip, errs)
         pgd_case("gamma 0.3 eps 0.2", x, g, c, clip, errs, 0.3, 0.2)
     print(f"    {len(errs)} cases bit-equal; classification tap shapes "
-          f"{cls_shapes}; segmentation ascent shapes "
-          f"{[s for s, _ in seg_updates] or 'not run'}")
+          f"{cls_shapes}; segmentation and variant ascent shapes "
+          f"{sorted({s for s, _ in seg_updates}) or 'not run'}")
 
 
 def run_classify_cli(mode, flags, batches, tag):
@@ -1575,10 +1688,28 @@ DET_FLAGS = ["--variant", "afan", "-s", "voc2007", "-b", "resnet50",
              "--sd_adv_loss_weight", "0.3", "--only_roi_sd"]
 DET_OUT = os.path.join("checkpoints", "chip_smoke_detect")
 DET_BACKBONE = os.path.join(DET_OUT, "resnet50_calibrated.pth")
-# proposal NMS and PGD-update launches per step with share_proposals
-DET_NMS_PER_STEP = {"afan": 2, "baseline": 1}
-DET_PGD_PER_STEP = {"afan": 2, "baseline": 0}
 DET_EVAL_IMAGES = 16
+
+
+def det_launches_per_step(cfg, advtrain_steps=None):
+    """(proposal NMS, PGD-update) launches per detection step of ``cfg`` (an
+    A-FAN family config; None for the baseline; ``advtrain_steps`` for the
+    input-adversarial step). NMS runs once per forward that samples: with
+    ``share_proposals`` the shared sample and the SD pass; without it every
+    ascent step, the SD pass, the clean forward and each tail. Each sign
+    step launches one update: the input ascent's under ``input_adv``, each
+    tap's and SD's."""
+    if advtrain_steps is not None:
+        return advtrain_steps + 1, advtrain_steps
+    if cfg is None:
+        return 1, 0
+    sd, taps = cfg.sd is not None, len(cfg.taps_se)
+    inp = cfg.input_adv * cfg.input_adv_steps
+    ascents = inp + (taps + sd) * cfg.steps
+    tails = (cfg.spectrum - 1 if taps else 0) + max(taps - 1, 0)
+    nms = 1 + sd if cfg.share_proposals else ascents - sd * cfg.steps + (
+        sd + 1 + tails)
+    return nms, ascents * (cfg.step_mode == "sign")
 
 
 def det_recipe():
@@ -1615,21 +1746,37 @@ def calibrated_backbone(seed=0):
     return DET_BACKBONE
 
 
-def run_detect_cli(variant, steps, tag, extra=()):
-    """One run of the detection CLI at full width with the recipe's flags,
-    until step ``steps``, and its final mAP. Returns (per-step (NMS,
-    PGD-update) launches, losses, NMS launches of the final eval, mAP,
-    output directory)."""
+DET_FACTORIES = {"baseline": "make_baseline_det_step",
+                 "advtrain": "make_advtrain_det_step"}
+
+
+def det_expected(factory, a, kw):
+    """(NMS, PGD-update) launches per step of the step that
+    ``train_detect.<factory>(*a, **kw)`` builds."""
+    if factory == "make_afan_det_step":
+        return det_launches_per_step(a[3])
+    if factory == "make_advtrain_det_step":
+        return det_launches_per_step(None, kw.get("steps", inspect.signature(
+            detect_loop.make_advtrain_det_step).parameters["steps"].default))
+    return det_launches_per_step(None)
+
+
+def run_detect_cli(variant, steps, tag, extra=(), updates=None):
+    """One run of the detection CLI at full width with the recipe's flags
+    and ``--variant variant``, until step ``steps``, and its final mAP; with
+    ``updates``, the (shape, clip) of each PGD update is appended to it.
+    Returns (per-step (NMS, PGD-update) launches, losses, NMS launches of
+    the final eval, mAP, output directory)."""
     out = os.path.join(DET_OUT, tag)
     if not extra:
         shutil.rmtree(out, ignore_errors=True)
-    per_step, losses = [], []
-    factory = ("make_afan_det_step" if variant == "afan"
-               else "make_baseline_det_step")
+    per_step, losses, expected = [], [], []
+    factory = DET_FACTORIES.get(variant, "make_afan_det_step")
     real = getattr(train_detect, factory)
 
     def recording(*a, **kw):
         step = real(*a, **kw)
+        expected.append(det_expected(factory, a, kw))
 
         def run(*args):
             before = (knms.launches, kpgd.launches)
@@ -1644,14 +1791,16 @@ def run_detect_cli(variant, steps, tag, extra=()):
     knms.launches = kpgd.launches = 0
     t0 = time.time()
     try:
-        mean_ap = train_detect.main(
-            DET_FLAGS + ["--variant", variant, "-o", out, "--data_dir",
-                         os.path.join(ROOT, "no_voc_here"),
-                         "--num_steps_to_finish", str(steps),
-                         "--num_steps_to_snapshot", str(steps),
-                         "--num_steps_to_display", "1",
-                         "--pretrained_backbone", DET_BACKBONE]
-            + list(extra))
+        with (patched_update(recording_update(updates)) if updates is not None
+              else contextlib.nullcontext()):
+            mean_ap = train_detect.main(
+                DET_FLAGS + ["--variant", variant, "-o", out, "--data_dir",
+                             os.path.join(ROOT, "no_voc_here"),
+                             "--num_steps_to_finish", str(steps),
+                             "--num_steps_to_snapshot", str(steps),
+                             "--num_steps_to_display", "1",
+                             "--pretrained_backbone", DET_BACKBONE]
+                + list(extra))
         torch.cuda.synchronize()
     finally:
         setattr(train_detect, factory, real)
@@ -1659,9 +1808,9 @@ def run_detect_cli(variant, steps, tag, extra=()):
     eval_nms = knms.launches - sum(n for n, _ in per_step)
     require(all(np.isfinite(v) for rec in losses for v in rec.values()),
             f"{tag}: non-finite loss in {losses}")
-    require(per_step == [(DET_NMS_PER_STEP[variant],
-                          DET_PGD_PER_STEP[variant])] * len(per_step),
-            f"{tag}: (NMS, PGD-update) launches per step {per_step}")
+    require(per_step == expected * len(per_step),
+            f"{tag}: (NMS, PGD-update) launches per step {per_step}, "
+            f"expected {expected}")
     require(eval_nms == 2 * DET_EVAL_IMAGES,
             f"{tag}: {eval_nms} NMS launches in the final eval (expected 2 "
             f"per image)")
@@ -1725,13 +1874,15 @@ def det_model(seed=0, backbone=DET_BACKBONE):
     return model.cuda()
 
 
-def det_step(model, afan=True):
+def det_step(model, afan=True, cfg=None):
+    """The recipe's A-FAN step (``cfg``: another A-FAN family config) or
+    the baseline step, with the recipe's optimizer."""
     opt, sched = sgd(detect_loop.detection_param_groups(model),
                      warmup_multistep_schedule(0.008, [6250, 8750]), 0.008,
                      0.9, 5e-4)
     if afan:
         return detect_loop.make_afan_det_step(model, opt, sched,
-                                              det_recipe())
+                                              cfg or det_recipe())
     return detect_loop.make_baseline_det_step(model, opt, sched)
 
 
@@ -1746,13 +1897,15 @@ def recording_nms(fn, calls):
     return run
 
 
-def det_step_kernel_vs_plain(model, batch):
-    """Phase 16: one A-FAN step with the NMS and PGD-update kernels and one
-    with their plain versions, from the same weights and batch and the same
-    seeded generator (so the same draws), in full f32. Returns the recorded
-    NMS calls of the kernel step and the PGD updates' inputs."""
-    print("[16] A-FAN detection step with the kernels vs with the plain "
-          "NMS and PGD update")
+def det_step_kernel_vs_plain(model, batch, cfg=None, label="[16] A-FAN"):
+    """Phase 16: one A-FAN step (``cfg``: another A-FAN family config) with
+    the NMS and PGD-update kernels and one with their plain versions, from
+    the same weights and batch and the same seeded generator (so the same
+    draws), in full f32. Returns the recorded NMS calls of the kernel step
+    and the PGD updates' inputs."""
+    cfg = cfg or det_recipe()
+    print(f"{label} detection step with the kernels vs with the plain "
+          f"NMS and PGD update")
     state = copy.deepcopy(model.state_dict())
     runs, updates = [], []
 
@@ -1768,7 +1921,7 @@ def det_step_kernel_vs_plain(model, batch):
                                    (tnms.nms_sorted_mask_plain,
                                     tpgd.pgd_update_plain)):
                 model.load_state_dict(state)
-                step = det_step(model)
+                step = det_step(model, cfg=cfg)
                 calls = []
                 with patched_nms(recording_nms(nms_fn, calls)), \
                         patched_update(update_recorder(update)):
@@ -1782,7 +1935,9 @@ def det_step_kernel_vs_plain(model, batch):
     finally:
         model.load_state_dict(state)
     (lk, ck, pk), (lp, cp, pp) = runs
-    require(len(ck) == len(cp) == 2, f"{len(ck)}, {len(cp)} NMS calls")
+    n_nms = det_launches_per_step(cfg)[0]
+    require(len(ck) == len(cp) == n_nms,
+            f"{len(ck)}, {len(cp)} NMS calls (expected {n_nms})")
     for (bk, vk, _, _, kk), (bp, vp, _, _, kp) in zip(ck, cp):
         require(torch.equal(bk, bp) and torch.equal(vk, vp),
                 "the NMS inputs differ between the kernel and plain steps")
@@ -1868,7 +2023,7 @@ def time_det_kernels(card, nms_calls, updates, afan_ms):
             "the step's two proposal NMS took different proposals")
     k, p, b, o = time_nms_shape(card, "training proposals", boxes, valid,
                                 thr, plus_one)
-    n = DET_NMS_PER_STEP["afan"]
+    n = det_launches_per_step(det_recipe())[0]
     print(f"    nms per A-FAN step ({n} launches): kernel {n * k:.4f} ms = "
           f"{100 * n * k / afan_ms:.3f}% of the step, plain {n * p:.3f} ms, "
           f"bound {n * max(b, o):.6f} ms ({card})")
@@ -1925,6 +2080,252 @@ def detection_training_phases(card):
          "replaces": "afan/ops/kernels/pgd_step.py:40",
          "launches": pgd_launches, "max_abs_err": max(pgd_err), **pgd,
          "library_ms": None})
+
+
+# The variants of both trainers (phases 22-26) at the recipes' width: the
+# flags of SEG_FLAGS and DET_FLAGS with another --variant, two steps a run.
+SEG_VARIANT_RUNS = (("advtrain", ()), ("sat", ()),
+                    ("sat_multi", ("--mix_all",)))
+DET_VARIANT_RUNS = ("advtrain", "sat", "multi", "single")
+VARIANT_STEPS = 2
+
+
+def seg_variant_args(variant, extra=()):
+    return train_segment.get_parser().parse_args(
+        SEG_FLAGS + ["--variant", variant] + list(extra))
+
+
+def seg_expected(args):
+    """(upsample + CE launches each way, PGD-update launches) per step of
+    the step that ``train_segment.build_step`` builds for ``args``."""
+    if args.variant == "advtrain":
+        return seg_launches_per_step(None, args.steps)
+    if args.variant == "baseline":
+        return seg_launches_per_step(None)
+    return seg_launches_per_step(train_segment.afan_config(args))
+
+
+def run_segment_cli(variant, extra, updates):
+    """Phase 22, one run: ``train_segment.main`` with the recipe's flags
+    and ``--variant variant``, ``VARIANT_STEPS`` iterations and one
+    validation; the (shape, clip) of each PGD update is appended to
+    ``updates``. Returns the run's (forward, backward, PGD-update)
+    launches."""
+    tag = f"chip_variant_{variant}"
+    for d in os.listdir("checkpoints") if os.path.isdir("checkpoints") else ():
+        if d.startswith(f"synthetic_{tag}_"):
+            shutil.rmtree(os.path.join("checkpoints", d))
+    per_step, losses, expected = [], [], []
+    real = train_segment.build_step
+
+    def recording(args, *a):
+        step = real(args, *a)
+        expected.append(seg_expected(args))
+
+        def run(images, labels, generator=None):
+            before = (krce.fwd_launches, krce.bwd_launches, kpgd.launches)
+            out = step(images, labels, generator)
+            per_step.append((krce.fwd_launches - before[0],
+                             krce.bwd_launches - before[1],
+                             kpgd.launches - before[2]))
+            losses.append({k: float(v) for k, v in out.items()})
+            return out
+        return run
+
+    train_segment.build_step = recording
+    t0 = time.time()
+    try:
+        with patched_update(recording_update(updates)):
+            score = train_segment.main(
+                SEG_FLAGS + ["--variant", variant] + list(extra)
+                + ["--limit_itrs", str(VARIANT_STEPS), "--val_interval",
+                   str(VARIANT_STEPS), "--print_interval", "1", "--exp", tag])
+        torch.cuda.synchronize()
+    finally:
+        train_segment.build_step = real
+    secs = time.time() - t0
+    name = " ".join([variant] + list(extra))
+    (sites, pgd), = expected
+    require(len(losses) == VARIANT_STEPS, f"{name}: {len(losses)} steps ran")
+    require(all(np.isfinite(v) for rec in losses for v in rec.values()),
+            f"{name}: non-finite loss in {losses}")
+    require(per_step == [(sites, sites, pgd)] * VARIANT_STEPS,
+            f"{name}: (forward, backward, PGD-update) launches per step "
+            f"{per_step}, expected {(sites, sites, pgd)}")
+    dirs = [d for d in os.listdir("checkpoints")
+            if d.startswith(f"synthetic_{tag}_")]
+    path = os.path.join("checkpoints", dirs[0] if dirs else "",
+                        f"latest_{SEG_MODEL}_synthetic.pt")
+    require(len(dirs) == 1 and os.path.isfile(path),
+            f"{name}: no checkpoint written")
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    require(saved["cur_itrs"] == VARIANT_STEPS
+            and all(bool(torch.isfinite(v).all())
+                    for v in saved["model_state"].values()
+                    if v.is_floating_point()),
+            f"{name}: the checkpoint is not the finished run's")
+    print(f"    {name}: {VARIANT_STEPS} steps + 1 validation in {secs:.1f} s; "
+          f"losses {[round(r['loss'], 4) for r in losses]}; mIoU "
+          f"{score:.4f}; per step: upsample + CE {sites} forward and "
+          f"{sites} backward launches, PGD-update {pgd}, as expected; "
+          f"checkpoint {path}")
+    return tuple(int(sum(c)) for c in zip(*per_step))
+
+
+def variant_step(trainer, model, variant, extra=()):
+    """The train step that the ``trainer`` CLI (``"seg"`` or ``"det"``)
+    builds for ``--variant variant`` with the recipe's flags, with the
+    recipe's optimizer."""
+    if trainer == "seg":
+        return train_segment.build_step(seg_variant_args(variant, extra),
+                                        model, *seg_optimizer(model))
+    args = train_detect.get_parser().parse_args(
+        DET_FLAGS + ["--variant", variant])
+    opt, sched = sgd(detect_loop.detection_param_groups(model),
+                     warmup_multistep_schedule(0.008, [6250, 8750]), 0.008,
+                     0.9, 5e-4)
+    if variant == "advtrain":
+        return detect_loop.make_advtrain_det_step(model, opt, sched)
+    return detect_loop.make_afan_det_step(model, opt, sched,
+                                          train_detect.afan_config_for(args))
+
+
+def time_variant_steps(card, trainer, model, inputs, runs):
+    """Phase 26, the steps: each variant step's device time (median and p90
+    of 5 steps after 2) and peak memory."""
+    gen = torch.Generator("cuda").manual_seed(2)
+    for variant, extra in runs:
+        step = variant_step(trainer, model, variant, extra)
+        t = cuda_samples(lambda: step(*inputs, gen), 5, warmup=2)
+        torch.cuda.reset_peak_memory_stats()
+        step(*inputs, gen)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bsz = inputs[0].shape[0]
+        print(f"    {trainer} {' '.join((variant,) + tuple(extra))} step, "
+              f"batch {bsz}, {tuple(inputs[0].shape[1:3])}: median "
+              f"{np.median(t):.3f} ms, p90 {np.percentile(t, 90):.3f} ms over "
+              f"{len(t)} steps, {bsz * 1e3 / np.median(t):.2f} imgs/s, peak "
+              f"memory {peak:.2f} GiB ({card})")
+
+
+def variant_phases(card, own_pgd_check):
+    """Phases 22-26. The PGD-update shapes that the variant paths record go
+    to phase 11's bit-for-bit cases; with ``own_pgd_check`` (phase 11 does
+    not run) phase 25 holds the kernel to its plain version on them here.
+    Returns the launches of the variant runs per kernel of the kernels
+    line, the recorded (shape, clip) and the PGD update's times at the
+    segmentation input shape."""
+    print("[22] train the segmentation variants at full width: "
+          + ", ".join(" ".join((v,) + e) for v, e in SEG_VARIANT_RUNS))
+    updates = []
+    fwd = bwd = pgd = 0
+    for variant, extra in SEG_VARIANT_RUNS:
+        f, b, p = run_segment_cli(variant, extra, updates)
+        fwd, bwd, pgd = fwd + f, bwd + b, pgd + p
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[23] train the detection variants at full width: "
+          f"{', '.join(DET_VARIANT_RUNS)}")
+    calibrated_backbone()
+    nms = 0
+    for variant in DET_VARIANT_RUNS:
+        per_step, _, eval_nms, _, _ = run_detect_cli(
+            variant, VARIANT_STEPS, f"variant_{variant}", updates=updates)
+        nms += sum(n for n, _ in per_step) + eval_nms
+        pgd += sum(p for _, p in per_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, imgs, labs = seg_model_and_batch()
+    cfg = train_segment.afan_config(seg_variant_args("sat_multi",
+                                                     ["--mix_all"]))
+    step_kernel_vs_plain(
+        model, imgs, labs, cfg, updates,
+        "[24] segmentation sat_multi --mix_all step with the kernels vs "
+        "with the plain upsample + CE and PGD update")
+    print(f"[26] timing on {card}: the segmentation variants")
+    time_variant_steps(card, "seg", model, (imgs, labs), SEG_VARIANT_RUNS)
+    del model, imgs, labs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, batch = det_model(), det_batch()
+    args = train_detect.get_parser().parse_args(
+        DET_FLAGS + ["--variant", "multi"])
+    nms_calls, det_updates = det_step_kernel_vs_plain(
+        model, batch, train_detect.afan_config_for(args), "[24] multi")
+    nms_err = [0.0]
+    for boxes, valid, thr, plus_one, _ in nms_calls:
+        kernel_vs_plain("multi step proposals", boxes, valid, thr, plus_one,
+                        nms_err)
+    updates += [(tuple(x.shape), clip) for x, _ in det_updates
+                for clip in (False, True)]
+    print(f"[26] timing on {card}: the detection variants")
+    time_variant_steps(card, "det", model, batch,
+                       [(v, ()) for v in DET_VARIANT_RUNS])
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    shapes = sorted(set(updates))
+    print(f"    PGD-update (shape, clip) on the variant paths: {shapes}")
+    pgd_err = [0.0]
+    if own_pgd_check:
+        print("[25] PGD-update kernel vs plain version at the variant paths' "
+              "shapes")
+        for i, shape in enumerate(sorted({s for s, _ in shapes})):
+            for clip in (False, True):
+                pgd_case(f"variant shape {i}", *pgd_inputs(shape, 300 + i),
+                         clip, pgd_err)
+    print(f"[26] PGD-update kernel at the input shapes ({card})")
+    seg_input = (SEG_BATCH, SEG_CROP, SEG_CROP, 3)
+    det_input = next(s for s, _ in shapes if len(s) == 4 and s[-1] == 3
+                     and s[0] == DET_BATCH)
+    times = time_pgd_update(card, seg_input)
+    time_pgd_update(card, det_input)
+    k_ms, p_ms, byte_ms, op_ms = times[True]
+    return {"launches": {"nms": (nms, max(nms_err)),
+                         "resize_ce_forward": (fwd, None),
+                         "resize_ce_backward": (bwd, None),
+                         "pgd_update": (pgd, max(pgd_err))},
+            "updates": shapes,
+            "pgd_times": {"ms": k_ms, "plain_ms": p_ms,
+                          "bound_ms": max(byte_ms, op_ms),
+                          "bound_by": ("bytes" if byte_ms >= op_ms
+                                       else "operations")}}
+
+
+KERNEL_SOURCES = {
+    "nms": ("afan_torch/csrc/nms.cu", "afan/ops/kernels/nms_kernel.py:65"),
+    "resize_ce_forward": ("afan_torch/csrc/resize_ce.cu",
+                          "afan/ops/kernels/resize_ce_kernel.py:92"),
+    "resize_ce_backward": ("afan_torch/csrc/resize_ce.cu",
+                           "afan/ops/kernels/resize_ce_kernel.py:127"),
+    "pgd_update": ("afan_torch/csrc/pgd_step.cu",
+                   "afan/ops/kernels/pgd_step.py:40"),
+}
+
+
+def merge_variant_launches(entries, variant):
+    """Add the variant runs' launches (and the largest errors they
+    measured) to the kernels' entries; with no entry for a kernel (``--only
+    variants``) add one with what phases 22-26 measured."""
+    for name, (launches, err) in variant["launches"].items():
+        entry = next((e for e in entries if e["name"] == name), None)
+        if entry is None:
+            source, replaces = KERNEL_SOURCES[name]
+            times = (variant["pgd_times"] if name == "pgd_update" else
+                     dict(ms=None, plain_ms=None, bound_ms=None,
+                          bound_by=None))
+            entries.append({"name": name, "route": "cuda", "source": source,
+                            "replaces": replaces, "launches": launches,
+                            "max_abs_err": err, **times,
+                            "library_ms": None})
+            continue
+        entry["launches"] = (entry["launches"] or 0) + launches
+        if err is not None:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
 
 
 # --epoch_scan at full width: 24 steps per epoch (the CLI's --limit_batches)
@@ -2309,7 +2710,7 @@ def merge_entry(entries, extra):
     entries.append(extra)
 
 
-GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain", "scan")
+GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain", "scan", "variants")
 
 
 def main(argv=None):
@@ -2318,6 +2719,7 @@ def main(argv=None):
                         help="run only this group's phases (see above)")
     args = parser.parse_args(argv)
     only = args.only
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -2347,7 +2749,7 @@ def main(argv=None):
           f" (one nvcc each, together {time.time() - t0:.1f} s) into "
           f"{os.path.relpath(kbuild.BUILD_DIR, ROOT)}")
 
-    entries, seg_updates = [], []
+    entries, seg_updates, variant = [], [], None
     if only in (None, "det", "nms"):
         entries.append(detection_phases(card, only == "nms"))
         gc.collect()
@@ -2357,8 +2759,13 @@ def main(argv=None):
         entries += seg_entries
         gc.collect()
         torch.cuda.empty_cache()
+    if only in (None, "variants"):
+        variant = variant_phases(card, own_pgd_check=only == "variants")
+        gc.collect()
+        torch.cuda.empty_cache()
     if only in (None, "cls"):
-        entries.append(classification_phases(card, seg_updates))
+        entries.append(classification_phases(
+            card, seg_updates + (variant["updates"] if variant else [])))
         gc.collect()
         torch.cuda.empty_cache()
     if only in (None, "dettrain"):
@@ -2368,7 +2775,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if only in (None, "scan"):
         merge_entry(entries, epoch_scan_phases(card))
+    if variant:
+        merge_variant_launches(entries, variant)
 
+    print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

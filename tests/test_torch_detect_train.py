@@ -515,14 +515,10 @@ def test_unported_step_options_raise():
     tm = FasterRCNN(FRCNNConfig(**TINY))
     opt, sched = sgd(detect_loop.detection_param_groups(tm), lambda c: LR,
                      LR)
-    for kw in (dict(input_adv=True), dict(sd="rpn"),
-               dict(weight_mode="sat_preset"), dict(weight_mode="single"),
-               dict(remat_tails=True)):
+    for kw in (dict(sd="rpn"), dict(remat_tails=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             detect_loop.make_afan_det_step(
                 tm, opt, sched, detect_loop.DetAfanConfig(**kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        detect_loop.make_advtrain_det_step(tm, opt, sched)
 
 
 # ---------- schedule, data, mAP ----------
@@ -699,7 +695,9 @@ def test_cli_takes_the_recipe_flags():
         train_detect.main(flags + ["--device", "cpu"])
 
 
-@pytest.mark.parametrize("variant", ["advtrain", "sat", "multi", "single"])
-def test_cli_refuses_unported_variants(variant):
+@pytest.mark.parametrize("flags", [["--bf16"], ["--pertub_idx_sd", "rpn"]],
+                         ids=["bf16", "sd_rpn"])
+def test_cli_refuses_unported_flags(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_detect.main(["--variant", variant, "--device", "cpu"])
+        train_detect.main(["--device", "cpu", "-o", str(tmp_path)] + flags
+                          + smoke_tiny_flags())
