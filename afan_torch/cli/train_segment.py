@@ -8,24 +8,30 @@ adversarial loss alone), ``afan`` (`main_aug_final.py`), and the
 term) or without (``*_clean``) input-adversarial training
 (`main_aug_{sat,muti,sat_muti}_{advt,clean}.py`).
 
-Canonical run: the Cityscapes "final" recipe — DeepLabv3+ ResNet-50 at
-output stride 16, crop 768, batch 4, poly lr 0.1, SE tap 2, SD tap concat,
-gamma_se 0.02/255, gamma_sd 1.5/255, AFN on the spectrum's adversarial point
-(``--mix_layer 01``), ``--mix_sd``, spectrum 3, one PGD step
-(`sh/city/clean50/091_city_final01.sh`, ``recipes/seg_city_final.sh`` without
-its ``--bf16``)::
+The three segmentation recipes run as written, with ``afan_torch`` for
+``afan``: the Cityscapes "final" recipe — DeepLabv3+ ResNet-50 at output
+stride 16, crop 768, batch 4, poly lr 0.1, SE tap 2, SD tap concat, gamma_se
+0.02/255, gamma_sd 1.5/255, AFN on the spectrum's adversarial point
+(``--mix_layer 01``), ``--mix_sd``, spectrum 3, one PGD step, bfloat16
+compute (`sh/city/clean50/091_city_final01.sh`,
+``recipes/seg_city_final.sh``)::
 
     python -m afan_torch.cli.train_segment --variant afan \\
         --dataset cityscapes --model deeplabv3plus_resnet50 \\
         --crop_size 768 --batch_size 4 --lr 0.1 --pertub_idx_se 2 \\
         --pertub_idx_sd concat --adv_loss_weight_sd 0.3 --gamma_se 0.02 \\
-        --gamma_sd 1.5 --mix_layer 01 --mix_sd
+        --gamma_sd 1.5 --mix_layer 01 --mix_sd --bf16
 
-Data is ``afan``'s deterministic synthetic Cityscapes stand-in (reading the
-datasets from disk is not ported yet); weights start from a seeded random
-init. The loop validates with mIoU every ``--val_interval`` iterations and at
-the end, and writes ``latest_*.pt`` / ``best_*.pt`` under
-``checkpoints/<exp>/``.
+and the VOC recipes ``recipes/seg_voc07_final1.sh`` and
+``seg_voc12_final50.sh`` (``--dataset voc``, the default: 21 classes, crop
+513). ``--bf16`` makes bfloat16 the models' compute dtype
+(:mod:`afan_torch.models.resnet`); the parameters stay float32.
+
+Data is ``afan``'s deterministic synthetic VOC or Cityscapes stand-in
+(``--dataset synthetic`` is VOC's, as in ``afan``; reading the datasets from
+disk is not ported yet); weights start from a seeded random init. The
+loop validates with mIoU every ``--val_interval`` iterations and at the
+end, and writes ``latest_*.pt`` / ``best_*.pt`` under ``checkpoints/<exp>/``.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from ..data.seg_data import cityscapes_loaders
+from ..data.seg_data import cityscapes_loaders, voc_seg_loaders
 from ..eval.seg_miou import StreamSegMetrics
 from ..models.deeplab import build_model
 from ..models.deeplab.modeling import segmentation_param_groups
@@ -58,10 +64,10 @@ def get_parser():
         description="A-FAN segmentation training (PyTorch, CUDA)")
     p.add_argument("--variant", choices=VARIANTS, default="afan")
     p.add_argument("--data_root", type=str, default="./datasets/data")
-    p.add_argument("--dataset", choices=["cityscapes", "synthetic"],
-                   default="cityscapes",
-                   help="synthetic: the synthetic Cityscapes samples "
-                        "without looking at --data_root")
+    p.add_argument("--dataset", choices=["voc", "cityscapes", "synthetic"],
+                   default="voc",
+                   help="synthetic reads VOC like voc: with no VOC under "
+                        "--data_root, the synthetic VOC samples")
     p.add_argument("--model", type=str, default="deeplabv3plus_resnet50")
     p.add_argument("--output_stride", type=int, default=16, choices=[8, 16])
     p.add_argument("--total_itrs", type=int, default=30000)
@@ -74,7 +80,7 @@ def get_parser():
                    help="--lr_policy step: lr x0.1 every this many "
                         "iterations")
     p.add_argument("--batch_size", type=int, default=16)
-    p.add_argument("--crop_size", type=int, default=768)
+    p.add_argument("--crop_size", type=int, default=513)
     p.add_argument("--weight_decay", type=float, default=1e-4)
     p.add_argument("--loss_type", choices=["cross_entropy", "focal_loss"],
                    default="cross_entropy")
@@ -84,6 +90,17 @@ def get_parser():
     p.add_argument("--continue_training", action="store_true")
     p.add_argument("--exp", type=str, default="afan")
     p.add_argument("--random_seed", type=int, default=1)
+    p.add_argument("--num_classes", type=int, default=None,
+                   help="override the dataset's class count")
+    p.add_argument("--year", type=str, default="2012",
+                   choices=["2012_aug", "2012", "2011", "2009", "2008",
+                            "2007"])
+    p.add_argument("--crop_val", action="store_true",
+                   help="resize + centre-crop val images to crop_size")
+    p.add_argument("--val_batch_size", type=int, default=1)
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute in the model (parameters stay "
+                        "float32)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu; the port never falls back "
                         "to the CPU by itself")
@@ -196,12 +213,22 @@ def main(argv=None):
     Log.initialize(os.path.join(outdir, "train.log"))
     Log.i(f"args: {vars(args)}; save dir: [{exp}]; device {device}")
 
-    train_loader, val_loader, num_classes = cityscapes_loaders(
-        None if args.dataset == "synthetic" else args.data_root,
-        args.batch_size, args.crop_size, seed=args.random_seed)
+    if args.dataset == "cityscapes":
+        train_loader, val_loader, num_classes = cityscapes_loaders(
+            args.data_root, args.batch_size, args.crop_size,
+            seed=args.random_seed, val_batch_size=args.val_batch_size,
+            crop_val=args.crop_val)
+    else:
+        train_loader, val_loader, num_classes = voc_seg_loaders(
+            args.data_root, args.batch_size, args.crop_size, year=args.year,
+            seed=args.random_seed, val_batch_size=args.val_batch_size,
+            crop_val=args.crop_val)
+    if args.num_classes is not None:
+        num_classes = args.num_classes
 
     torch.manual_seed(args.random_seed)
-    model = build_model(args.model, num_classes, args.output_stride)
+    model = build_model(args.model, num_classes, args.output_stride,
+                        torch.bfloat16 if args.bf16 else torch.float32)
     model.reset_parameters(torch.Generator().manual_seed(args.random_seed))
     model.to(device)
     total = args.limit_itrs or args.total_itrs

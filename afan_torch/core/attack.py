@@ -12,6 +12,12 @@ update (`attack.py:126-133`) on the CPU. A ``'grad'`` step stays eager.
 The sign and grad paths issue no host sync, so a CUDA graph can capture
 them; ``bailout_tol`` (a host check of the loss per step) raises under a
 capture, and ``random_steps`` reads its step sizes back to the host.
+
+The ascent runs in the attacked tensor's dtype, as ``afan``'s does
+(`attack.py:104,112-114`): under bfloat16 each step size is rounded to
+bfloat16 before it steps (``jnp.full((steps,), gamma, x.dtype)``), and so
+are ``eps`` and the random start's scale, which meet bfloat16 arrays as
+JAX's weak-typed Python scalars (:func:`afan_torch.core.project.weak_scalar`).
 """
 from __future__ import annotations
 
@@ -21,17 +27,17 @@ import numpy as np
 import torch
 
 from ..ops.pgd_step import pgd_update
-from .project import linfball_proj
+from .project import linfball_proj, weak_scalar
 
 LossFn = Callable[[torch.Tensor], torch.Tensor]
 
 
 def uniform_init(shape, scale, generator: Optional[torch.Generator] = None,
                  dtype=torch.float32, device=None) -> torch.Tensor:
-    """Uniform noise in ``(-scale, scale)`` — the reference's
+    """Uniform noise in ``(-scale, scale)`` of ``dtype`` — the reference's
     ``(2 * rand - 1) * eps`` rand-init and ``noise_sd`` injection."""
     u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
-    return (2.0 * u - 1.0) * scale
+    return (2.0 * u - 1.0) * weak_scalar(scale, dtype)
 
 
 def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
@@ -75,6 +81,7 @@ def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
         step_sizes = (2.0 * gamma * u).tolist()
     else:
         step_sizes = [gamma] * steps
+    step_sizes = [weak_scalar(s, x.dtype) for s in step_sizes]
     prev = None
     for gamma_t in step_sizes:
         x_adv = x_adv.detach().requires_grad_(True)

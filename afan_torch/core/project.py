@@ -2,7 +2,18 @@
 ``afan/core/project.py``. Pure functions; nothing is updated in place."""
 from __future__ import annotations
 
+import numbers
+
 import torch
+
+
+def weak_scalar(value, dtype: torch.dtype):
+    """A Python number as JAX's weak typing meets an array of ``dtype``:
+    rounded to ``dtype`` first (``bf16(c - bf16(eps))``), where PyTorch
+    would keep it in float32 (``bf16(c - eps)``). Tensors pass through."""
+    if not isinstance(value, numbers.Real) or dtype == torch.float64:
+        return value
+    return torch.tensor(float(value), dtype=dtype).item()
 
 
 def tensor_clamp(t: torch.Tensor, min: torch.Tensor, max: torch.Tensor
@@ -13,7 +24,10 @@ def tensor_clamp(t: torch.Tensor, min: torch.Tensor, max: torch.Tensor
 
 def linfball_proj(center: torch.Tensor, radius, t: torch.Tensor
                   ) -> torch.Tensor:
-    """Project ``t`` onto the L-inf ball of ``radius`` around ``center``."""
+    """Project ``t`` onto the L-inf ball of ``radius`` around ``center``; a
+    Python ``radius`` is rounded to ``center``'s dtype first, as in
+    ``afan``."""
+    radius = weak_scalar(radius, center.dtype)
     return tensor_clamp(t, center - radius, center + radius)
 
 

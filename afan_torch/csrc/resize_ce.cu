@@ -73,7 +73,18 @@
 // Precision: everything is f32 with IEEE exp/log (no fast math) and no
 // tensor cores. The build passes -fmad=false; the one contraction that
 // torch's own upsample makes, in the source index, is written as fmaf.
+//
+// bfloat16 logits (`afan`'s segmentation step under --bf16): both kernels
+// take lo as float or __nv_bfloat16 (template parameter T) and widen each
+// value to f32 as they load it (exact), so every operation above is the
+// same f32 arithmetic on the same values as the f32 kernels on lo.float();
+// the sums stay f32, and the backward rounds each dlo entry to bf16 once,
+// at its store (`afan`'s `dlo.astype(lo.dtype)`,
+// resize_ce_kernel.py:256-258). The bf16 gradient is therefore the f32
+// kernel's gradient on lo.float() rounded to bf16, bit for bit, and the
+// logits are read once, without a widened copy.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -109,14 +120,30 @@ __device__ __forceinline__ float tap_weight(const Tap& t, int s) {
   return (t.i0 == s ? t.l0 : 0.0f) + (t.i1 == s ? t.l1 : 0.0f);
 }
 
+// A logit as f32, read through the read-only cache: bf16 widens exactly.
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// A gradient entry in the logits' dtype: bf16 rounds to nearest even.
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // One upsampled logit from channel plane `plane` (h x w, row stride w), in
 // the order torch's upsample_bilinear2d uses: W first, then H.
-__device__ __forceinline__ float logit(const float* __restrict__ plane, int w,
+template <typename T>
+__device__ __forceinline__ float logit(const T* __restrict__ plane, int w,
                                       const Tap& ty, const Tap& tx) {
-  const float* r0 = plane + (size_t)ty.i0 * w;
-  const float* r1 = plane + (size_t)ty.i1 * w;
-  return ty.l0 * (tx.l0 * __ldg(r0 + tx.i0) + tx.l1 * __ldg(r0 + tx.i1)) +
-         ty.l1 * (tx.l0 * __ldg(r1 + tx.i0) + tx.l1 * __ldg(r1 + tx.i1));
+  const T* r0 = plane + (size_t)ty.i0 * w;
+  const T* r1 = plane + (size_t)ty.i1 * w;
+  return ty.l0 * (tx.l0 * load(r0 + tx.i0) + tx.l1 * load(r0 + tx.i1)) +
+         ty.l1 * (tx.l0 * load(r1 + tx.i0) + tx.l1 * load(r1 + tx.i1));
 }
 
 // Sums over the block of each of the N values `v`, each in a fixed order
@@ -165,9 +192,9 @@ constexpr int kFwdRows = 3;
 // several loads are in flight.
 constexpr int kFwdBatch = 4;
 
-template <int kC>
+template <int kC, typename T>
 __global__ void __launch_bounds__(kThreads)
-resize_ce_fwd(const float* __restrict__ lo,
+resize_ce_fwd(const T* __restrict__ lo,
               const int32_t* __restrict__ labels, int C, int h, int w,
               int H, int W, float sy, float sx, int focal, float alpha,
               float gamma, float* __restrict__ partial) {
@@ -177,7 +204,7 @@ resize_ce_fwd(const float* __restrict__ lo,
   const int tid = threadIdx.x, nt = blockDim.x;
   const int S = fwd_stride(C);
   const size_t plane = (size_t)h * w;
-  const float* lo_b = lo + (size_t)b * C * plane;
+  const T* lo_b = lo + (size_t)b * C * plane;
   Tap ty[kFwdRows];
 #pragma unroll
   for (int r = 0; r < kFwdRows; ++r)
@@ -193,11 +220,11 @@ resize_ce_fwd(const float* __restrict__ lo,
     for (int u = 0; u < kFwdBatch; ++u) {
       at[u] = cc < C ? xx * S + cc : -1;
       if (cc < C) {
-        const float* col = lo_b + cc * plane + xx;
+        const T* col = lo_b + cc * plane + xx;
 #pragma unroll
         for (int r = 0; r < kFwdRows; ++r) {
-          a0[u][r] = __ldg(col + (size_t)ty[r].i0 * w);
-          a1[u][r] = __ldg(col + (size_t)ty[r].i1 * w);
+          a0[u][r] = load(col + (size_t)ty[r].i0 * w);
+          a1[u][r] = load(col + (size_t)ty[r].i1 * w);
         }
       }
       advance(cc, xx, w, nt);
@@ -319,9 +346,9 @@ __device__ __forceinline__ float pixel_coef(float g, float m, float s,
 // into z[k * stride], one exp per logit. With the class count kC known at
 // compile time the logits stay in registers; otherwise (kC = 0) they pass
 // through z.
-template <int kC>
+template <int kC, typename T>
 __device__ __forceinline__ void pixel_cotangent(
-    const float* __restrict__ lo_b, int C, size_t plane, int w,
+    const T* __restrict__ lo_b, int C, size_t plane, int w,
     const Tap& ty, const Tap& tx, int lab, float g, int focal, float alpha,
     float gamma, float* z, int stride) {
   float m = -INFINITY, s = 0.0f, picked = 0.0f;
@@ -366,15 +393,15 @@ __device__ __forceinline__ void pixel_cotangent(
   }
 }
 
-template <int kC>
+template <int kC, typename T>
 __global__ void __launch_bounds__(kThreads, kBandMinBlocks)
-resize_ce_bwd_bands(const float* __restrict__ lo,
+resize_ce_bwd_bands(const T* __restrict__ lo,
                     const int32_t* __restrict__ labels,
                     const float* __restrict__ gout,
                     const int32_t* __restrict__ plan, int C, int h, int w,
                     int H, int W, float sy, float sx, int rows_max,
                     int cols_max, int seg_max, int focal, float alpha,
-                    float gamma, float* __restrict__ dlo) {
+                    float gamma, T* __restrict__ dlo) {
   const int32_t* p = plan + (size_t)blockIdx.x * kPlanCols;
   const int ya = p[0], yb = p[1], i_lo = p[2], i_hi = p[3];
   const int xa = p[4], xb = p[5], j_lo = p[6], j_hi = p[7];
@@ -388,7 +415,7 @@ resize_ce_bwd_bands(const float* __restrict__ lo,
   float* tl1 = seg + C * S;                   // upper tap weight; l0 = 1 - l1
   int* feed = reinterpret_cast<int*>(tl1 + S); // (3, cols_max)
   const size_t plane = (size_t)h * w;
-  const float* lo_b = lo + (size_t)b * C * plane;
+  const T* lo_b = lo + (size_t)b * C * plane;
   const float g = gout[b];
   const int groups = (C + 3) >> 2;
 
@@ -470,24 +497,34 @@ resize_ce_bwd_bands(const float* __restrict__ lo,
   for (int k = tid; k < C * ny * nx; k += nt) {
     const int c = k / (ny * nx), rem = k - c * ny * nx;
     const int yy = rem / nx, xx = rem - yy * nx;
-    dlo[(((size_t)b * C + c) * h + ya + yy) * w + xa + xx] =
-        acc[(c * rows_max + yy) * cols_max + xx];
+    store(dlo + (((size_t)b * C + c) * h + ya + yy) * w + xa + xx,
+          acc[(c * rows_max + yy) * cols_max + xx]);
   }
 }
 
-// The forward and band kernels for C classes: the two class counts of the
-// trainers' datasets (19 Cityscapes, 21 VOC) keep each pixel's logits in
-// registers.
-const void* fwd_kernel(int C) {
-  if (C == 19) return (const void*)resize_ce_fwd<19>;
-  if (C == 21) return (const void*)resize_ce_fwd<21>;
-  return (const void*)resize_ce_fwd<0>;
+// The forward and band kernels for C classes and the logits' dtype: the two
+// class counts of the trainers' datasets (19 Cityscapes, 21 VOC) keep each
+// pixel's logits in registers.
+template <typename T>
+const void* fwd_kernel_t(int C) {
+  if (C == 19) return (const void*)resize_ce_fwd<19, T>;
+  if (C == 21) return (const void*)resize_ce_fwd<21, T>;
+  return (const void*)resize_ce_fwd<0, T>;
 }
 
-const void* band_kernel(int C) {
-  if (C == 19) return (const void*)resize_ce_bwd_bands<19>;
-  if (C == 21) return (const void*)resize_ce_bwd_bands<21>;
-  return (const void*)resize_ce_bwd_bands<0>;
+template <typename T>
+const void* band_kernel_t(int C) {
+  if (C == 19) return (const void*)resize_ce_bwd_bands<19, T>;
+  if (C == 21) return (const void*)resize_ce_bwd_bands<21, T>;
+  return (const void*)resize_ce_bwd_bands<0, T>;
+}
+
+const void* fwd_kernel(int C, int bf16) {
+  return bf16 ? fwd_kernel_t<__nv_bfloat16>(C) : fwd_kernel_t<float>(C);
+}
+
+const void* band_kernel(int C, int bf16) {
+  return bf16 ? band_kernel_t<__nv_bfloat16>(C) : band_kernel_t<float>(C);
 }
 
 // Above the default 48 KB a kernel's dynamic shared memory needs an opt-in.
@@ -512,15 +549,15 @@ int afan_resize_ce_fwd_smem(int C, int w) {
   return (int)((size_t)kFwdRows * fwd_stride(C) * w * sizeof(float));
 }
 
-// lo (B, C, h, w) f32 and labels (B, H, W) int32, both contiguous; partial
-// scratch of B * H floats; out (B,) f32. Launches on `stream` and returns
-// the launches' error.
-int afan_resize_ce_forward(const float* lo, const int32_t* labels, int B,
-                           int C, int h, int w, int H, int W, int focal,
-                           float alpha, float gamma, float* partial,
-                           float* out, void* stream) {
+// lo (B, C, h, w) f32 (bf16 = 0) or bf16 (bf16 = 1) and labels (B, H, W)
+// int32, both contiguous; partial scratch of B * H floats; out (B,) f32.
+// Launches on `stream` and returns the launches' error.
+int afan_resize_ce_forward(const void* lo, const int32_t* labels, int bf16,
+                           int B, int C, int h, int w, int H, int W,
+                           int focal, float alpha, float gamma,
+                           float* partial, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* fn = fwd_kernel(C);
+  const void* fn = fwd_kernel(C, bf16);
   const int smem = afan_resize_ce_fwd_smem(C, w);
   cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -534,19 +571,20 @@ int afan_resize_ce_forward(const float* lo, const int32_t* labels, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// gout (B,) f32 is the cotangent of the forward's sums; dlo (B, C, h, w) f32
-// receives d(sum_b gout[b] * sums[b]) / d lo. `plan` holds n_plan rows of 8
+// gout (B,) f32 is the cotangent of the forward's sums; dlo (B, C, h, w), in
+// lo's dtype (f32 or bf16, as `bf16` says), receives
+// d(sum_b gout[b] * sums[b]) / d lo. `plan` holds n_plan rows of 8
 // int32 (y_a, y_b, i_lo, i_hi, x_a, x_b, j_lo, j_hi), one block each, whose
 // owned ranges tile [0, h) x [0, w); rows, cols and seg are the largest
 // y_b - y_a, x_b - x_a and j_hi - j_lo among them. Every element of dlo is
 // written.
-int afan_resize_ce_backward(const float* lo, const int32_t* labels,
+int afan_resize_ce_backward(const void* lo, const int32_t* labels,
                             const float* gout, const int32_t* plan,
-                            int n_plan, int B, int C, int h, int w, int H,
-                            int W, int rows, int cols, int seg, int focal,
-                            float alpha, float gamma, float* dlo,
+                            int n_plan, int bf16, int B, int C, int h, int w,
+                            int H, int W, int rows, int cols, int seg,
+                            int focal, float alpha, float gamma, void* dlo,
                             void* stream) {
-  const void* fn = band_kernel(C);
+  const void* fn = band_kernel(C, bf16);
   const int smem = afan_resize_ce_bwd_bands_smem(C, rows, cols, seg);
   cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -559,11 +597,13 @@ int afan_resize_ce_backward(const float* lo, const int32_t* labels,
 }
 
 // What the card made of a kernel (kind 0: the forward, 1: the band
-// backward) for C classes at `smem` bytes of dynamic shared memory: out[0]
-// registers per thread, out[1] local memory (spill) bytes per thread, out[2]
-// static shared bytes, out[3] resident blocks per SM.
-int afan_resize_ce_kernel_info(int kind, int C, int smem, int* out) {
-  const void* fn = kind == 0 ? fwd_kernel(C) : band_kernel(C);
+// backward) for C classes and f32 (bf16 = 0) or bf16 logits at `smem` bytes
+// of dynamic shared memory: out[0] registers per thread, out[1] local
+// memory (spill) bytes per thread, out[2] static shared bytes, out[3]
+// resident blocks per SM.
+int afan_resize_ce_kernel_info(int kind, int C, int bf16, int smem,
+                               int* out) {
+  const void* fn = kind == 0 ? fwd_kernel(C, bf16) : band_kernel(C, bf16);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,10 +1,14 @@
-"""The paired image+label transforms of the Cityscapes train pipeline — a
-copy of the numpy classes of ``afan/data/ext_transforms.py`` that the port
-runs (image HWC float32 in [0, 1], label HW int32; each ``__call__`` draws
-from an explicit ``np.random.RandomState``, so a pipeline is deterministic
-per seed and draws exactly what ``afan``'s does).
+"""The paired image+label transforms of the VOC and Cityscapes train
+pipelines — a copy of the numpy classes of ``afan/data/ext_transforms.py``
+that the port runs (image HWC float32 in [0, 1], label HW int32; each
+``__call__`` draws from an explicit ``np.random.RandomState``, so a pipeline
+is deterministic per seed and draws exactly what ``afan``'s does).
 
-VOC's ``ExtRandomScale`` resizes through PIL and is not ported yet.
+``afan``'s VOC scale resizes through PIL (``_resize_pair``); the machine
+with the card has no PIL, so :func:`_resize_pair` here computes what PIL
+computes, bit for bit: the image through uint8 with Pillow's fixed-point
+bilinear (:func:`afan_torch.data.voc_det.resize_uint8`), the label with
+Pillow's nearest (:func:`resize_nearest`).
 """
 from __future__ import annotations
 
@@ -13,9 +17,45 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from .voc_det import resize_uint8
+
 IGNORE = 255
 
 Pair = Tuple[np.ndarray, np.ndarray]
+
+
+def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """Pillow's nearest source index of each output index
+    (``ImagingScaleAffine``, ``libImaging/Geometry.c``): the position
+    starts at half the step and adds the step once per index, in float64,
+    and is truncated; the sums are taken one by one, as Pillow's loop takes
+    them."""
+    step = float(n_in) / n_out
+    deltas = np.full(n_out, step)
+    deltas[0] = step * 0.5
+    return np.add.accumulate(deltas).astype(np.int64)
+
+
+def resize_nearest(lab: np.ndarray, size_hw: Sequence[int]) -> np.ndarray:
+    """PIL's ``Image.resize((w, h), Image.NEAREST)`` of a mode-``"I"``
+    label image to ``size_hw = (h, w)`` (``afan``'s ``_to_pil_lab`` path),
+    as int32."""
+    nh, nw = (int(n) for n in size_hw)
+    h, w = lab.shape
+    if (nh, nw) == (h, w):
+        return lab.astype(np.int32)
+    iy, ix = _nearest_index(h, nh), _nearest_index(w, nw)
+    return lab.astype(np.int32)[iy[:, None], ix[None, :]]
+
+
+def _resize_pair(img: np.ndarray, lab: np.ndarray, size_hw: Tuple[int, int]
+                 ) -> Pair:
+    """Bilinear image / nearest label resize to ``(h, w)``, as ``afan``'s
+    PIL path computes it: the image truncated to uint8 after a clip to
+    [0, 1], resized, and divided by 255."""
+    img8 = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+    return (resize_uint8(img8, size_hw).astype(np.float32) / 255.0,
+            resize_nearest(lab, size_hw))
 
 
 def _size_pair(size) -> Tuple[int, int]:
@@ -44,6 +84,19 @@ class ExtRandomHorizontalFlip:
         if rng.rand() < self.p:
             return img[:, ::-1].copy(), lbl[:, ::-1].copy()
         return img, lbl
+
+
+class ExtRandomScale:
+    """Uniform scale in ``scale_range`` applied to both H and W, each side
+    truncated (``afan``'s ``ExtRandomScale``)."""
+
+    def __init__(self, scale_range: Tuple[float, float] = (0.5, 2.0)):
+        self.scale_range = scale_range
+
+    def __call__(self, img, lbl, rng) -> Pair:
+        s = rng.uniform(self.scale_range[0], self.scale_range[1])
+        h, w = lbl.shape
+        return _resize_pair(img, lbl, (int(h * s), int(w * s)))
 
 
 class ExtRandomCrop:
@@ -118,5 +171,17 @@ def cityscapes_train_transform(crop_size: int) -> ExtCompose:
     return ExtCompose([
         ExtRandomCrop(crop_size, pad_if_needed=True),
         ExtColorJitter(0.5, 0.5, 0.5),
+        ExtRandomHorizontalFlip(),
+    ])
+
+
+def voc_train_transform(crop_size: int,
+                        scale_range=(0.5, 2.0)) -> ExtCompose:
+    """The reference VOC train pipeline (`args.py:118-124`): RandomScale +
+    RandomCrop(pad_if_needed) + HFlip; its draws are the scale, the crop's
+    y and x, and the flip, in that order."""
+    return ExtCompose([
+        ExtRandomScale(scale_range),
+        ExtRandomCrop(crop_size, pad_if_needed=True),
         ExtRandomHorizontalFlip(),
     ])

@@ -9,7 +9,8 @@ byte for byte: tall and fat images in separate batches (the reference
 sampler's grouping), each padded to its bucket's static canvas, random
 horizontal flips at train time, ground truth padded to ``MAX_GT_BOXES``.
 
-``resize_image`` does what PIL's ``Image.resize(..., Image.BILINEAR)`` does
+``resize_uint8`` (which ``resize_image`` and the segmentation pipeline's
+scale call) does what PIL's ``Image.resize(..., Image.BILINEAR)`` does
 to an 8-bit RGB image (the machine with the card has no PIL), in the same
 fixed-point arithmetic, so the two agree bit for bit: per axis, the
 triangle filter's weights over a support widened by the downscale factor,
@@ -106,20 +107,30 @@ def _resample_rows(x: torch.Tensor, n_out: int) -> torch.Tensor:
     return acc.bitwise_right_shift_(PRECISION_BITS).clamp_(0, 255)
 
 
-def resize_image(img: np.ndarray, scale: float) -> np.ndarray:
-    """Bilinear resize of a float [0, 1] HWC image by ``scale``, through
-    uint8 as the reference's PIL path does (`base.py:84-88`): horizontal
-    pass first (on the transposed image), and a pass whose axis keeps its
-    size is skipped, as in PIL."""
+def resize_uint8(img: np.ndarray, size_hw: Sequence[int]) -> np.ndarray:
+    """PIL's ``Image.resize((out_w, out_h), Image.BILINEAR)`` of an 8-bit
+    ``(H, W, C)`` image to ``size_hw = (out_h, out_w)``, bit for bit:
+    horizontal pass first (on the transposed image), and a pass whose axis
+    keeps its size is skipped, as in PIL."""
     h, w = img.shape[:2]
-    out_h, out_w = round(h * scale), round(w * scale)
-    x = torch.from_numpy((img * 255).astype(np.uint8)).to(torch.int32)
+    out_h, out_w = (int(n) for n in size_hw)
+    x = torch.from_numpy(np.ascontiguousarray(img)).to(torch.int32)
     if out_w != w:
         x = _resample_rows(x.transpose(0, 1).contiguous(), out_w)
         x = x.transpose(0, 1).contiguous()
     if out_h != h:
         x = _resample_rows(x, out_h)
-    return x.to(torch.uint8).numpy().astype(np.float32) / 255.0
+    return x.to(torch.uint8).numpy()
+
+
+def resize_image(img: np.ndarray, scale: float) -> np.ndarray:
+    """Bilinear resize of a float [0, 1] HWC image by ``scale`` (each side
+    rounded), through uint8 as the reference's PIL path does
+    (`base.py:84-88`)."""
+    h, w = img.shape[:2]
+    out = resize_uint8((img * 255).astype(np.uint8),
+                       (round(h * scale), round(w * scale)))
+    return out.astype(np.float32) / 255.0
 
 
 def find_voc_root(data_dir: str, year: str = "2007") -> Optional[str]:

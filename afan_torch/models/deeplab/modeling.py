@@ -7,7 +7,10 @@ dict-dispatch forward is a set of methods with ``afan``'s names; inputs are
 NCHW images in [0, 1] and every output is NCHW. Train or eval mode is the
 module's own (``model.train()`` / ``model.eval()``), where ``afan`` passes
 ``train``. Every BatchNorm trains with momentum 0.01; the backbone's lr x0.1
-group is :func:`segmentation_param_groups`.
+group is :func:`segmentation_param_groups`. ``dtype`` is the compute dtype
+(``afan``'s ``build_model(..., dtype)``; bfloat16 under ``--bf16``): the
+parameters stay float32 and the activations, features and logits take
+``dtype`` (see :mod:`afan_torch.models.resnet`).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 import torch.nn as nn
 
 from ..resnet import (BACKBONES, NUM_HIDDEN_OUT, NUM_LOW_LEVEL_OUT,
-                      BatchNorm, from_name)
+                      BatchNorm, from_name, set_compute_dtype)
 from .heads import DeepLabHead, DeepLabHeadV3Plus, resize_bilinear
 
 SdDict = Dict[str, torch.Tensor]
@@ -28,7 +31,8 @@ class DeepLab(nn.Module):
     taps."""
 
     def __init__(self, backbone_name: str = "resnet50", num_classes: int = 21,
-                 output_stride: int = 16, plus: bool = True):
+                 output_stride: int = 16, plus: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if backbone_name not in BACKBONES:
             raise NotImplementedError(
@@ -42,6 +46,8 @@ class DeepLab(nn.Module):
             DeepLabHeadV3Plus(cin, NUM_LOW_LEVEL_OUT[backbone_name],
                               num_classes, rates)
             if plus else DeepLabHead(cin, num_classes, rates))
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's init: kaiming-normal fan_out backbone convs, kaiming-normal
@@ -142,11 +148,11 @@ MODEL_MAP = {
 NOT_PORTED = ("deeplabv3_mobilenet", "deeplabv3plus_mobilenet")
 
 
-def build_model(name: str, num_classes: int, output_stride: int = 16
-                ) -> DeepLab:
+def build_model(name: str, num_classes: int, output_stride: int = 16,
+                dtype: torch.dtype = torch.float32) -> DeepLab:
     if name in NOT_PORTED:
         raise NotImplementedError(f"{name} (MobileNetV2) is not ported yet")
     if name not in MODEL_MAP:
         raise ValueError(f"unknown model {name!r}; have {list(MODEL_MAP)}")
     return DeepLab(num_classes=num_classes, output_stride=output_stride,
-                   **MODEL_MAP[name])
+                   dtype=dtype, **MODEL_MAP[name])

@@ -12,6 +12,16 @@ is the ROI head's "hidden" stage (:meth:`ResNetTorso.run_stage`).
 
 Initialisation mirrors flax's: kaiming-normal (fan_out) conv kernels and
 identity BatchNorm, drawn from an explicit ``torch.Generator``.
+
+Compute dtype (``afan``'s ``dtype`` on every Flax module, bfloat16 under
+``--bf16``), written out rather than left to ``torch.autocast``, whose op
+lists differ between the CPU and the card: parameters and BatchNorm
+buffers stay float32; each :class:`Conv2d` casts its input and its weight
+to :func:`set_compute_dtype`'s dtype (gradients reach the float32
+parameters through the cast); BatchNorm takes the statistics and the
+normalization in float32 and returns the input's dtype (Flax's
+``force_float32_reductions``, PyTorch's mixed-type ``batch_norm``). The
+ImageNet normalisation runs in the image's float32, as in ``afan``.
 """
 from __future__ import annotations
 
@@ -24,6 +34,32 @@ import torch.nn.functional as F
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and checkpoint keys) that computes in
+    ``compute_dtype``: float32 as ``nn.Conv2d``; otherwise the input, the
+    weight and the bias are cast to it, and the bias is added after the
+    convolution, as Flax's ``Conv`` adds it (``y + bias``, rounded
+    twice)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(dt).reshape(1, -1, 1, 1)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Make every :class:`Conv2d` of ``module`` compute in ``dtype``."""
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            m.compute_dtype = dtype
 
 
 class FrozenBatchNorm(nn.BatchNorm2d):
@@ -89,10 +125,9 @@ def frozen_bn_stats(module: nn.Module) -> Iterator[None]:
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1,
-          dilation: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride,
-                     padding=(k // 2) * dilation, dilation=dilation,
-                     bias=False)
+          dilation: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=(k // 2) * dilation,
+                  dilation=dilation, bias=False)
 
 
 def _downsample(cin: int, cout: int, stride: int, norm: Type[nn.Module]
@@ -169,7 +204,7 @@ class ResNetTorso(nn.Module):
         if output_stride not in _DILATIONS:
             raise ValueError(f"output_stride must be one of "
                              f"{sorted(_DILATIONS)}, got {output_stride}")
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = norm(64)
         cin, prev_dil = 64, 1
         for i, (planes, n) in enumerate(zip((64, 128, 256, 512), layers)):

@@ -8,9 +8,10 @@ its header says what bounds it and how it is laid out. It is compiled with
 
 :func:`pgd_update` returns ``x + gamma * sign(g)``, then, with ``clip``, its
 clamp into ``[center - eps, center + eps]``, in a new tensor. It takes
-contiguous float32 CUDA tensors of one shape only, and launches its kernel
-or raises; the choice of the plain PyTorch version for a CPU tensor is made
-once, in :func:`afan_torch.ops.pgd_step.pgd_update`.
+contiguous float32 or bfloat16 CUDA tensors of one shape and dtype only
+(in bfloat16 it rounds ``gamma`` and ``eps`` to bfloat16 first), and
+launches its kernel or raises; the choice of the plain PyTorch version for
+a CPU tensor is made once, in :func:`afan_torch.ops.pgd_step.pgd_update`.
 """
 from __future__ import annotations
 
@@ -20,10 +21,13 @@ from typing import Optional
 
 import torch
 
+from ...core.project import weak_scalar
 from .build import build
 
-# Kernel launches since the last reset; a run sets it to 0 and reads it after.
+# Kernel launches since the last reset, and those of them on bfloat16
+# tensors; a run sets them to 0 and reads them after.
 launches = 0
+bf16_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -34,11 +38,12 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build("pgd_step.cu"))
-            lib.afan_pgd_step.restype = ctypes.c_int
-            lib.afan_pgd_step.argtypes = (
-                [ctypes.c_void_p] * 4
-                + [ctypes.c_int64, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_void_p])
+            for fn in (lib.afan_pgd_step, lib.afan_pgd_step_bf16):
+                fn.restype = ctypes.c_int
+                fn.argtypes = ([ctypes.c_void_p] * 4
+                               + [ctypes.c_int64, ctypes.c_float,
+                                  ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p])
             _lib = lib
     return _lib
 
@@ -47,9 +52,11 @@ def _check(x: torch.Tensor, others) -> None:
     for t in (x, *others):
         if t.device.type != "cuda":
             raise ValueError(f"no PGD-step kernel for device {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the PGD-step kernel takes float32, got "
-                            f"{t.dtype}")
+        if t.dtype not in (torch.float32, torch.bfloat16) or (
+                t.dtype != x.dtype):
+            raise TypeError(f"the PGD-step kernel takes float32 or bfloat16 "
+                            f"tensors of one dtype, got {t.dtype} with x "
+                            f"{x.dtype}")
         if not t.is_contiguous():
             raise ValueError("the PGD-step kernel takes contiguous tensors")
         if t.shape != x.shape or t.device != x.device:
@@ -63,7 +70,7 @@ def pgd_update(x: torch.Tensor, g: torch.Tensor,
                ) -> torch.Tensor:
     """One launch: ``x + gamma * sign(g)``, clamped to the L-inf ball of
     radius ``eps`` around ``center`` when ``clip``; ``x`` is not changed."""
-    global launches
+    global launches, bf16_launches
     if clip and (center is None or eps is None):
         raise ValueError("clip=True requires center and eps")
     _check(x, (g, center) if clip else (g,))
@@ -71,13 +78,17 @@ def pgd_update(x: torch.Tensor, g: torch.Tensor,
     if x.numel() == 0:
         return out
     lib = load_library()
+    fn = lib.afan_pgd_step if x.dtype == torch.float32 else \
+        lib.afan_pgd_step_bf16
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.afan_pgd_step(
-            x.data_ptr(), g.data_ptr(), center.data_ptr() if clip else None,
-            out.data_ptr(), x.numel(), float(gamma),
-            float(eps) if clip else 0.0, int(clip), stream)
+        err = fn(x.data_ptr(), g.data_ptr(),
+                 center.data_ptr() if clip else None, out.data_ptr(),
+                 x.numel(), weak_scalar(float(gamma), x.dtype),
+                 weak_scalar(float(eps), x.dtype) if clip else 0.0, int(clip),
+                 stream)
     if err != 0:
         raise RuntimeError(f"PGD-step launch failed: CUDA error {err}")
     launches += 1
+    bf16_launches += x.dtype == torch.bfloat16
     return out

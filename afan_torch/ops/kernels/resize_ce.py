@@ -16,7 +16,9 @@ lo`` by the band kernel, one block per (band of ``BAND_ROWS`` low-res rows,
 one of ``COL_SPLITS`` column ranges, entry), laid out by
 :func:`band_plan`. Each takes CUDA tensors only, and launches its kernel or
 raises; the choice of the plain PyTorch version for a CPU tensor is made
-once, in :func:`afan_torch.ops.resize_ce.fused_resize_nll_sums`.
+once, in :func:`afan_torch.ops.resize_ce.fused_resize_nll_sums`. The logits
+may be float32 or bfloat16: the sums are float32 either way, and the
+gradient has the logits' dtype.
 """
 from __future__ import annotations
 
@@ -39,10 +41,12 @@ MAX_BATCH = 65535          # grid.y
 BAND_ROWS = 4
 COL_SPLITS = 2
 
-# Kernel launches since the last reset; a run sets them to 0 and reads them
-# after.
+# Kernel launches since the last reset, and those of them on bfloat16
+# logits; a run sets them to 0 and reads them after.
 fwd_launches = 0
 bwd_launches = 0
+bf16_fwd_launches = 0
+bf16_bwd_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -60,10 +64,10 @@ def load_library() -> ctypes.CDLL:
                 "afan_resize_ce_fwd_smem": [ctypes.c_int] * 2,
                 "afan_resize_ce_bwd_bands_smem": [ctypes.c_int] * 4,
                 "afan_resize_ce_forward": [ctypes.c_void_p] * 2
-                + [ctypes.c_int] * 6 + focal + [ctypes.c_void_p] * 3,
+                + [ctypes.c_int] * 7 + focal + [ctypes.c_void_p] * 3,
                 "afan_resize_ce_backward": [ctypes.c_void_p] * 4
-                + [ctypes.c_int] * 10 + focal + [ctypes.c_void_p] * 2,
-                "afan_resize_ce_kernel_info": [ctypes.c_int] * 3
+                + [ctypes.c_int] * 11 + focal + [ctypes.c_void_p] * 2,
+                "afan_resize_ce_kernel_info": [ctypes.c_int] * 4
                 + [ctypes.c_void_p],
             }
             for name, argtypes in signatures.items():
@@ -156,14 +160,18 @@ def _check(lo: torch.Tensor, labels: torch.Tensor) -> None:
 def _check_card(lo: torch.Tensor, labels: torch.Tensor) -> None:
     if lo.device.type != "cuda":
         raise ValueError(f"no resize+CE kernel for device {lo.device}")
-    if lo.dtype != torch.float32:
-        raise TypeError(f"lo must be float32, got {lo.dtype}")
+    if lo.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"lo must be float32 or bfloat16, got {lo.dtype}")
     if labels.dtype != torch.int32:
         raise TypeError(f"labels must be int32, got {labels.dtype}")
     if not (lo.is_contiguous() and labels.is_contiguous()):
         raise ValueError("lo and labels must be contiguous")
     if lo.shape[0] > MAX_BATCH:
         raise ValueError(f"resize+CE kernel takes B <= {MAX_BATCH}")
+
+
+def _is_bf16(lo: torch.Tensor) -> int:
+    return int(lo.dtype == torch.bfloat16)
 
 
 def _focal_args(focal: Focal):
@@ -181,8 +189,9 @@ def _check_smem(smem: int, what: str) -> None:
 
 def resize_ce_forward(lo: torch.Tensor, labels: torch.Tensor,
                       focal: Focal = None) -> torch.Tensor:
-    """Per-entry loss sums ``(B,)`` float32 (no autograd graph)."""
-    global fwd_launches
+    """Per-entry loss sums ``(B,)`` float32 of float32 or bfloat16 logits
+    (no autograd graph)."""
+    global fwd_launches, bf16_fwd_launches
     _check(lo, labels)
     _check_card(lo, labels)
     b, c, h, w = lo.shape
@@ -196,12 +205,14 @@ def resize_ce_forward(lo: torch.Tensor, labels: torch.Tensor,
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.afan_resize_ce_forward(
-            lo.data_ptr(), labels.data_ptr(), b, c, h, w, H, W,
-            *_focal_args(focal), partial.data_ptr(), out.data_ptr(), stream)
+            lo.data_ptr(), labels.data_ptr(), _is_bf16(lo), b, c, h, w, H,
+            W, *_focal_args(focal), partial.data_ptr(), out.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"resize+CE forward launch failed: CUDA error "
                            f"{err}")
     fwd_launches += 1
+    bf16_fwd_launches += _is_bf16(lo)
     return out
 
 
@@ -219,9 +230,9 @@ def _backward_inputs(lo: torch.Tensor, labels: torch.Tensor,
 def resize_ce_backward(lo: torch.Tensor, labels: torch.Tensor,
                        gout: torch.Tensor, focal: Focal = None
                        ) -> torch.Tensor:
-    """``d(sum_b gout[b] * sums[b]) / d lo``, shaped like ``lo``, by the
-    band kernel."""
-    global bwd_launches
+    """``d(sum_b gout[b] * sums[b]) / d lo``, shaped like ``lo`` and in its
+    dtype, by the band kernel."""
+    global bwd_launches, bf16_bwd_launches
     _backward_inputs(lo, labels, gout)
     b, c, h, w = lo.shape
     H, W = labels.shape[1:]
@@ -237,21 +248,22 @@ def resize_ce_backward(lo: torch.Tensor, labels: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.afan_resize_ce_backward(
             lo.data_ptr(), labels.data_ptr(), gout.data_ptr(),
-            plan.data_ptr(), plan.shape[0], b, c, h, w, H, W, rows, cols,
-            seg, *_focal_args(focal), dlo.data_ptr(), stream)
+            plan.data_ptr(), plan.shape[0], _is_bf16(lo), b, c, h, w, H, W,
+            rows, cols, seg, *_focal_args(focal), dlo.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"resize+CE backward launch failed: CUDA error "
                            f"{err}")
     bwd_launches += 1
+    bf16_bwd_launches += _is_bf16(lo)
     return dlo
 
 
-def kernel_info(kind: str, c: int, h: int, w: int, H: int, W: int
-                ) -> Dict[str, int]:
+def kernel_info(kind: str, c: int, h: int, w: int, H: int, W: int,
+                dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """Registers and local (spill) bytes per thread, static and dynamic
     shared bytes per block and resident blocks per SM of the ``"forward"``
-    or the ``"backward"`` (band) kernel at one geometry, as the card reports
-    them."""
+    or the ``"backward"`` (band) kernel for ``dtype`` logits at one
+    geometry, as the card reports them."""
     lib = load_library()
     if kind == "forward":
         smem = lib.afan_resize_ce_fwd_smem(c, w)
@@ -261,7 +273,9 @@ def kernel_info(kind: str, c: int, h: int, w: int, H: int, W: int
     else:
         raise ValueError(f"kind must be 'forward' or 'backward', got {kind!r}")
     out = (ctypes.c_int * 4)()
-    err = lib.afan_resize_ce_kernel_info(int(kind == "backward"), c, smem, out)
+    err = lib.afan_resize_ce_kernel_info(int(kind == "backward"), c,
+                                         int(dtype == torch.bfloat16), smem,
+                                         out)
     if err != 0:
         raise RuntimeError(f"resize+CE {kind} attributes: CUDA error {err}")
     return {"registers": out[0], "local_bytes": out[1],

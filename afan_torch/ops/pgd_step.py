@@ -7,7 +7,10 @@ L-inf ball around the clean feature. Eager PyTorch runs that as 3 launches
 (7 with the clip), each writing an intermediate; :func:`pgd_update` on a
 CUDA tensor runs it as one hand-written kernel
 (:mod:`afan_torch.ops.kernels.pgd_step`), and on a CPU tensor as
-:func:`pgd_update_plain`, the same chain of PyTorch ops.
+:func:`pgd_update_plain`, the same chain of PyTorch ops. Both take float32
+and bfloat16; in bfloat16 ``gamma`` and ``eps`` are rounded to bfloat16
+first, as ``afan``'s ascent rounds them (``attack.py:114`` and JAX's weak
+typing), so each op rounds once, as ``afan``'s bf16 ops do.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ..core.project import linfball_proj
+from ..core.project import linfball_proj, weak_scalar
 from .kernels import pgd_step as kernels
 
 
@@ -24,8 +27,9 @@ def pgd_update_plain(x: torch.Tensor, g: torch.Tensor,
                      eps: Optional[float] = None, clip: bool = False
                      ) -> torch.Tensor:
     """The plain version: ``x + gamma * sign(g)``, then
-    ``linfball_proj(center, eps, .)`` when ``clip``."""
-    out = x + gamma * torch.sign(g)
+    ``linfball_proj(center, eps, .)`` when ``clip``, with ``gamma`` and
+    ``eps`` in ``x``'s dtype."""
+    out = x + weak_scalar(gamma, x.dtype) * torch.sign(g)
     if clip:
         out = linfball_proj(center, eps, out)
     return out
@@ -37,7 +41,7 @@ def pgd_update(x: torch.Tensor, g: torch.Tensor,
                ) -> torch.Tensor:
     """``x + gamma * sign(g)``, clamped into ``[center - eps, center +
     eps]`` when ``clip``, in a new tensor. On a CUDA tensor it launches the
-    kernel (float32 only) or raises."""
+    kernel (float32 or bfloat16) or raises."""
     if clip and (center is None or eps is None):
         raise ValueError("clip=True requires center and eps")
     if x.device.type == "cpu":

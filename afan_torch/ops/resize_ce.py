@@ -11,8 +11,11 @@ CPU tensor it is :func:`fused_resize_nll_sums_plain`, the upsample and the
 loss written out in PyTorch and differentiated by autograd.
 
 Layout: logits ``(B, C, h, w)`` (the port's NCHW; ``afan`` takes
-``(B, h, w, C)``), labels ``(B, H, W)`` integer with 255 ignored. Both paths
-compute in float32.
+``(B, h, w, C)``), labels ``(B, H, W)`` integer with 255 ignored. The
+logits may be float32 or bfloat16 (the models' compute dtype under
+``--bf16``); both paths compute in float32 and return float32 sums, and the
+gradient has the logits' dtype, as ``afan``'s (``resize_ce_kernel.py:
+232,256-258``).
 """
 from __future__ import annotations
 

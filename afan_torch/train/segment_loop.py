@@ -21,6 +21,14 @@ its own tail forward, so each gets its own batch statistics, as ``afan``'s
 
 Images enter as ``(B, H, W, 3)`` in [0, 1] and labels as ``(B, H, W)``
 (255 ignored), on the model's device.
+
+Under a bfloat16 model (``--bf16``) the step keeps ``afan``'s dtypes: the
+image and the input ascent stay float32; the tap features, their ascents
+(the PGD-update kernel's bfloat16 path) and the os4 logits of every site are
+bfloat16; the upsample + CE kernels read the bfloat16 logits and return
+float32 per-entry sums, so the losses and their mix are float32; the SD
+noise is drawn in float32 and promotes the SD feature to float32, as
+``afan``'s ``uniform_init`` default does (`segment_loop.py:423-424`).
 """
 from __future__ import annotations
 
@@ -283,7 +291,7 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
                 if cfg.noise_sd:
                     adv_sd = adv_sd + uniform_init(
                         adv_sd.shape, cfg.gamma_sd * cfg.noise_sd, generator,
-                        adv_sd.dtype, adv_sd.device)
+                        torch.float32, adv_sd.device)
 
             with torch.no_grad():
                 spec = sample_points(feat_se, adv_se, n_spec)

@@ -11,10 +11,10 @@ trainer); ``--only seg`` phases 1, 2 and
 7-10; ``--only det`` phases 1-6; ``--only cls`` phases 1, 2 and 11-14 (phase
 11 then lacks the segmentation ascents' shapes); ``--only dettrain`` phases
 1, 2 and 15-17; ``--only scan`` phases 1, 2 and 18-21; ``--only variants``
-phases 1, 2 and 22-26. The kernels line then lists the kernels of the
-phases that ran; without phase 8 the upsample + CE kernels have no launch
-count (null), and under ``--only variants`` only the PGD update has
-times.
+phases 1, 2 and 22-26; ``--only bf16`` phases 1, 2 and 27-29. The kernels
+line then lists the kernels of the phases that ran; without phase 8 the
+upsample + CE kernels have no launch count (null), and under ``--only
+variants`` only the PGD update has times.
 
 Phases (any failure exits non-zero):
   1. the device: name, power limit, TF32 settings;
@@ -151,10 +151,33 @@ Phases (any failure exits non-zero):
      phase 11, the same check runs here);
  26. time each variant step of phases 22 and 23 (median and p90 of 5
      steps, peak memory), and the PGD-update kernel at the two input
-     shapes, clipped and unclipped, with its plain version and bound.
+     shapes, clipped and unclipped, with its plain version and bound;
+ 27. train the segmentation recipes as written, ``--bf16`` included, at
+     full width through ``train_segment.main``:
+     ``recipes/seg_voc07_final1.sh`` (VOC, 21 classes, crop 513, batch 4)
+     and ``recipes/seg_city_final.sh`` (Cityscapes, 19 classes, crop 768,
+     batch 4), synthetic data, 2 iterations and one validation each: finite
+     losses, a float32 checkpoint, a bf16-compute model, and per step the
+     bf16 upsample + CE and PGD-update launches that
+     ``seg_launches_per_step`` implies (every launch bf16); the share of
+     each ascent's entries that the bf16 update changed (a step below half
+     a bf16 ulp rounds back to x, as in ``afan``);
+ 28. the bf16 paths against their plain versions: the upsample + CE
+     kernels on bf16 logits at the VOC, Cityscapes and B=8 shapes (sums
+     within 1e-5 and equal to the f32 kernel's on the widened logits; the
+     gradient the f32 kernel's rounded to bf16, bit for bit, and within
+     1.1e-5 + 2^-8 of the plain version's), and the PGD update at phase 27's
+     ascent shapes and step sizes, clipped and not, bit for bit;
+ 29. the Cityscapes recipe's A-FAN step with the model in bf16 in turns
+     with the f32 step (median and p90, images per second, peak memory, the
+     device's busy share and top kernels of each), and the bf16 kernels'
+     times, bounds (bf16 bytes), plain versions and library compositions
+     at the step's shapes.
 
 The line before the last lists each kernel with its launches on its main
-paths, its largest disagreement with the plain version, its time, the plain
+paths (the bf16 paths of phases 27-29 as entries of their own, ``_bf16``,
+timed per bf16 A-FAN step), its largest disagreement with the plain
+version, its time, the plain
 version's time, its bound and the library's time (NMS: per batch-4 detect
 call plus per A-FAN detection step; PGD update: per ALFA step plus per A-FAN
 detection step plus per robust-eval batch); its launches include the variant
@@ -174,6 +197,7 @@ import itertools
 import json
 import os
 import pickle
+import shlex
 import shutil
 import subprocess
 import sys
@@ -261,8 +285,9 @@ CE_CASES = [
 ]
 CE_SUM_TOL, CE_GRAD_TOL = 1e-5, 1.1e-5
 SEG_MODEL, SEG_CROP, SEG_BATCH, SEG_ITRS = "deeplabv3plus_resnet50", 768, 4, 6
-# recipes/seg_city_final.sh's flags but --bf16 (not ported) and the data
-SEG_FLAGS = ["--variant", "afan", "--dataset", "synthetic", "--model",
+# recipes/seg_city_final.sh's flags but --bf16 (phases 27-29 run it) and the
+# data: no --data_root, so the 19-class synthetic Cityscapes
+SEG_FLAGS = ["--variant", "afan", "--dataset", "cityscapes", "--model",
              SEG_MODEL, "--output_stride", "16", "--crop_size", str(SEG_CROP),
              "--batch_size", str(SEG_BATCH), "--lr", "0.1",
              "--pertub_idx_se", "2", "--pertub_idx_sd", "concat",
@@ -840,7 +865,7 @@ def train_full_width():
     print("[8] train: A-FAN DeepLabv3+ ResNet-50, OS 16, crop 768, batch 4, "
           "Cityscapes final recipe, synthetic data")
     for d in os.listdir("checkpoints") if os.path.isdir("checkpoints") else ():
-        if d.startswith("synthetic_chip_smoke_"):
+        if d.startswith("cityscapes_chip_smoke_"):
             shutil.rmtree(os.path.join("checkpoints", d))
     losses, configs = [], []
     real = train_segment.make_afan_seg_step
@@ -884,9 +909,9 @@ def train_full_width():
             f"PGD-update launches {pgd_launches} ({len(updates)} updates) in "
             f"{SEG_ITRS} steps (expected {pgd_per_step} per step)")
     dirs = [d for d in os.listdir("checkpoints")
-            if d.startswith("synthetic_chip_smoke_")]
+            if d.startswith("cityscapes_chip_smoke_")]
     path = os.path.join("checkpoints", dirs[0],
-                        f"latest_{SEG_MODEL}_synthetic.pt")
+                        f"latest_{SEG_MODEL}_cityscapes.pt")
     require(len(dirs) == 1 and os.path.isfile(path), "no checkpoint written")
     saved = torch.load(path, map_location="cpu", weights_only=True)
     require(saved["cur_itrs"] == SEG_ITRS
@@ -1111,7 +1136,7 @@ def ce_parts(lo, lab, g):
     }
     b, c, h = lo.shape[:3]
     valid = int((lab != 255).sum())
-    lo_bytes, lab_bytes = lo.numel() * 4, lab.numel() * 4
+    lo_bytes, lab_bytes = lo.numel() * lo.element_size(), lab.numel() * 4
     interp = CE_LERP_OPS * (1 + h / size[0])
     fwd_ops = interp + CE_LSE_OPS
     bwd_ops = fwd_ops + CE_SOFTMAX_GRAD_OPS + interp
@@ -1194,20 +1219,25 @@ def ptxas_lines(log, key):
     return out
 
 
-def time_ce_kernels(card, labs, per_step):
-    """Phase 10, the kernels: what ptxas and the card report of the two
-    upsample + CE kernels, and each kernel in turns with the library
-    composition, its plain version and its bound at the step's shapes.
-    Returns the two kernels' entries of the kernels line (times per A-FAN
-    step: its B=4 sites and its B=8 spectrum site)."""
-    log = kbuild.build_log("resize_ce.cu")
-    for key in ("resize_ce_fwd", "resize_ce_bwd_bands"):
-        for line in ptxas_lines(log, key) or [f"no ptxas record of {key}"]:
-            print(f"    ptxas: {line}")
+def time_ce_kernels(card, labs, per_step, dtype=torch.float32):
+    """Phase 10 (and 29 for bfloat16 logits), the kernels: what ptxas and
+    the card report of the two upsample + CE kernels, and each kernel in
+    turns with the library composition, its plain version and its bound at
+    the step's shapes, on ``dtype`` logits. Returns the two kernels' entries
+    of the kernels line (times per A-FAN step: its B=4 sites and its B=8
+    spectrum site; names ending in ``_bf16`` for bfloat16)."""
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    if not suffix:
+        log = kbuild.build_log("resize_ce.cu")
+        for key in ("resize_ce_fwd", "resize_ce_bwd_bands"):
+            for line in (ptxas_lines(log, key)
+                         or [f"no ptxas record of {key}"]):
+                print(f"    ptxas: {line}")
     h = SEG_CROP // 4
     for kind in ("forward", "backward"):
-        info = krce.kernel_info(kind, 19, h, h, SEG_CROP, SEG_CROP)
-        print(f"    {kind} kernel at C=19 {h}->{SEG_CROP}: {info} ({card})")
+        info = krce.kernel_info(kind, 19, h, h, SEG_CROP, SEG_CROP, dtype)
+        print(f"    {kind} kernel at C=19 {h}->{SEG_CROP} on {dtype}: {info} "
+              f"({card})")
     # the step's sites: SE and SD ascents, clean and SD losses at B=4; the
     # two stacked spectrum tails at B=8
     shapes = {SEG_BATCH: per_step - 1, 2 * SEG_BATCH: 1}
@@ -1215,12 +1245,13 @@ def time_ce_kernels(card, labs, per_step):
     rng = np.random.RandomState(5)
     for b, count in shapes.items():
         lab = labs.repeat(b // SEG_BATCH, 1, 1).to(torch.int32).contiguous()
-        lo = cuda(rng.randn(b, 19, h, h).astype(np.float32))
+        lo = cuda(rng.randn(b, 19, h, h).astype(np.float32)).to(dtype)
         parts = ce_parts(lo, lab, torch.ones(b, device="cuda"))
         for k, v in parts.items():
             if k != "turns":
                 total[k] = total.get(k, 0.0) + count * v
-        print(f"    resize+CE B={b} {h}->{SEG_CROP} C=19 (x{count} per step): "
+        print(f"    resize+CE {dtype} B={b} {h}->{SEG_CROP} C=19 (x{count} "
+              f"per step): "
               f"forward kernel {parts['fwd']:.4f} ms, plain "
               f"{parts['plain_fwd']:.4f}, library {parts['lib_fwd']:.4f}, "
               f"bound max(bytes {parts['fwd_bytes_ms']:.5f}, operations "
@@ -1238,8 +1269,8 @@ def time_ce_kernels(card, labs, per_step):
                   f"{np.mean(t_ms):.4f}; {o_name} "
                   f"{np.mean(t_ms) / np.mean(o_ms):.2f}x faster ({card})")
     entries = []
-    for half, name, line in (("fwd", "resize_ce_forward", 92),
-                             ("bwd", "resize_ce_backward", 127)):
+    for half, name, line in (("fwd", "resize_ce_forward" + suffix, 92),
+                             ("bwd", "resize_ce_backward" + suffix, 127)):
         byte_ms, op_ms = total[f"{half}_bytes_ms"], total[f"{half}_ops_ms"]
         entries.append({
             "name": name, "route": "cuda",
@@ -1288,8 +1319,10 @@ def segmentation_phases(card, kernels_only=False):
 
 
 def bits_equal(a, b):
-    """Bit-equal, NaN included: the int32 views are compared."""
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    """Bit-equal, NaN included: the integer views of the same width are
+    compared."""
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
 
 
 SPECIAL = (0.0, -0.0, 1e-40, -1e-40, 1e-45, float("nan"), float("inf"),
@@ -1586,17 +1619,21 @@ def back_to_back_us(fn, reps=200):
     return (time.perf_counter() - t0) / reps * 1e6
 
 
-def time_pgd_update(card, shape):
-    """The kernel, its plain version and the bound at ``shape``, with and
-    without the clip: per-call device ms, inputs cycled through 8 sets
-    (192 MB, above the 50 MB L2) so each call reads them from HBM; and the
-    wall time per call back to back."""
+def time_pgd_update(card, shape, dtype=torch.float32, gamma=ALFA_GAMMA,
+                    eps=ALFA_EPS):
+    """The kernel, its plain version and the bound at ``shape`` on
+    ``dtype`` tensors, with and without the clip: per-call device ms,
+    inputs cycled through 8 sets (above the 50 MB L2 at the trainers'
+    shapes) so each call reads them from HBM; and the wall time per call
+    back to back."""
     n = int(np.prod(shape))
-    sets = itertools.cycle([pgd_inputs(shape, 100 + i) for i in range(8)])
+    sets = itertools.cycle([tuple(t.to(dtype) for t in
+                                  pgd_inputs(shape, 100 + i))
+                            for i in range(8)])
+    size = torch.tensor([], dtype=dtype).element_size()
     out = {}
     for clip in (False, True):
-        kw = dict(gamma=ALFA_GAMMA, eps=ALFA_EPS if clip else None,
-                  clip=clip)
+        kw = dict(gamma=gamma, eps=eps if clip else None, clip=clip)
 
         def call(fn):
             x, g, c = next(sets)
@@ -1606,10 +1643,11 @@ def time_pgd_update(card, shape):
         p_ms = queued_ms(lambda: call(tpgd.pgd_update_plain))
         k_us = back_to_back_us(lambda: call(tpgd.pgd_update))
         p_us = back_to_back_us(lambda: call(tpgd.pgd_update_plain))
-        byte_ms = (3 + clip) * 4 * n / HBM_BYTES_PER_S * 1e3
+        byte_ms = (3 + clip) * size * n / HBM_BYTES_PER_S * 1e3
         op_ms = (PGD_CLIP_OPS if clip else PGD_OPS) * n / F32_OPS_PER_S * 1e3
         out[clip] = (k_ms, p_ms, byte_ms, op_ms)
-        print(f"    pgd_update {shape} clip={clip}: kernel {k_ms:.5f} ms, "
+        print(f"    pgd_update {shape} {dtype} clip={clip}: kernel "
+              f"{k_ms:.5f} ms, "
               f"plain {p_ms:.5f} ms, bound max(bytes {byte_ms:.5f}, "
               f"operations {op_ms:.6f}) ms; kernel at "
               f"{k_ms / max(byte_ms, op_ms):.2f}x its bound; back to back, "
@@ -2113,7 +2151,7 @@ def run_segment_cli(variant, extra, updates):
     launches."""
     tag = f"chip_variant_{variant}"
     for d in os.listdir("checkpoints") if os.path.isdir("checkpoints") else ():
-        if d.startswith(f"synthetic_{tag}_"):
+        if d.startswith(f"cityscapes_{tag}_"):
             shutil.rmtree(os.path.join("checkpoints", d))
     per_step, losses, expected = [], [], []
     real = train_segment.build_step
@@ -2153,9 +2191,9 @@ def run_segment_cli(variant, extra, updates):
             f"{name}: (forward, backward, PGD-update) launches per step "
             f"{per_step}, expected {(sites, sites, pgd)}")
     dirs = [d for d in os.listdir("checkpoints")
-            if d.startswith(f"synthetic_{tag}_")]
+            if d.startswith(f"cityscapes_{tag}_")]
     path = os.path.join("checkpoints", dirs[0] if dirs else "",
-                        f"latest_{SEG_MODEL}_synthetic.pt")
+                        f"latest_{SEG_MODEL}_cityscapes.pt")
     require(len(dirs) == 1 and os.path.isfile(path),
             f"{name}: no checkpoint written")
     saved = torch.load(path, map_location="cpu", weights_only=True)
@@ -2294,6 +2332,281 @@ def variant_phases(card, own_pgd_check):
                           "bound_ms": max(byte_ms, op_ms),
                           "bound_by": ("bytes" if byte_ms >= op_ms
                                        else "operations")}}
+
+# recipes/seg_voc07_final1.sh (MIX 01) and recipes/seg_city_final.sh (sweep
+# 1) as written, --bf16 included, with no data flag (the synthetic VOC and
+# Cityscapes): phases 27-29.
+BF16_RECIPES = (("seg_voc07_final1.sh", {"MIX": "01"}),
+                ("seg_city_final.sh", {"N": "1", "GAMMASE": "0.02",
+                                       "MIX": "01"}))
+BF16_STEPS = 2
+# (name, B, (h, w), (H, W), C): the bf16 logits of the VOC recipe's sites
+# (crop 513), the Cityscapes recipe's (crop 768) and its B=8 spectrum site
+BF16_CE_CASES = [("voc513", 4, (129, 129), (513, 513), 21),
+                 ("city768", 4, (192, 192), (768, 768), 19),
+                 ("city768_b8", 8, (192, 192), (768, 768), 19)]
+# The bf16 gradient against the plain version's (max abs error over max abs
+# value): the f32 kernels' tolerance plus each side's rounding to bf16, at
+# most half an ulp, 2^-9 of the largest value, each.
+BF16_GRAD_TOL = CE_GRAD_TOL + 2 * 2.0 ** -9
+
+
+def recipe_flags(name, env):
+    """The flags that ``recipes/<name>`` passes to afan's segmentation CLI,
+    with its shell variables set to ``env`` and its data flag left out."""
+    with open(os.path.join(ROOT, "recipes", name)) as f:
+        text = f.read().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines()
+                if "-m afan.cli.train_segment" in ln)
+    for k, v in env.items():
+        line = line.replace("${%s}" % k, v)
+    line = line.replace("$(seg_smoke_flags)", "")
+    require("$" not in line, f"a shell variable is left in {line}")
+    argv = shlex.split(line)
+    return argv[argv.index("afan.cli.train_segment") + 1:]
+
+
+def run_bf16_recipe(name, env, updates):
+    """Phase 27, one run: ``train_segment.main`` with ``recipes/<name>``'s
+    flags as written, ``BF16_STEPS`` iterations and one validation. Each
+    PGD update's (shape, clip, gamma, dtype, share of entries it changed)
+    goes to ``updates``. Returns the bf16 (forward, backward, PGD-update)
+    launches of the run."""
+    tag = "chip_bf16_" + os.path.splitext(name)[0]
+    argv = recipe_flags(name, env) + [
+        "--limit_itrs", str(BF16_STEPS), "--val_interval", str(BF16_STEPS),
+        "--print_interval", "1", "--exp", tag]
+    args = train_segment.get_parser().parse_args(argv)
+    require(args.bf16, f"{name} does not pass --bf16")
+    prefix = f"{args.dataset}_{tag}_"
+    for d in os.listdir("checkpoints") if os.path.isdir("checkpoints") else ():
+        if d.startswith(prefix):
+            shutil.rmtree(os.path.join("checkpoints", d))
+    per_step, losses, expected, dtypes = [], [], [], []
+    real = train_segment.build_step
+
+    def counts():
+        return (krce.bf16_fwd_launches, krce.bf16_bwd_launches,
+                kpgd.bf16_launches, krce.fwd_launches, krce.bwd_launches,
+                kpgd.launches)
+
+    def recording(args_, model, *a):
+        dtypes.append((model.dtype, next(model.parameters()).dtype))
+        step = real(args_, model, *a)
+        expected.append(seg_expected(args_))
+
+        def run(images, labels, generator=None):
+            before = counts()
+            out = step(images, labels, generator)
+            per_step.append(tuple(x - y for x, y in zip(counts(), before)))
+            losses.append({k: float(v) for k, v in out.items()})
+            return out
+        return run
+
+    def update(x, g, center=None, **kw):
+        out = tpgd.pgd_update(x, g, center, **kw)
+        updates.append((tuple(x.shape), bool(kw.get("clip")), kw["gamma"],
+                        x.dtype, float((out != x).float().mean())))
+        return out
+
+    train_segment.build_step = recording
+    t0 = time.time()
+    krce.bf16_fwd_launches = krce.bf16_bwd_launches = kpgd.bf16_launches = 0
+    try:
+        with patched_update(update):
+            score = train_segment.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        train_segment.build_step = real
+    totals = (krce.bf16_fwd_launches, krce.bf16_bwd_launches,
+              kpgd.bf16_launches)
+    secs = time.time() - t0
+    (sites, pgd), = expected
+    require(dtypes == [(torch.bfloat16, torch.float32)],
+            f"{name}: model compute and parameter dtypes {dtypes}")
+    require(len(losses) == BF16_STEPS, f"{name}: {len(losses)} steps ran")
+    require(all(np.isfinite(v) for rec in losses for v in rec.values()),
+            f"{name}: non-finite loss in {losses}")
+    require(per_step == [(sites, sites, pgd) * 2] * BF16_STEPS
+            and totals == (BF16_STEPS * sites, BF16_STEPS * sites,
+                           BF16_STEPS * pgd),
+            f"{name}: bf16 and all (forward, backward, PGD-update) launches "
+            f"per step {per_step}, run {totals}; expected "
+            f"{(sites, sites, pgd)} per step, all bf16")
+    dirs = [d for d in os.listdir("checkpoints") if d.startswith(prefix)]
+    path = os.path.join("checkpoints", dirs[0] if dirs else "",
+                        f"latest_{args.model}_{args.dataset}.pt")
+    require(len(dirs) == 1 and os.path.isfile(path),
+            f"{name}: no checkpoint written")
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    require(saved["cur_itrs"] == BF16_STEPS
+            and all(v.dtype != torch.bfloat16 and bool(torch.isfinite(v).all())
+                    for v in saved["model_state"].values()
+                    if v.is_floating_point()),
+            f"{name}: the checkpoint is not the finished run's f32 state")
+    print(f"    {name} ({args.dataset}, crop {args.crop_size}, batch "
+          f"{args.batch_size}, --bf16): {BF16_STEPS} steps + 1 validation in "
+          f"{secs:.1f} s; losses {[round(r['loss'], 4) for r in losses]}; "
+          f"mIoU {score:.4f}; per step {sites} bf16 upsample + CE launches "
+          f"each way and {pgd} bf16 PGD updates, as expected; checkpoint "
+          f"{path}")
+    return totals
+
+
+def bf16_recipes(updates):
+    """Phase 27: both recipes, each run's PGD updates in ``updates[name]``;
+    returns the bf16 launches of both runs."""
+    print("[27] train the segmentation recipes as written (--bf16) at full "
+          "width: " + ", ".join(n for n, _ in BF16_RECIPES))
+    totals = [0, 0, 0]
+    for name, env in BF16_RECIPES:
+        run = run_bf16_recipe(name, env, updates.setdefault(name, []))
+        totals = [t + r for t, r in zip(totals, run)]
+        gc.collect()
+        torch.cuda.empty_cache()
+    shares = {}
+    for shape, _, gamma, _, changed in sum(updates.values(), []):
+        shares.setdefault((shape, round(gamma * 255, 4)), []).append(changed)
+    for (shape, gamma), got in sorted(shares.items()):
+        print(f"    bf16 PGD update at {shape}, gamma {gamma}/255: it "
+              f"changed {100 * np.mean(got):.2f}% of the entries (mean of "
+              f"{len(got)} updates; a step below half a bf16 ulp rounds "
+              f"back to x, as in afan)")
+    return totals
+
+
+def bf16_kernels_vs_plain(updates, errs):
+    """Phase 28: the bf16 paths of the upsample + CE kernels at the
+    recipes' shapes (sums within CE_SUM_TOL of the plain version and equal
+    to the f32 kernel's on the widened logits; the gradient the f32
+    kernel's rounded to bf16, bit for bit, and within BF16_GRAD_TOL of the
+    plain version's), and of the PGD update at the shapes of phase 27's
+    updates, clipped and not, bit-equal to its plain version."""
+    print("[28] bf16 upsample + CE and PGD-update kernels vs their plain "
+          "versions")
+    for name, B, hw, HW, C in BF16_CE_CASES:
+        lo, lab, g = ce_inputs(B, hw, HW, C)
+        lo = lo.bfloat16()
+        sums = krce.resize_ce_forward(lo, lab)
+        dlo = krce.resize_ce_backward(lo, lab, g)
+        sums32 = krce.resize_ce_forward(lo.float(), lab)
+        dlo32 = krce.resize_ce_backward(lo.float(), lab, g)
+        want_s = trce.fused_resize_nll_sums_plain(lo, lab, HW)
+        want_d = trce.resize_ce_grad_plain(lo, lab, g)
+        torch.cuda.synchronize()
+        es = rel_err(sums, want_s)
+        eg = rel_err(dlo.float(), want_d.float())
+        diff = (dlo.float() - want_d.float()).abs()
+        errs["fwd"].append(float((sums - want_s).abs().max()))
+        errs["bwd"].append(float(diff.max()))
+        same = torch.equal(sums, sums32) and torch.equal(dlo,
+                                                         dlo32.bfloat16())
+        print(f"  {name}: B={B} {hw}->{HW} C={C} bf16 logits: sums rel "
+              f"{es:.3e}; gradient {dlo.dtype}, the f32 kernel's on the "
+              f"widened logits rounded to bf16 bit for bit: {same}; against "
+              f"the plain version rel {eg:.3e} ({int((diff > 0).sum())} of "
+              f"{diff.numel()} entries differ)")
+        require(es <= CE_SUM_TOL, f"{name}: bf16 sums rel err {es}")
+        require(same, f"{name}: the bf16 kernels differ from the f32 ones "
+                      f"on the widened logits")
+        require(dlo.dtype == torch.bfloat16 and eg <= BF16_GRAD_TOL,
+                f"{name}: bf16 gradient rel err {eg} > {BF16_GRAD_TOL}")
+    lo, lab, g = ce_inputs(4, (129, 129), (513, 513), 21, seed=1)
+    x = lo.bfloat16().requires_grad_(True)
+    before = (krce.bf16_fwd_launches, krce.bf16_bwd_launches)
+    (grad,) = torch.autograd.grad(
+        trce.fused_resize_nll_sums(x, lab.long(), (513, 513)), x, g)
+    require((krce.bf16_fwd_launches, krce.bf16_bwd_launches)
+            == (before[0] + 1, before[1] + 1) and grad.dtype == torch.bfloat16,
+            "fused_resize_nll_sums on bf16 logits did not launch the bf16 "
+            "kernels")
+    pgd_err = []
+    cases = sorted({(shape, gamma) for shape, _, gamma, dtype, _ in updates
+                    if dtype == torch.bfloat16})
+    for i, (shape, gamma) in enumerate(cases):
+        x, g, c = (t.bfloat16() for t in pgd_inputs(shape, 400 + i))
+        for clip in (False, True):
+            pgd_case(f"bf16 recipe shape {i}", x, g, c, clip, pgd_err,
+                     gamma, 2.0 / 255)
+    print(f"    {len(pgd_err)} bf16 PGD-update cases bit-equal at "
+          f"{[c[0] for c in cases]}")
+    return max(pgd_err)
+
+
+def time_bf16_step(card, per_step, city_updates):
+    """Phase 29: the Cityscapes recipe's A-FAN step with the model in bf16
+    in turns with the f32 step (f32, bf16, bf16, f32, twice; 5 steps each
+    after 2), from the same weights and batch: median and p90 ms, images
+    per second, peak memory, each step's profile; then the bf16 kernels at
+    the step's shapes. Returns the bf16 kernels' entries."""
+    print(f"[29] timing on {card}: the bf16 A-FAN step in turns with the "
+          f"f32 step (Cityscapes recipe, crop {SEG_CROP}, batch {SEG_BATCH})")
+    model32, imgs, labs = seg_model_and_batch()
+    model16 = build_model(SEG_MODEL, 19, 16, torch.bfloat16)
+    model16.reset_parameters(torch.Generator().manual_seed(0))
+    model16.cuda()
+    steps = {"f32": seg_step(model32), "bf16": seg_step(model16)}
+    samples = {"f32": [], "bf16": []}
+    for k in ("f32", "bf16", "bf16", "f32") * 2:
+        samples[k] += list(cuda_samples(lambda: steps[k](imgs, labs), 5,
+                                        warmup=2))
+    med = {}
+    for k, t in samples.items():
+        torch.cuda.reset_peak_memory_stats()
+        steps[k](imgs, labs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        med[k] = float(np.median(t))
+        print(f"    {k} A-FAN step: median {med[k]:.3f} ms, p90 "
+              f"{np.percentile(t, 90):.3f} ms over {len(t)} steps in turns, "
+              f"{SEG_BATCH * 1e3 / med[k]:.2f} imgs/s, peak memory "
+              f"{peak:.2f} GiB ({card})")
+    print(f"    bf16 step {med['f32'] / med['bf16']:.2f}x faster than f32 "
+          f"(medians in turns, {card})")
+    for k in ("bf16", "f32"):
+        profile_step(lambda: steps[k](imgs, labs), label=f"{k} A-FAN")
+    del steps, model32, model16, imgs
+    gc.collect()
+    torch.cuda.empty_cache()
+    entries = time_ce_kernels(card, labs, per_step, torch.bfloat16)
+    gammas = {}
+    for shape, clip, gamma, dtype, _ in city_updates:
+        if dtype == torch.bfloat16 and not clip:
+            gammas[shape] = gamma
+    k_ms = p_ms = byte_ms = op_ms = 0.0
+    for shape, gamma in sorted(gammas.items()):
+        k, p, b, o = time_pgd_update(card, shape, torch.bfloat16, gamma,
+                                     2.0 / 255)[False]
+        k_ms, p_ms, byte_ms, op_ms = k_ms + k, p_ms + p, byte_ms + b, op_ms + o
+    print(f"    pgd_update_bf16 per bf16 A-FAN step ({len(gammas)} unclipped "
+          f"updates at {sorted(gammas)}): kernel {k_ms:.5f} ms, plain "
+          f"{p_ms:.5f}, bound {max(byte_ms, op_ms):.5f} ms ({card})")
+    source, replaces = KERNEL_SOURCES["pgd_update"]
+    entries.append({"name": "pgd_update_bf16", "route": "cuda",
+                    "source": source, "replaces": replaces, "ms": k_ms,
+                    "plain_ms": p_ms, "bound_ms": max(byte_ms, op_ms),
+                    "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                    "library_ms": None})
+    return entries
+
+
+def bf16_phases(card):
+    """Phases 27-29; returns the bf16 kernels' entries of the kernels
+    line."""
+    updates = {}
+    fwd, bwd, pgd = bf16_recipes(updates)
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = {"fwd": [], "bwd": []}
+    pgd_err = bf16_kernels_vs_plain(sum(updates.values(), []), errs)
+    per_step = seg_launches_per_step(seg_recipe())[0]
+    entries = time_bf16_step(card, per_step, updates["seg_city_final.sh"])
+    for e in entries:
+        e["launches"], e["max_abs_err"] = {
+            "resize_ce_forward_bf16": (fwd, max(errs["fwd"])),
+            "resize_ce_backward_bf16": (bwd, max(errs["bwd"])),
+            "pgd_update_bf16": (pgd, pgd_err)}[e["name"]]
+    return entries
 
 
 KERNEL_SOURCES = {
@@ -2710,7 +3023,8 @@ def merge_entry(entries, extra):
     entries.append(extra)
 
 
-GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain", "scan", "variants")
+GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain", "scan", "variants",
+          "bf16")
 
 
 def main(argv=None):
@@ -2757,6 +3071,10 @@ def main(argv=None):
     if only in (None, "seg", "ce"):
         seg_entries, seg_updates = segmentation_phases(card, only == "ce")
         entries += seg_entries
+        gc.collect()
+        torch.cuda.empty_cache()
+    if only in (None, "bf16"):
+        entries += bf16_phases(card)
         gc.collect()
         torch.cuda.empty_cache()
     if only in (None, "variants"):

@@ -266,13 +266,55 @@ def test_pgd_step_kernel_on_misaligned_views(card):
 def test_pgd_step_kernel_refuses_what_it_does_not_take(card):
     x = torch.zeros(8, device=card)
     with pytest.raises(TypeError):
-        kpgd.pgd_update(x.bfloat16(), x.bfloat16(), gamma=0.1)
+        kpgd.pgd_update(x.half(), x.half(), gamma=0.1)
+    with pytest.raises(TypeError):
+        kpgd.pgd_update(x.bfloat16(), x, gamma=0.1)
     with pytest.raises(ValueError):
         kpgd.pgd_update(x.view(2, 4).t(), x.view(2, 4).t(), gamma=0.1)
     with pytest.raises(ValueError):
         kpgd.pgd_update(x, x[:4], gamma=0.1)
     with pytest.raises(ValueError):
         kpgd.pgd_update(x, x, gamma=0.1, clip=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,clip", [(4 * 512 * 9 * 9, False), (1001, True),
+                                    (7, True), (4097, False)])
+def test_pgd_step_kernel_bf16_bit_equal_to_plain(card, n, clip):
+    """The bf16 path (8 elements per 16-byte load, a scalar tail, the
+    scalar loop on misaligned views) against the plain bf16 ops, with a
+    step below half a bf16 ulp of most entries."""
+    gen = torch.Generator(device=card).manual_seed(n)
+    x, g, c = (torch.randn(n + 1, generator=gen, device=card).bfloat16()
+               for _ in range(3))
+    for view in ((x[:n], g[:n], c[:n]), (x[1:], g[1:], c[1:])):
+        kw = dict(gamma=0.02 / 255, eps=2.0 / 255 if clip else None,
+                  clip=clip)
+        got = kpgd.pgd_update(view[0], view[1], view[2] if clip else None,
+                              **kw)
+        want = tpgd.pgd_update_plain(view[0], view[1],
+                                     view[2] if clip else None, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hw,HW,C,focal,all_ignored", CE_CASES[:4])
+def test_resize_ce_kernels_on_bf16_logits(card, B, hw, HW, C, focal,
+                                          all_ignored):
+    """bf16 logits: the sums equal the f32 kernel's on the widened logits,
+    and the gradient is the f32 kernel's rounded to bf16, bit for bit."""
+    lo, lab, g = _ce_inputs(card, B, hw, HW, C, all_ignored=all_ignored)
+    lo16 = lo.bfloat16()
+    sums = krce.resize_ce_forward(lo16, lab, focal)
+    dlo = krce.resize_ce_backward(lo16, lab, g, focal)
+    want_s = krce.resize_ce_forward(lo16.float(), lab, focal)
+    want_d = krce.resize_ce_backward(lo16.float(), lab, g, focal)
+    torch.cuda.synchronize()
+    assert sums.dtype == torch.float32 and dlo.dtype == torch.bfloat16
+    assert torch.equal(sums, want_s)
+    assert torch.equal(dlo, want_d.bfloat16())
 
 
 @pytest.mark.cuda

@@ -264,7 +264,8 @@ def test_cli_on_cpu_with_checkpoint_and_resume(tmp_path, monkeypatch):
     saved = load_training_state(latest)
     assert saved["cur_itrs"] == 2 and saved["scheduler_state"][
         "last_epoch"] == 2
-    fresh = build_model("deeplabv3plus_resnet50", 19)
+    # --dataset synthetic is afan's synthetic VOC: 21 classes
+    fresh = build_model("deeplabv3plus_resnet50", 21)
     assert overlap_restore(fresh, load_checkpoint(latest)) == 1.0
     assert all(torch.equal(v, saved["model_state"][k])
                for k, v in fresh.state_dict().items())
@@ -321,14 +322,15 @@ def run_dir(main, argv, monkeypatch):
                          ids=["final01", "final02"])
 def test_cli_takes_the_recipe_flags_and_names_the_run_as_afan(env,
                                                               monkeypatch):
-    """The port's CLI parses every flag of the canonical Cityscapes recipe
-    but ``--bf16`` (bf16 is not ported), ``--adv_loss_weight_sd 0.3``
-    included, and names the run's directory as afan's CLI does."""
+    """The port's CLI parses every flag of the canonical Cityscapes recipe,
+    ``--adv_loss_weight_sd 0.3`` and ``--bf16`` included, and names the
+    run's directory as afan's CLI does."""
     flags = recipe_flags(**env)
     assert "--adv_loss_weight_sd" in flags and "--bf16" in flags
-    port_flags = [f for f in flags if f != "--bf16"]
+    port_flags = list(flags)
     args = train_segment.get_parser().parse_args(port_flags)
     assert args.adv_loss_weight_sd == 0.3 and args.mix_layer == env["MIX"]
+    assert args.bf16 and args.dataset == "cityscapes"
     assert train_segment.afan_config(args).mix_mask == (
         0, int(env["MIX"][0]), int(env["MIX"][1]))
     want = run_dir(j_train_segment.main, flags, monkeypatch)
