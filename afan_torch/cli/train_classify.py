@@ -21,7 +21,9 @@ reference's: per-epoch train/val/test accuracy, ``checkpoint.pt`` and
 best-on-val ``best_model.pt``
 (`main_perturb.py:116-136`), ``result.pkl`` accuracy curves and
 ``result_norm.pkl`` perturbation-norm telemetry (`main_perturb.py:138-150`)
-in ``--save_dir``.
+in ``--save_dir``. ``--bf16`` makes bfloat16 the model's compute dtype in
+every mode (``afan``'s ``ResNetS(dtype=bf16)``); parameters, optimizer
+state and checkpoints stay float32.
 """
 from __future__ import annotations
 
@@ -99,7 +101,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--l1_coef", default=1.0, type=float)
     # afan's accelerator options
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute (not ported yet: raises)")
+                   help="bfloat16 compute in the model (parameters stay "
+                        "float32)")
     p.add_argument("--num_devices", type=int, default=None,
                    help="data-parallel devices (only 1 is ported)")
     p.add_argument("--limit_batches", type=int, default=0,
@@ -122,10 +125,6 @@ def get_parser() -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """The flags whose paths are not ported yet raise, naming the ROADMAP
     item, instead of running something else."""
-    if args.bf16:
-        raise NotImplementedError(
-            "--bf16 is not ported yet (ROADMAP queue 1: bf16; the PGD-step "
-            "kernel takes float32)")
     if args.num_devices is not None and args.num_devices > 1:
         raise NotImplementedError(
             "--num_devices > 1 is not ported yet (ROADMAP queue 1: data "
@@ -135,7 +134,8 @@ def refuse_unported(args) -> None:
 def build_model(args, generator: torch.Generator) -> ResNetS:
     classes = 100 if args.dataset == "cifar100" else 10
     init_w = args.init_weight if args.mode == "learnable" else 1.0
-    return ResNetS((9, 9, 9), classes, init_w, generator=generator)
+    return ResNetS((9, 9, 9), classes, init_w, generator=generator,
+                   dtype=torch.bfloat16 if args.bf16 else torch.float32)
 
 
 def build_optimizer(args, model: ResNetS, steps_per_epoch: int):

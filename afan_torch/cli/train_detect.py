@@ -11,18 +11,22 @@ point, half the loss).
 
 Canonical run: VOC2007 final setting 1
 (`Detection/sh/voc2007/clean50/090_final_setting1.sh`,
-``recipes/detect_voc07_final_setting1.sh`` without its ``--bf16``):
-ResNet-50 Faster R-CNN, batch 8, lr 0.008 with warmup and steps at 6250 and
-8750, SE tap 2 with gamma 1.0/255 and AFN on the upper spectrum points
-(``--mix_layer 0011``), SD on the pooled ROI vector with gamma 0.1/255 and
-weight 0.3::
+``recipes/detect_voc07_final_setting1.sh`` as written): ResNet-50 Faster
+R-CNN, batch 8, lr 0.008 with warmup and steps at 6250 and 8750, SE tap 2
+with gamma 1.0/255 and AFN on the upper spectrum points (``--mix_layer
+0011``), SD on the pooled ROI vector with gamma 0.1/255 and weight 0.3,
+bfloat16 compute::
 
     python -m afan_torch.cli.train_detect --variant afan -s voc2007 \\
         -b resnet50 -o ./outputs/voc07_final1 --batch_size 8 \\
         --learning_rate 0.008 --step_lr_sizes "[6250, 8750]" \\
         --num_steps_to_snapshot 1250 --num_steps_to_finish 11250 \\
         --mix_layer 0011 --pertub_idx_se 2 --gamma_se 1.0 --gamma_sd 0.1 \\
-        --sd_adv_loss_weight 0.3 --only_roi_sd
+        --sd_adv_loss_weight 0.3 --only_roi_sd --bf16
+
+``--bf16`` makes bfloat16 the model's compute dtype (``afan``'s
+``FasterRCNN(dtype=bf16)``); parameters, optimizer state and checkpoints
+stay float32.
 
 Data is ``afan``'s synthetic VOC stand-in (reading VOC from disk is not
 ported yet); weights start from a seeded random init, the torso from
@@ -138,7 +142,8 @@ def get_parser():
                    help="train the stem, layer1 and the BatchNorm affines "
                         "too (training from scratch)")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute (not ported yet: raises)")
+                   help="bfloat16 compute in the model (parameters stay "
+                        "float32)")
     p.add_argument("--num_devices", type=int, default=None,
                    help="data-parallel devices (only 1 is ported)")
     p.add_argument("--eval_every", type=int, default=0,
@@ -153,8 +158,6 @@ def refuse_unported(args) -> None:
     instead of running something else (``--pertub_idx_sd rpn`` and
     ``--remat_tails`` raise in the step's factory)."""
     where = "not ported yet (ROADMAP.md, queue 1: detection)"
-    if args.bf16:
-        raise NotImplementedError(f"--bf16 is {where}")
     if args.num_devices is not None and args.num_devices > 1:
         raise NotImplementedError(f"--num_devices > 1 is {where}")
 
@@ -232,7 +235,8 @@ def main(argv=None):
         args.image_max_side, seed=args.seed)
     Log.i(f"Found {len(train_loader.samples)} train samples")
 
-    model = FasterRCNN(frcnn_config(args, num_classes))
+    model = FasterRCNN(frcnn_config(args, num_classes),
+                       torch.bfloat16 if args.bf16 else torch.float32)
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
     if args.pretrained_backbone:
         frac = overlap_restore(model.features,

@@ -18,6 +18,13 @@ torso), ``rpn`` (``_features.0``, ``_anchor_objectness``,
 ``_proposal_transformer``, and ``hidden``, the same module object as
 ``features.layer4``), so reference checkpoints load with
 ``load_state_dict``. Every BatchNorm is frozen.
+
+``dtype`` is the compute dtype (``afan``'s ``FasterRCNN(dtype=...)``,
+bfloat16 under ``--bf16``): the parameters stay float32, every convolution
+and linear computes in ``dtype`` (:mod:`afan_torch.models.resnet`), and so
+do the features, the pooled ROIs, the heads' outputs and the CE losses; the
+smooth-L1 losses, anchors, proposals and detected boxes are float32, as in
+``afan``.
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ..resnet import NUM_FEATURES_OUT, NUM_HIDDEN_OUT, from_name
+from ...ops.lowp import mean
+from ..resnet import (NUM_FEATURES_OUT, NUM_HIDDEN_OUT, from_name,
+                      set_compute_dtype)
 from .anchors import ANCHOR_RATIOS, ANCHOR_SIZES, generate_anchors
 from .roi_head import (RoiPredictors, RoiTargets, generate_detections,
                        pool_and_hidden, roi_loss, roi_targets)
@@ -46,9 +55,9 @@ class DetectionLosses(NamedTuple):
 
     def total(self) -> torch.Tensor:
         """Their means summed, as `Detection/attack_algo.py:21-27`."""
-        return (self.anchor_objectness.mean() + self.anchor_transformer.mean()
-                + self.proposal_class.mean()
-                + self.proposal_transformer.mean())
+        return (mean(self.anchor_objectness) + mean(self.anchor_transformer)
+                + mean(self.proposal_class)
+                + mean(self.proposal_transformer))
 
 
 def _nchw(images: torch.Tensor) -> torch.Tensor:
@@ -76,9 +85,11 @@ class FRCNNConfig:
 
 
 class FasterRCNN(nn.Module):
-    def __init__(self, cfg: FRCNNConfig = FRCNNConfig()):
+    def __init__(self, cfg: FRCNNConfig = FRCNNConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         self.features = from_name(cfg.backbone)
         self.rpn = RPNHeads(
             NUM_FEATURES_OUT[cfg.backbone],
@@ -86,6 +97,7 @@ class FasterRCNN(nn.Module):
         self.detection = RoiPredictors(NUM_HIDDEN_OUT[cfg.backbone],
                                        cfg.num_classes)
         self.detection.hidden = self.features.layer4
+        set_compute_dtype(self, dtype)
         self._anchor_cache: Dict[tuple, torch.Tensor] = {}
 
     def reset_parameters(self, generator: torch.Generator) -> None:

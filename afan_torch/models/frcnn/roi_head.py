@@ -9,6 +9,11 @@ proposals (ROIAlign 14x14 → 2x2 max → 7x7), run the backbone's
 layer4 as the "hidden" stage, global max pool, then two linears (class
 logits, 4 deltas per class). Detections are decoded per class and pruned by
 per-class NMS at 0.3, all images and classes in one kernel launch.
+
+Under a bfloat16 compute dtype the predictors are Flax's ``Dense(dtype=
+bf16)`` (:class:`afan_torch.models.resnet.Linear`), the CE and the
+detections' softmax are ``afan``'s bfloat16 formulas
+(:mod:`afan_torch.ops.lowp`), and the decoded boxes promote to float32.
 """
 from __future__ import annotations
 
@@ -17,8 +22,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ...ops.lowp import log_softmax, softmax
 from ...ops.nms import nms_mask
 from ...ops.roi_align import pool_rois
+from ..resnet import Linear
 from . import boxes as B
 from .rpn import lecun_normal_
 from .sampling import (Priorities, SampleResult, beta_smooth_l1, gather_rows,
@@ -69,7 +76,7 @@ def roi_loss(class_logits: torch.Tensor, reg_out: torch.Tensor,
     """Per-image (CE, smooth-L1) over the sampled slots: logits (B, S, C),
     deltas (B, S, C*4) → two (B,) vectors. The deltas are taken at each
     slot's gt class; only fg rows enter the smooth-L1."""
-    logp = torch.log_softmax(class_logits, dim=-1)
+    logp = log_softmax(class_logits, dim=-1)
     cls = targets.gt_classes
     ce = masked_mean(-torch.gather(logp, 2, cls[..., None])[..., 0],
                      targets.sample.valid)
@@ -87,9 +94,8 @@ class RoiPredictors(nn.Module):
 
     def __init__(self, hidden_channels: int, num_classes: int):
         super().__init__()
-        self._proposal_class = nn.Linear(hidden_channels, num_classes)
-        self._proposal_transformer = nn.Linear(hidden_channels,
-                                               num_classes * 4)
+        self._proposal_class = Linear(hidden_channels, num_classes)
+        self._proposal_transformer = Linear(hidden_channels, num_classes * 4)
 
     def forward(self, hidden_vec: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,7 +124,7 @@ def generate_detections(proposals: torch.Tensor, class_logits: torch.Tensor,
     reg = reg_out.reshape(bsz, p, num_classes, 4) * std + mean
     boxes = B.decode_deltas(proposals[:, :, None, :], reg)
     boxes = B.clip(boxes, 0, 0, image_width, image_height)
-    probs = torch.softmax(class_logits, dim=-1)
+    probs = softmax(class_logits, dim=-1)
     # classes 1..C-1 as (B, C-1) groups of P boxes each
     c_boxes = boxes[:, :, 1:].permute(0, 2, 1, 3)
     c_probs = probs[:, :, 1:].permute(0, 2, 1)

@@ -6,6 +6,16 @@ Module names follow the reference (``_features.0``, ``_anchor_objectness``,
 ``_anchor_transformer``). The heads run in NCHW and their outputs are
 permuted to NHWC before flattening, so the anchor axis is in ``(y, x, a)``
 order, the order of :func:`..anchors.generate_anchors`.
+
+Under a bfloat16 compute dtype (``afan``'s ``RPNHeads(dtype=bf16)``) the
+heads are bfloat16 convolutions, the objectness CE is ``afan``'s bfloat16
+``log_softmax`` (:mod:`afan_torch.ops.lowp`), and the smooth-L1 promotes
+the bfloat16 deltas to the float32 targets. Proposals decode the deltas in
+float32: ``afan`` writes ``exp`` of a bfloat16 delta times a float32 anchor
+side, and its jitted step keeps the ``exp`` in float32 inside XLA's fusion
+(excess precision) rather than rounding it. So the boxes that reach NMS are
+float32, as ``afan``'s NMS casts them, and they are ranked by the bfloat16
+fg logit, ties to the lower index.
 """
 from __future__ import annotations
 
@@ -15,7 +25,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ...ops.lowp import log_softmax
 from ...ops.nms import nms_select_presorted
+from ..resnet import Conv2d
 from . import boxes as B
 from .sampling import (Priorities, SampleResult, beta_smooth_l1, gather_rows,
                        masked_mean, sample_fg_bg, select_fg_bg)
@@ -38,10 +50,9 @@ class RPNHeads(nn.Module):
                  num_anchors: int = 9):
         super().__init__()
         self._features = nn.Sequential(
-            nn.Conv2d(in_channels, hidden_channels, 3, padding=1), nn.ReLU())
-        self._anchor_objectness = nn.Conv2d(hidden_channels, num_anchors * 2, 1)
-        self._anchor_transformer = nn.Conv2d(hidden_channels, num_anchors * 4,
-                                             1)
+            Conv2d(in_channels, hidden_channels, 3, padding=1), nn.ReLU())
+        self._anchor_objectness = Conv2d(hidden_channels, num_anchors * 2, 1)
+        self._anchor_transformer = Conv2d(hidden_channels, num_anchors * 4, 1)
 
     def trunk(self, features: torch.Tensor) -> torch.Tensor:
         return self._features(features)
@@ -123,7 +134,7 @@ def rpn_loss(objectness: torch.Tensor, deltas: torch.Tensor,
     (`region_proposal_network.py:175-198`): objectness (B, A, 2), deltas
     (B, A, 4) → two (B,) vectors."""
     sel = targets.sample.indices
-    logp = torch.log_softmax(gather_rows(objectness, sel), dim=-1)
+    logp = log_softmax(gather_rows(objectness, sel), dim=-1)
     ce = -torch.gather(logp, 2, targets.gt_objectness[..., None])[..., 0]
     ce = masked_mean(ce, targets.sample.valid)
     l1 = beta_smooth_l1(gather_rows(deltas, sel), targets.gt_deltas, beta,
@@ -142,7 +153,7 @@ def generate_proposals(anchors: torch.Tensor, objectness: torch.Tensor,
     (B, post_n, 4) zero-padded, valid (B, post_n)). Ranking is by the raw
     fg logit; a stable descending sort keeps the lower index first on ties,
     as ``lax.top_k`` does."""
-    proposals = B.decode_deltas(anchors[None], deltas)
+    proposals = B.decode_deltas(anchors[None], deltas.float())
     proposals = B.clip(proposals, 0, 0, image_width, image_height)
     scores = objectness[..., 1]
     k = min(pre_nms_top_n, anchors.shape[0])

@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ...ops.lowp import reduce_sum
+
 
 class SampleResult(NamedTuple):
     indices: torch.Tensor  # (..., num_total) int64 into the candidate axis
@@ -87,9 +89,13 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean over the masked entries of the last axis; 0 where the mask is
-    empty (the reference would give NaN on an empty foreground set)."""
+    empty (the reference would give NaN on an empty foreground set). A
+    bfloat16 ``values`` (the CE of bfloat16 logits) is summed in float32,
+    rounded, then divided in bfloat16, as ``afan``'s ``jnp.sum(...) /
+    count``."""
     denom = mask.sum(-1).clamp(min=1)
-    return torch.where(mask, values, torch.zeros_like(values)).sum(-1) / denom
+    return reduce_sum(torch.where(mask, values, torch.zeros_like(values)),
+                      -1) / denom
 
 
 def beta_smooth_l1(input: torch.Tensor, target: torch.Tensor, beta: float,
@@ -97,7 +103,8 @@ def beta_smooth_l1(input: torch.Tensor, target: torch.Tensor, beta: float,
     """Masked beta smooth-L1 (`Detection/extension/functional.py:6-10`):
     rows ``(..., S, k)`` with a row mask ``(..., S)``; the elementwise
     Huber loss summed over the masked rows over their element count
-    (+1e-8)."""
+    (+1e-8). A bfloat16 ``input`` meets float32 targets and the whole loss
+    is float32, as in ``afan``."""
     diff = torch.abs(input - target)
     loss = torch.where(diff < beta, 0.5 * diff * diff / beta,
                        diff - 0.5 * beta)

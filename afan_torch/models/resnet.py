@@ -18,10 +18,13 @@ Compute dtype (``afan``'s ``dtype`` on every Flax module, bfloat16 under
 lists differ between the CPU and the card: parameters and BatchNorm
 buffers stay float32; each :class:`Conv2d` casts its input and its weight
 to :func:`set_compute_dtype`'s dtype (gradients reach the float32
-parameters through the cast); BatchNorm takes the statistics and the
-normalization in float32 and returns the input's dtype (Flax's
-``force_float32_reductions``, PyTorch's mixed-type ``batch_norm``). The
-ImageNet normalisation runs in the image's float32, as in ``afan``.
+parameters through the cast), and so does each :class:`Linear` (Flax's
+``Dense``); BatchNorm takes the statistics and the normalization in float32
+and returns the input's dtype (Flax's ``force_float32_reductions``,
+PyTorch's mixed-type ``batch_norm``); :class:`FrozenBatchNorm` on a
+bfloat16 input computes Flax's ``(x - mean) * (rsqrt(var + eps) * scale) +
+bias`` in float32 and rounds once. The ImageNet normalisation runs in the
+image's float32, as in ``afan``.
 """
 from __future__ import annotations
 
@@ -55,21 +58,53 @@ class Conv2d(nn.Conv2d):
         return y + self.bias.to(dt).reshape(1, -1, 1, 1)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` (same parameters and checkpoint keys) that computes in
+    ``compute_dtype``, as Flax's ``Dense(dtype=...)``: the input, the
+    weight and the bias are cast to it and the bias is added after the
+    product (rounded twice)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
-    """Make every :class:`Conv2d` of ``module`` compute in ``dtype``."""
+    """Make every :class:`Conv2d` and :class:`Linear` of ``module`` compute
+    in ``dtype``."""
     for m in module.modules():
-        if isinstance(m, Conv2d):
+        if isinstance(m, (Conv2d, Linear)):
             m.compute_dtype = dtype
 
 
 class FrozenBatchNorm(nn.BatchNorm2d):
     """BatchNorm that always normalizes with its running statistics and
     never updates them (eps 1e-5), in train and eval mode alike. It keeps
-    ``nn.BatchNorm2d``'s parameters and buffers, so checkpoint keys match."""
+    ``nn.BatchNorm2d``'s parameters and buffers, so checkpoint keys match.
+
+    A float32 input goes through ``batch_norm``. Any other input (bfloat16
+    under ``--bf16``) takes Flax's formula at the rounding points of
+    ``afan``'s jitted steps (`flax/linen/normalization.py:_normalize`):
+    ``x`` widened by the subtraction of the float32 mean, times
+    ``rsqrt(var + eps) * scale`` plus the bias in one fused multiply-add
+    (XLA fuses it), one rounding back to ``x``'s dtype. ``batch_norm``
+    would fold the mean into the bias (``x * a + b``) and round
+    elsewhere."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if x.dtype == torch.float32:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return torch.addcmul(self.bias.reshape(shape),
+                             x - self.running_mean.reshape(shape),
+                             mul.reshape(shape)).to(x.dtype)
 
 
 class BatchNorm(nn.BatchNorm2d):

@@ -21,6 +21,14 @@ NCHW. BatchNorm is :class:`afan_torch.models.resnet.BatchNorm` with flax's
 momentum 0.9 as PyTorch's 0.1. Initialisation is ``afan``'s:
 kaiming-normal (fan_in, gain² 2, untruncated) conv and linear kernels, zero
 linear bias, identity BatchNorm, drawn from an explicit ``torch.Generator``.
+
+``dtype`` is the compute dtype (``afan``'s ``ResNetS(dtype=...)``, bfloat16
+under ``--bf16``): parameters and BatchNorm statistics stay float32; each
+convolution and the final linear (Flax's ``Dense``) cast their input and
+weights to it (:mod:`afan_torch.models.resnet`); BatchNorm normalizes in
+float32 and returns the input's dtype; the input normalization runs in the
+input's dtype and the average pool reduces in float32 and rounds once
+(``jnp.mean``).
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import BatchNorm
+from ..ops.lowp import mean
+from .resnet import BatchNorm, Conv2d, Linear, set_compute_dtype
 from .taps import StagedModule
 
 CIFAR_MEAN = (0.4914, 0.4822, 0.4465)
@@ -54,7 +63,7 @@ class NormalizeByChannelMeanStd(nn.Module):
                              persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x - self.mean) / self.std
+        return (x - self.mean.to(x.dtype)) / self.std.to(x.dtype)
 
 
 class BasicBlock(nn.Module):
@@ -64,9 +73,9 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_planes, planes, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm(planes, momentum=BN_MOMENTUM)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm(planes, momentum=BN_MOMENTUM)
         self.pad = (planes // 4 if stride != 1 or in_planes != planes
                     else None)
@@ -83,20 +92,22 @@ class BasicBlock(nn.Module):
 
 class GlobalAvgPool(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.mean(dim=(2, 3), keepdim=True)
+        return mean(x, (2, 3))[:, :, None, None]
 
 
 class ResNetS(StagedModule):
     """The CIFAR ResNet-s family (20/32/44/56/110 = num_blocks 3/5/7/9/18
-    per stage). ``generator`` seeds the initialisation."""
+    per stage). ``generator`` seeds the initialisation; ``dtype`` is the
+    compute dtype."""
 
     def __init__(self, num_blocks: Sequence[int] = (9, 9, 9),
                  num_classes: int = 10, init_weight: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.init_weight = float(init_weight)
         layers = [NormalizeByChannelMeanStd(),
-                  nn.Conv2d(3, 16, 3, 1, 1, bias=False),
+                  Conv2d(3, 16, 3, 1, 1, bias=False),
                   BatchNorm(16, momentum=BN_MOMENTUM), nn.ReLU()]
         in_planes = 16
         for stage_idx, (n, width) in enumerate(zip(num_blocks, (16, 32, 64))):
@@ -105,8 +116,10 @@ class ResNetS(StagedModule):
                 layers.append(BasicBlock(in_planes, width, stride))
                 in_planes = width
         layers += [GlobalAvgPool(), nn.Flatten(),
-                   nn.Linear(in_planes, num_classes)]
+                   Linear(in_planes, num_classes)]
         self.sequential_model = nn.Sequential(*layers)
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
         # learnable per-tap η (`resnet_s.py:113-114`)
         self.w = nn.Parameter(torch.full((9,), self.init_weight))
         self.reset_parameters(generator)

@@ -10,6 +10,13 @@ Semantics are those of ``afan``: the legacy non-aligned ROIAlign (no -0.5
 offset, ROI sides at least 1) with a static ``sampling_ratio`` (2, where the
 reference's adaptive grid would give a data-dependent shape), samples outside
 (-1, extent) contribute 0.
+
+On a bfloat16 feature (``--bf16``) the contractions keep ``afan``'s
+rounding points (`afan/ops/roi_align.py:138-146`): both axis-weight
+matrices are rounded to bfloat16, the contractions run in float32 on the
+widened feature (``preferred_element_type=float32``), and the output is
+rounded to bfloat16 once. A bfloat16 ``matmul`` would round the first
+contraction's result too.
 """
 from __future__ import annotations
 
@@ -38,6 +45,14 @@ def _axis_weights(lo: torch.Tensor, bin_size: torch.Tensor, n_bins: int,
     return w.mean(dim=2)
 
 
+def _feature_weights(w: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
+    """Float32 weights as the contraction with ``feat`` takes them: rounded
+    to ``feat``'s dtype first when that is below float32."""
+    if feat.dtype in (torch.float32, torch.float64):
+        return w
+    return w.to(feat.dtype).to(torch.float32)
+
+
 def roi_align_einsum(feat: torch.Tensor, boxes: torch.Tensor,
                      batch_indices: torch.Tensor,
                      output_size: Tuple[int, int] = (14, 14),
@@ -64,9 +79,9 @@ def roi_align_einsum(feat: torch.Tensor, boxes: torch.Tensor,
 
     gy = torch.arange(B * H, dtype=torch.int64, device=dev)[None, :] \
         - (batch_indices.to(torch.int64) * H)[:, None]      # (R, B*H)
-    wy = _axis_weights(y1, bin_h, ph, s, H, gy)              # (R, ph, B*H)
+    wy = _feature_weights(_axis_weights(y1, bin_h, ph, s, H, gy), feat)
     lx = torch.arange(W, dtype=torch.int64, device=dev)[None, :].expand(R, W)
-    wx = _axis_weights(x1, bin_w, pw, s, W, lx)              # (R, pw, W)
+    wx = _feature_weights(_axis_weights(x1, bin_w, pw, s, W, lx), feat)
 
     feat_cat = feat.to(f32).permute(0, 2, 3, 1).reshape(B * H, W, C)
     out = torch.empty((R, C, ph, pw), dtype=f32, device=dev)
@@ -100,8 +115,10 @@ def roi_align_per_image(feat: torch.Tensor, boxes: torch.Tensor,
     bin_h = torch.clamp(y2 - y1, min=1.0) / ph
     ly = torch.arange(H, dtype=torch.int64, device=dev).expand(B * S, H)
     lx = torch.arange(W, dtype=torch.int64, device=dev).expand(B * S, W)
-    wy = _axis_weights(y1, bin_h, ph, s, H, ly).reshape(B, S * ph, H)
-    wx = _axis_weights(x1, bin_w, pw, s, W, lx).reshape(B, S, 1, pw, W)
+    wy = _feature_weights(_axis_weights(y1, bin_h, ph, s, H, ly),
+                          feat).reshape(B, S * ph, H)
+    wx = _feature_weights(_axis_weights(x1, bin_w, pw, s, W, lx),
+                          feat).reshape(B, S, 1, pw, W)
     rows = feat.to(f32).permute(0, 2, 3, 1).reshape(B, H, W * C)
     out = torch.empty((B, S, ph, pw, C), dtype=f32, device=dev)
     step = max(1, ROI_CHUNK // B)

@@ -20,6 +20,13 @@ turns their gradients off and leaves them out of the optimizer.
 Images enter as ``(B, H, W, 3)`` in [0, 1], ground truth as boxes
 ``(B, G, 4)``, classes ``(B, G)`` and validity ``(B, G)``, on the model's
 device.
+
+Under a bfloat16 model (``--bf16``) the steps keep ``afan``'s dtypes: the
+SE and SD features are bfloat16 and so are their ascents (the PGD-update
+kernel's bfloat16 path, step sizes rounded to bfloat16), the spectrum and
+AFN run on bfloat16 features, the ``noise_sd`` noise is drawn in float32
+(``afan``'s ``uniform_init`` default) and promotes the SD point, and each
+loss term is float32 (its smooth-L1 parts are).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from ..core.attack import input_pgd, pgd, uniform_init
 from ..core.spectrum import sample_points
 from ..models.frcnn.model import FasterRCNN, Targets
 from ..models.resnet import FrozenBatchNorm
+from ..ops.lowp import mean
 
 UNPORTED = "not ported yet (ROADMAP.md, queue 1: detection)"
 
@@ -269,8 +277,8 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
             def sd_loss(rf):
                 L = model.roi_tail_losses(rd, rf)
                 if cfg.only_roi_sd:
-                    return L.proposal_class.mean() + \
-                        L.proposal_transformer.mean()
+                    return mean(L.proposal_class) + \
+                        mean(L.proposal_transformer)
                 return L.total()
 
             adv_sd = attack(sd_loss, sd_clean, cfg.gamma_sd, generator)
@@ -279,7 +287,7 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
             if cfg.noise_sd:
                 adv_sd = adv_sd + uniform_init(
                     adv_sd.shape, cfg.gamma_sd * cfg.noise_sd, generator,
-                    adv_sd.dtype, adv_sd.device)
+                    torch.float32, adv_sd.device)
             del rd, sd_clean
 
         spec_feats = []
@@ -345,12 +353,14 @@ def make_detect_fn(model: FasterRCNN
                                  Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]]:
     """Eval forward → (boxes, probs, keep) on the model's device, under
-    ``torch.inference_mode``. Images (B, H, W, 3) in [0, 1] may come from
+    ``torch.inference_mode``; the probabilities widened to float32 (a
+    bfloat16 model's are bfloat16). Images (B, H, W, 3) in [0, 1] may come from
     the host; they are copied to the model's device."""
     device = next(model.parameters()).device
 
     @torch.inference_mode()
     def detect(images: torch.Tensor):
-        return model.detect(images.to(device, torch.float32))
+        boxes, probs, keep = model.detect(images.to(device, torch.float32))
+        return boxes, probs.float(), keep
 
     return detect

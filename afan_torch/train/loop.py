@@ -27,6 +27,13 @@ CUDA graph and replayed for every step, with no Python between steps.
 Images enter as ``(B, 32, 32, 3)`` in [0, 1] and labels as ``(B,)`` int64,
 on the model's device. Steps return detached metric tensors (no host sync)
 under ``afan``'s names.
+
+Under a bfloat16 model (``--bf16``) the steps keep ``afan``'s dtypes: the
+logits, the CE (optax's formula in bfloat16, :func:`cross_entropy`) and the
+losses of the base and ALFA steps are bfloat16, the tapped features and
+their ascents too (the PGD-update kernel's bfloat16 path); the learnable
+step's scaled point ``clean + w_i (adv - clean)`` promotes to float32 with
+the float32 η, and its tail casts at each convolution, as in ``afan``.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from ..core.attack import perturbation_norms, pgd
 from ..data.cifar import apply_augment, augment_draws, batch_indices
 from ..models.resnet import frozen_bn_stats
 from ..models.resnet_s import LEARNABLE_TAPS, ResNetS
+from ..ops import lowp
 from .optim import CapturableSGD, StepCount
 
 Metrics = Dict[str, torch.Tensor]
@@ -47,8 +55,16 @@ Metrics = Dict[str, torch.Tensor]
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
-    """Mean softmax cross-entropy (``nn.CrossEntropyLoss``)."""
-    return F.cross_entropy(logits, labels)
+    """Mean softmax cross-entropy (``nn.CrossEntropyLoss``). On bfloat16
+    logits it is ``afan``'s optax ``softmax_cross_entropy_with_integer_
+    labels(...).mean()``: ``logsumexp(logits) - label_logit`` in bfloat16
+    at the rounding points of ``afan``'s jitted step
+    (:mod:`afan_torch.ops.lowp`), then the float32 mean rounded to
+    bfloat16."""
+    if logits.dtype in (torch.float32, torch.float64):
+        return F.cross_entropy(logits, labels)
+    label_logit = logits.gather(-1, labels[:, None])[:, 0]
+    return lowp.mean(lowp.logsumexp(logits, -1) - label_logit)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -268,7 +284,8 @@ class AlfaEpochScan:
         metrics = self.step(st["data_x"], st["data_y"], st["perm"], st["i"],
                             st["generator"])
         for k, row in st["rows"].items():
-            row.index_copy_(0, st["i"].view(1), metrics[k].unsqueeze(0))
+            row.index_copy_(0, st["i"].view(1),
+                            metrics[k].to(row.dtype).unsqueeze(0))
         st["i"].add_(1)
 
     def _eager_on_side_stream(self) -> None:
@@ -368,7 +385,9 @@ def make_learnable_step(model: ResNetS, optimizer: torch.optim.Optimizer,
         loss_adv = 0.0
         with frozen_bn_stats(model):
             for i, tap in enumerate(taps):
-                scaled = clean[i] + w[i] * (advs[i] - clean[i])
+                # the float32 η promotes a bfloat16 point, as in afan
+                scaled = clean[i].float() + w[i] * (advs[i]
+                                                    - clean[i]).float()
                 loss_adv = loss_adv + cross_entropy(model.tail(scaled, tap),
                                                     labels)
         logits = model(x)        # the forward that updates the running stats

@@ -11,7 +11,9 @@ trainer); ``--only seg`` phases 1, 2 and
 7-10; ``--only det`` phases 1-6; ``--only cls`` phases 1, 2 and 11-14 (phase
 11 then lacks the segmentation ascents' shapes); ``--only dettrain`` phases
 1, 2 and 15-17; ``--only scan`` phases 1, 2 and 18-21; ``--only variants``
-phases 1, 2 and 22-26; ``--only bf16`` phases 1, 2 and 27-29. The kernels
+phases 1, 2 and 22-26; ``--only bf16`` phases 1, 2 and 27-29; ``--only
+detbf16`` phases 1, 2 and 30-32; ``--only clsbf16`` phases 1, 2 and 33-35.
+The kernels
 line then lists the kernels of the phases that ran; without phase 8 the
 upsample + CE kernels have no launch count (null), and under ``--only
 variants`` only the PGD update has times.
@@ -172,7 +174,37 @@ Phases (any failure exits non-zero):
      with the f32 step (median and p90, images per second, peak memory, the
      device's busy share and top kernels of each), and the bf16 kernels'
      times, bounds (bf16 bytes), plain versions and library compositions
-     at the step's shapes.
+     at the step's shapes;
+ 30. train the detection recipes as written, ``--bf16`` included, at full
+     width through ``train_detect.main``: ``recipes/detect_voc07_baseline.sh``
+     and ``detect_voc07_final_setting{1,2,3}.sh`` (ResNet-50, batch 8,
+     608x1008; settings 2 and 3 change the SD gamma, 3 adds AFN on the SD
+     point), synthetic VOC, phase 15's calibrated torso, 2 steps and the
+     final mAP of the 16 test images each: a bf16-compute model with float32
+     parameters, finite losses, a float32 checkpoint, and per step the
+     proposal-NMS launches (on float32 boxes) and bf16 PGD-update launches
+     that ``det_launches_per_step`` implies; the share of each ascent's
+     entries that the bf16 update changed;
+ 31. one bf16 A-FAN detection step (setting 1) with the NMS and PGD-update
+     kernels against one with their plain versions (phase 16's checks), the
+     NMS kernel on that step's proposals, and the bf16 PGD update at each
+     of phase 30's shapes and step sizes, clipped and not, bit for bit;
+ 32. the bf16 A-FAN detection step in turns with the f32 step from the same
+     weights and batch (median, p90, peak memory, each one's profile: busy
+     share and kernels per step), then the NMS kernel on the bf16 step's
+     proposals and the bf16 PGD update at its SE and SD shapes, with plain
+     versions and bounds;
+ 33. ``train_classify.main --bf16`` at full width in base, ALFA and
+     learnable mode (2 steps, validation and test each) and ALFA with
+     ``--epoch_scan`` (one epoch of 24 steps, the bf16 PGD-update kernels
+     per replay counted in a profiler trace): a bf16-compute model with
+     float32 parameters, finite losses, float32 checkpoints, every
+     PGD-update launch bf16;
+ 34. the bf16 PGD update at phase 33's shapes (the ALFA tap, the learnable
+     taps) and step sizes, clipped and not, bit for bit;
+ 35. the graphed bf16 ALFA step in turns with the graphed f32 one (peak
+     memory, each one's profile), the eager bf16 base and learnable steps,
+     and the bf16 PGD update at the ALFA tap.
 
 The line before the last lists each kernel with its launches on its main
 paths (the bf16 paths of phases 27-29 as entries of their own, ``_bf16``,
@@ -181,7 +213,9 @@ version, its time, the plain
 version's time, its bound and the library's time (NMS: per batch-4 detect
 call plus per A-FAN detection step; PGD update: per ALFA step plus per A-FAN
 detection step plus per robust-eval batch); its launches include the variant
-runs of phases 22 and 23. Launches are the wrappers' counts: a graph replay runs kernels that no wrapper call counts, so phase
+runs of phases 22 and 23 and the bf16 runs of phases 30 and 33 (NMS in
+``nms``, the bf16 updates in ``pgd_update_bf16``, whose times are phase
+29's where it ran, else the bf16 detection or ALFA step's). Launches are the wrappers' counts: a graph replay runs kernels that no wrapper call counts, so phase
 18 prints the PGD-update kernels its replays ran (the profiled kernels per
 replay times the replays) beside the wrapper's count. Before the kernels
 line the script prints its total time; the last line is the device
@@ -1511,16 +1545,18 @@ def cls_batch(seed):
     return cuda(x.astype(np.float32) / 255.0), cuda(y)
 
 
-def cls_step(mode, schedule=None, seed=0):
-    """A fresh seeded ResNet-56 on the card and a ``mode`` step with the
-    CLI's optimizer (lr 0.1, momentum 0.9, wd 5e-4, the CLI's warmup +
-    multistep schedule at 351 steps per epoch; base and alfa on the device
-    count of a ``CapturableSGD``, whose schedule ``schedule`` replaces)."""
+def cls_step(mode, schedule=None, seed=0, dtype=torch.float32):
+    """A fresh seeded ResNet-56 (compute dtype ``dtype``) on the card and a
+    ``mode`` step with the CLI's optimizer (lr 0.1, momentum 0.9, wd 5e-4,
+    the CLI's warmup + multistep schedule at 351 steps per epoch; base and
+    alfa on the device count of a ``CapturableSGD``, whose schedule
+    ``schedule`` replaces)."""
     spe = 45000 // CLS_BATCH
     milestones = [50 * spe, 150 * spe]
     init = 1.0 / 9 if mode == "learnable" else 1.0
     model = resnet56(init_weight_eta=init,
-                     generator=torch.Generator().manual_seed(seed)).cuda()
+                     generator=torch.Generator().manual_seed(seed),
+                     dtype=dtype).cuda()
     if mode == "learnable":
         opt, sched = learnable_sgd(
             model, multistep_warmup_schedule(0.1, milestones,
@@ -2351,19 +2387,21 @@ BF16_CE_CASES = [("voc513", 4, (129, 129), (513, 513), 21),
 BF16_GRAD_TOL = CE_GRAD_TOL + 2 * 2.0 ** -9
 
 
-def recipe_flags(name, env):
-    """The flags that ``recipes/<name>`` passes to afan's segmentation CLI,
-    with its shell variables set to ``env`` and its data flag left out."""
+def recipe_flags(name, env, cli="train_segment"):
+    """The flags that ``recipes/<name>`` passes to afan's ``cli``, with its
+    shell variables set to ``env`` and its data flag (``$(seg_smoke_flags)``
+    or ``$(det_smoke_flags)``) left out."""
     with open(os.path.join(ROOT, "recipes", name)) as f:
         text = f.read().replace("\\\n", " ")
     line = next(ln for ln in text.splitlines()
-                if "-m afan.cli.train_segment" in ln)
+                if f"-m afan.cli.{cli}" in ln)
     for k, v in env.items():
         line = line.replace("${%s}" % k, v)
-    line = line.replace("$(seg_smoke_flags)", "")
+    for smoke in ("$(seg_smoke_flags)", "$(det_smoke_flags)"):
+        line = line.replace(smoke, "")
     require("$" not in line, f"a shell variable is left in {line}")
     argv = shlex.split(line)
-    return argv[argv.index("afan.cli.train_segment") + 1:]
+    return argv[argv.index(f"afan.cli.{cli}") + 1:]
 
 
 def run_bf16_recipe(name, env, updates):
@@ -2403,17 +2441,11 @@ def run_bf16_recipe(name, env, updates):
             return out
         return run
 
-    def update(x, g, center=None, **kw):
-        out = tpgd.pgd_update(x, g, center, **kw)
-        updates.append((tuple(x.shape), bool(kw.get("clip")), kw["gamma"],
-                        x.dtype, float((out != x).float().mean())))
-        return out
-
     train_segment.build_step = recording
     t0 = time.time()
     krce.bf16_fwd_launches = krce.bf16_bwd_launches = kpgd.bf16_launches = 0
     try:
-        with patched_update(update):
+        with patched_update(share_recording_update(updates)):
             score = train_segment.main(argv)
         torch.cuda.synchronize()
     finally:
@@ -2464,15 +2496,33 @@ def bf16_recipes(updates):
         totals = [t + r for t, r in zip(totals, run)]
         gc.collect()
         torch.cuda.empty_cache()
+    print_update_shares(sum(updates.values(), []))
+    return totals
+
+
+def share_recording_update(updates):
+    """``pgd_update`` that appends each call's (shape, clip, gamma, dtype,
+    share of entries it changed) to ``updates``; it reads the share back,
+    so it cannot run inside a CUDA-graph capture."""
+    def update(x, g, center=None, **kw):
+        out = tpgd.pgd_update(x, g, center, **kw)
+        updates.append((tuple(x.shape), bool(kw.get("clip")), kw["gamma"],
+                        x.dtype, float((out != x).float().mean())))
+        return out
+    return update
+
+
+def print_update_shares(updates):
+    """The share of entries each bf16 ascent's update changed, by shape and
+    step size."""
     shares = {}
-    for shape, _, gamma, _, changed in sum(updates.values(), []):
+    for shape, _, gamma, _, changed in updates:
         shares.setdefault((shape, round(gamma * 255, 4)), []).append(changed)
     for (shape, gamma), got in sorted(shares.items()):
         print(f"    bf16 PGD update at {shape}, gamma {gamma}/255: it "
               f"changed {100 * np.mean(got):.2f}% of the entries (mean of "
               f"{len(got)} updates; a step below half a bf16 ulp rounds "
               f"back to x, as in afan)")
-    return totals
 
 
 def bf16_kernels_vs_plain(updates, errs):
@@ -2545,49 +2595,32 @@ def time_bf16_step(card, per_step, city_updates):
     model16 = build_model(SEG_MODEL, 19, 16, torch.bfloat16)
     model16.reset_parameters(torch.Generator().manual_seed(0))
     model16.cuda()
-    steps = {"f32": seg_step(model32), "bf16": seg_step(model16)}
-    samples = {"f32": [], "bf16": []}
-    for k in ("f32", "bf16", "bf16", "f32") * 2:
-        samples[k] += list(cuda_samples(lambda: steps[k](imgs, labs), 5,
-                                        warmup=2))
-    med = {}
-    for k, t in samples.items():
-        torch.cuda.reset_peak_memory_stats()
-        steps[k](imgs, labs)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        med[k] = float(np.median(t))
-        print(f"    {k} A-FAN step: median {med[k]:.3f} ms, p90 "
-              f"{np.percentile(t, 90):.3f} ms over {len(t)} steps in turns, "
-              f"{SEG_BATCH * 1e3 / med[k]:.2f} imgs/s, peak memory "
-              f"{peak:.2f} GiB ({card})")
+    steps = {k: (lambda s=s: s(imgs, labs)) for k, s in (
+        ("f32", seg_step(model32)), ("bf16", seg_step(model16)))}
+    samples = time_in_turns(steps, ("f32", "bf16", "bf16", "f32") * 2, 5,
+                            warmup=2)
+    med = report_turns(card, samples, steps, SEG_BATCH, "A-FAN step")
     print(f"    bf16 step {med['f32'] / med['bf16']:.2f}x faster than f32 "
           f"(medians in turns, {card})")
     for k in ("bf16", "f32"):
-        profile_step(lambda: steps[k](imgs, labs), label=f"{k} A-FAN")
+        profile_step(steps[k], label=f"{k} A-FAN")
     del steps, model32, model16, imgs
     gc.collect()
     torch.cuda.empty_cache()
     entries = time_ce_kernels(card, labs, per_step, torch.bfloat16)
-    gammas = {}
-    for shape, clip, gamma, dtype, _ in city_updates:
-        if dtype == torch.bfloat16 and not clip:
-            gammas[shape] = gamma
-    k_ms = p_ms = byte_ms = op_ms = 0.0
-    for shape, gamma in sorted(gammas.items()):
-        k, p, b, o = time_pgd_update(card, shape, torch.bfloat16, gamma,
-                                     2.0 / 255)[False]
-        k_ms, p_ms, byte_ms, op_ms = k_ms + k, p_ms + p, byte_ms + b, op_ms + o
-    print(f"    pgd_update_bf16 per bf16 A-FAN step ({len(gammas)} unclipped "
-          f"updates at {sorted(gammas)}): kernel {k_ms:.5f} ms, plain "
-          f"{p_ms:.5f}, bound {max(byte_ms, op_ms):.5f} ms ({card})")
+    times = pgd_bf16_times(card, unclipped_bf16_gammas(city_updates),
+                           "bf16 A-FAN step")
     source, replaces = KERNEL_SOURCES["pgd_update"]
     entries.append({"name": "pgd_update_bf16", "route": "cuda",
-                    "source": source, "replaces": replaces, "ms": k_ms,
-                    "plain_ms": p_ms, "bound_ms": max(byte_ms, op_ms),
-                    "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                    "source": source, "replaces": replaces, **times,
                     "library_ms": None})
     return entries
+
+
+def unclipped_bf16_gammas(updates):
+    """{shape: step size} of the recorded unclipped bf16 updates."""
+    return {shape: gamma for shape, clip, gamma, dtype, _ in updates
+            if dtype == torch.bfloat16 and not clip}
 
 
 def bf16_phases(card):
@@ -2607,6 +2640,435 @@ def bf16_phases(card):
             "resize_ce_backward_bf16": (bwd, max(errs["bwd"])),
             "pgd_update_bf16": (pgd, pgd_err)}[e["name"]]
     return entries
+
+
+# recipes/detect_voc07_{baseline,final_setting1,2,3}.sh as written, --bf16
+# included, with no data flag (the synthetic VOC), from the calibrated torso
+# of phase 15, 2 steps and the final mAP each: phases 30-32. The COCO recipe
+# waits on COCO data.
+DET_BF16_RECIPES = ("detect_voc07_baseline.sh",
+                    "detect_voc07_final_setting1.sh",
+                    "detect_voc07_final_setting2.sh",
+                    "detect_voc07_final_setting3.sh")
+DET_BF16_STEPS = 2
+
+
+def run_det_bf16_recipe(name, updates):
+    """Phase 30, one run: ``train_detect.main`` with ``recipes/<name>``'s
+    flags as written, ``DET_BF16_STEPS`` steps and the final mAP. Each PGD
+    update's (shape, clip, gamma, dtype, share of entries it changed) goes
+    to ``updates``. Returns the run's NMS and bf16 PGD-update launches."""
+    tag = "bf16_" + os.path.splitext(name)[0]
+    out = os.path.join(DET_OUT, tag)
+    shutil.rmtree(out, ignore_errors=True)
+    argv = recipe_flags(name, {"OUT": out}, "train_detect") + [
+        "--num_steps_to_finish", str(DET_BF16_STEPS),
+        "--num_steps_to_snapshot", str(DET_BF16_STEPS),
+        "--num_steps_to_display", "1", "--pretrained_backbone",
+        DET_BACKBONE]
+    args = train_detect.get_parser().parse_args(argv)
+    require(args.bf16 and not any(a.startswith("--data") for a in argv),
+            f"{name}: not a --bf16 recipe on the synthetic VOC: {argv}")
+    factory = ("make_baseline_det_step" if args.variant == "baseline"
+               else "make_afan_det_step")
+    built, per_step, losses, expected, boxes = [], [], [], [], []
+    real_model, real_step = train_detect.FasterRCNN, getattr(train_detect,
+                                                             factory)
+
+    def counts():
+        return knms.launches, kpgd.bf16_launches, kpgd.launches
+
+    def model_recording(*a):
+        model = real_model(*a)
+        built.append((model.dtype, {p.dtype for p in model.parameters()}))
+        return model
+
+    def step_recording(*a, **kw):
+        step = real_step(*a, **kw)
+        expected.append(det_expected(factory, a, kw))
+
+        def run(*args_):
+            before = counts()
+            res = step(*args_)
+            per_step.append(tuple(x - y for x, y in zip(counts(), before)))
+            losses.append({k: float(v) for k, v in res.items()})
+            return res
+        return run
+
+    def nms(b, *a):
+        boxes.append(b.dtype)
+        return knms.nms_sorted_mask(b, *a)
+
+    train_detect.FasterRCNN = model_recording
+    setattr(train_detect, factory, step_recording)
+    start = counts()
+    t0 = time.time()
+    try:
+        with patched_update(share_recording_update(updates)), \
+                patched_nms(nms):
+            mean_ap = train_detect.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        train_detect.FasterRCNN = real_model
+        setattr(train_detect, factory, real_step)
+    secs = time.time() - t0
+    total = tuple(x - y for x, y in zip(counts(), start))
+    (n_nms, n_pgd), = expected
+    eval_nms = total[0] - sum(n for n, _, _ in per_step)
+    require(built == [(torch.bfloat16, {torch.float32})],
+            f"{name}: model compute and parameter dtypes {built}")
+    require(len(losses) == DET_BF16_STEPS
+            and all(np.isfinite(v) for r in losses for v in r.values()),
+            f"{name}: losses {losses}")
+    require(per_step == [(n_nms, n_pgd, n_pgd)] * DET_BF16_STEPS,
+            f"{name}: (NMS, bf16 PGD-update, all PGD-update) launches per "
+            f"step {per_step}, expected {(n_nms, n_pgd, n_pgd)}")
+    require(eval_nms == 2 * DET_EVAL_IMAGES,
+            f"{name}: {eval_nms} NMS launches in the final eval")
+    require(set(boxes) == {torch.float32}, f"{name}: NMS took {set(boxes)}")
+    saved = torch.load(os.path.join(out, f"model-{DET_BF16_STEPS}.pt"),
+                       map_location="cpu", weights_only=True)
+    require(saved["step"] == DET_BF16_STEPS
+            and all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+                    for v in saved["state_dict"].values()
+                    if v.is_floating_point()),
+            f"{name}: model-{DET_BF16_STEPS}.pt is not the finished run's "
+            f"float32 state")
+    require(0.0 <= mean_ap <= 1.0, f"{name}: mAP {mean_ap}")
+    print(f"    {name} ({args.variant}, batch {args.batch_size}, --bf16): "
+          f"{DET_BF16_STEPS} steps + the final mAP of {DET_EVAL_IMAGES} "
+          f"images in {secs:.1f} s; losses "
+          f"{[round(r['loss'], 4) for r in losses]}; per step {n_nms} NMS "
+          f"launches on float32 boxes and {n_pgd} bf16 PGD updates, as "
+          f"expected; NMS in the eval {eval_nms}; mAP {mean_ap:.4f}; "
+          f"float32 model-{DET_BF16_STEPS}.pt")
+    return total[0], total[1]
+
+
+def det_bf16_recipes(updates):
+    """Phase 30: the four VOC recipes; returns their NMS and bf16
+    PGD-update launches."""
+    print("[30] train the detection recipes as written (--bf16) at full "
+          "width: " + ", ".join(DET_BF16_RECIPES))
+    if not os.path.isfile(DET_BACKBONE):
+        print(f"    backbone: {calibrated_backbone()}")
+    nms = pgd = 0
+    for name in DET_BF16_RECIPES:
+        n, p = run_det_bf16_recipe(name, updates)
+        nms, pgd = nms + n, pgd + p
+        gc.collect()
+        torch.cuda.empty_cache()
+    print_update_shares(updates)
+    return nms, pgd
+
+
+def det_bf16_model(model32):
+    """A bf16-compute copy of ``model32`` (same weights) on the card."""
+    model = FasterRCNN(FRCNNConfig(), torch.bfloat16)
+    model.load_state_dict(model32.state_dict())
+    return model.cuda()
+
+
+def det_bf16_kernels_vs_plain(updates, errs):
+    """Phase 31: one bf16 A-FAN step (setting 1) with the NMS and PGD-update
+    kernels against one with their plain versions, and the bf16 PGD update
+    at every shape and step size of phase 30, clipped and not, bit for bit.
+    Returns the step's NMS calls."""
+    model32, batch = det_model(), det_batch()
+    model = det_bf16_model(model32)
+    del model32
+    calls, _ = det_step_kernel_vs_plain(model, batch,
+                                        label="[31] bf16 A-FAN")
+    for b, v, thr, plus_one, _ in calls:
+        kernel_vs_plain("bf16 training proposals", b, v, thr, plus_one,
+                        errs["nms"])
+    cases = sorted({(shape, gamma) for shape, _, gamma, dtype, _ in updates
+                    if dtype == torch.bfloat16})
+    for i, (shape, gamma) in enumerate(cases):
+        x, g, c = (t.bfloat16() for t in pgd_inputs(shape, 500 + i))
+        for clip in (False, True):
+            pgd_case(f"bf16 detection shape {i}", x, g, c, clip, errs["pgd"],
+                     gamma, 2.0 / 255)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return calls
+
+
+def time_in_turns(steps, order, n, warmup=1):
+    """CUDA-event samples of each named step, in the turns ``order``."""
+    samples = {k: [] for k in steps}
+    for k in order:
+        samples[k] += list(cuda_samples(steps[k], n, warmup=warmup))
+    return samples
+
+
+def report_turns(card, samples, steps, batch, what):
+    """Median, p90, images per second and peak memory of each step."""
+    med = {}
+    for k, t in samples.items():
+        torch.cuda.reset_peak_memory_stats()
+        steps[k]()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        med[k] = float(np.median(t))
+        print(f"    {k} {what}: median {med[k]:.3f} ms, p90 "
+              f"{np.percentile(t, 90):.3f} ms over {len(t)} steps in turns, "
+              f"{batch * 1e3 / med[k]:.2f} imgs/s, peak memory {peak:.2f} GiB "
+              f"({card})")
+    return med
+
+
+def time_det_bf16(card, calls, updates):
+    """Phase 32: the bf16 A-FAN detection step (setting 1) in turns with the
+    f32 step from the same weights and batch (f32, bf16, bf16, f32, twice;
+    3 steps each after 1), each one's profile; then the NMS kernel on the
+    bf16 step's proposals and the bf16 PGD update at its two ascent shapes.
+    Returns the kernels' entries for this path."""
+    print(f"[32] timing on {card}: the bf16 A-FAN detection step in turns "
+          f"with the f32 step (setting 1, batch {DET_BATCH}, canvas "
+          f"608x1008)")
+    model32, batch = det_model(), det_batch()
+    model16 = det_bf16_model(model32)
+    gen = torch.Generator("cuda").manual_seed(1)
+    made = {"f32": det_step(model32), "bf16": det_step(model16)}
+    steps = {k: (lambda s=s: s(*batch, gen)) for k, s in made.items()}
+    samples = time_in_turns(steps, ("f32", "bf16", "bf16", "f32") * 2, 3)
+    med = report_turns(card, samples, steps, DET_BATCH,
+                       "A-FAN detection step")
+    print(f"    bf16 step {med['f32'] / med['bf16']:.2f}x the f32 step's "
+          f"speed (medians in turns, {card})")
+    prof = {k: profile_step(steps[k], n=2, label=f"{k} A-FAN detection")
+            for k in ("bf16", "f32")}
+    if all(prof.values()):
+        print(f"    device busy share: bf16 "
+              f"{100 * prof['bf16']['busy_ms'] / prof['bf16']['wall_ms']:.1f}"
+              f"%, f32 "
+              f"{100 * prof['f32']['busy_ms'] / prof['f32']['wall_ms']:.1f}% "
+              f"({card})")
+    del made, steps, model32, model16, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    boxes, valid, thr, plus_one, _ = calls[0]
+    k, p, b, o = time_nms_shape(card, "bf16 training proposals", boxes,
+                                valid, thr, plus_one)
+    n = len(calls)
+    nms = {"ms": n * k, "plain_ms": n * p, "bound_ms": n * max(b, o),
+           "bound_by": "bytes" if b >= o else "operations"}
+    pgd = pgd_bf16_times(card, unclipped_bf16_gammas(updates),
+                         "bf16 A-FAN detection step")
+    return nms, pgd
+
+
+def pgd_bf16_times(card, gammas, per):
+    """The bf16 PGD update at each shape of ``gammas`` (its step size),
+    unclipped, summed: kernel, plain and bound ms."""
+    k_ms = p_ms = byte_ms = op_ms = 0.0
+    for shape, gamma in sorted(gammas.items()):
+        k, p, b, o = time_pgd_update(card, shape, torch.bfloat16, gamma,
+                                     2.0 / 255)[False]
+        k_ms, p_ms, byte_ms, op_ms = k_ms + k, p_ms + p, byte_ms + b, op_ms + o
+    print(f"    pgd_update_bf16 per {per} ({len(gammas)} updates at "
+          f"{sorted(gammas)}): kernel {k_ms:.5f} ms, plain {p_ms:.5f}, "
+          f"bound {max(byte_ms, op_ms):.5f} ms ({card})")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def det_bf16_phases(card):
+    """Phases 30-32; returns (launches, error, times) of the NMS and bf16
+    PGD-update kernels on this path."""
+    updates = []
+    nms_launches, pgd_launches = det_bf16_recipes(updates)
+    errs = {"nms": [0.0], "pgd": []}
+    calls = det_bf16_kernels_vs_plain(updates, errs)
+    nms, pgd = time_det_bf16(card, calls, updates)
+    return {"nms": (nms_launches, max(errs["nms"]), nms),
+            "pgd_update_bf16": (pgd_launches, max(errs["pgd"]), pgd)}
+
+
+# train_classify --bf16 at full width in each mode (phases 33-35)
+CLS_BF16_RUNS = (("base", [], "bf16_base"), ("alfa", [], "bf16_alfa"),
+                 ("learnable", ["--steps", str(LEARNABLE_STEPS), "--gamma",
+                                "1.0"], "bf16_learnable"))
+
+
+def cls_bf16_runs(updates):
+    """Phase 33: ``train_classify.main --bf16`` in base, ALFA and
+    learnable mode (a few steps, validation and test each) and ALFA with
+    ``--epoch_scan`` (one epoch of 24 steps: 3 eager, the capture, the rest
+    replays): a bf16-compute model with float32 parameters, finite losses,
+    a float32 checkpoint, and every PGD-update launch bf16 (5 per ALFA
+    step, 27 per learnable step). Returns the bf16 launches the wrappers
+    counted."""
+    print(f"[33] train_classify --bf16 at full width (ResNet-56, batch "
+          f"{CLS_BATCH}): base, alfa, learnable, alfa --epoch_scan")
+    built = []
+    real = train_classify.build_model
+
+    def recording(args, generator):
+        model = real(args, generator)
+        built.append((model.dtype, {p.dtype for p in model.parameters()}))
+        return model
+
+    per_step = {"base": 0, "alfa": ALFA_STEPS,
+                "learnable": LEARNABLE_STEPS * len(LEARNABLE_TAPS)}
+    total = 0
+    train_classify.build_model = recording
+    try:
+        with patched_update(share_recording_update(updates)):
+            for mode, flags, tag in CLS_BF16_RUNS:
+                before = kpgd.bf16_launches
+                n = CLS_SHORT_BATCHES
+                launches, _, save_dir, _ = run_classify_cli(
+                    mode, ["--bf16"] + flags, n, tag)
+                bf16 = kpgd.bf16_launches - before
+                require(bf16 == launches == per_step[mode] * n,
+                        f"{tag}: {bf16} bf16 of {launches} PGD-update "
+                        f"launches in {n} steps")
+                check_f32_checkpoint(save_dir, tag)
+                total += bf16
+        # no recorder here: it reads each update back, which a capture
+        # cannot
+        before = kpgd.bf16_launches
+        scan, save_dir, wrapper, _ = run_scan_cli(["--bf16"], 1, "bf16_scan")
+        require(kpgd.bf16_launches - before == wrapper,
+                f"bf16_scan: {kpgd.bf16_launches - before} bf16 of "
+                f"{wrapper} PGD-update launches")
+        check_f32_checkpoint(save_dir, "bf16_scan")
+        total += wrapper
+        del scan
+    finally:
+        train_classify.build_model = real
+    require(built == [(torch.bfloat16, {torch.float32})] * 4,
+            f"model compute and parameter dtypes {built}")
+    print(f"    every run's model bf16 with float32 parameters; bf16 "
+          f"PGD-update launches counted by the wrappers {total}")
+    print_update_shares(updates)
+    return total
+
+
+def check_f32_checkpoint(save_dir, tag):
+    saved = torch.load(os.path.join(save_dir, "checkpoint.pt"),
+                       map_location="cpu", weights_only=True)
+    require(all(v.dtype == torch.float32 for v in saved["state_dict"].values()
+                if v.is_floating_point()),
+            f"{tag}: the checkpoint is not float32")
+
+
+def cls_bf16_kernels_vs_plain(updates, errs):
+    """Phase 34: the bf16 PGD update at every shape and step size of phase
+    33 (the ALFA tap and the learnable taps), clipped and not, bit for
+    bit."""
+    print("[34] bf16 PGD update vs its plain version at the classification "
+          "shapes")
+    cases = sorted({(shape, gamma) for shape, _, gamma, dtype, _ in updates
+                    if dtype == torch.bfloat16})
+    for i, (shape, gamma) in enumerate(cases):
+        x, g, c = (t.bfloat16() for t in pgd_inputs(shape, 600 + i))
+        for clip in (False, True):
+            pgd_case(f"bf16 classification shape {i}", x, g, c, clip, errs,
+                     gamma, ALFA_EPS)
+
+
+def time_cls_bf16(card):
+    """Phase 35: the graphed bf16 ALFA step in turns with the graphed f32
+    one (f32, bf16, bf16, f32, three times, 20 steps each), peak memory and
+    each one's profile; the eager bf16 base and learnable steps; the bf16
+    PGD update at the ALFA tap. Returns its times per bf16 ALFA step."""
+    print(f"[35] timing on {card}: the graphed ALFA step, bf16 in turns "
+          f"with f32; the eager bf16 base and learnable steps")
+    split = device_split()
+    cfg = cls_loop.AlfaConfig()
+    scans, args, runs = {}, {}, {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        perm = torch.randperm(len(split[0]), generator=gen, device="cuda")
+        model = resnet56(generator=torch.Generator().manual_seed(1),
+                         dtype=dtype).cuda()
+        opt, _ = alfa_optimizer(model)
+        scans[name] = cls_loop.make_epoch_scan_alfa(model, opt, cfg,
+                                                    CLS_BATCH,
+                                                    SCAN_CALL_STEPS)
+        args[name] = (split[0], split[1], perm, gen)
+        scans[name](*args[name])       # 3 eager steps, the capture, replays
+        runs[name] = scan_turn(scans[name], args[name])
+    steps_per_turn = SCAN_CALL_STEPS * SCAN_TURN_CALLS
+    turns = {"f32": [], "bf16": []}
+    for name in ("f32", "bf16", "bf16", "f32") * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) * 1e3 / steps_per_turn)
+    med = {}
+    for name, ts in turns.items():
+        med[name] = float(np.median(ts))
+        print(f"    graphed ALFA step, {name}: ms per step in 6 turns of "
+              f"{steps_per_turn} steps {[round(t, 3) for t in ts]}; median "
+              f"{med[name]:.3f} ms, p90 {np.percentile(ts, 90):.3f} ms, "
+              f"{CLS_BATCH * 1e3 / med[name]:.1f} imgs/s ({card})")
+    print(f"    graphed bf16 ALFA step {med['f32'] / med['bf16']:.2f}x the "
+          f"graphed f32 step's speed (medians in turns, {card}); memory "
+          f"reserved with both graphs' pools "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB")
+    for name in ("bf16", "f32"):
+        prof = profile_step(lambda: scans[name](*args[name]), n=1,
+                            label=f"graphed {name} ALFA",
+                            per_call=SCAN_CALL_STEPS)
+        if prof:
+            print(f"    device busy share, graphed {name}: "
+                  f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f}% ({card})")
+    del scans, args, runs, split
+    gc.collect()
+    torch.cuda.empty_cache()
+    x, y = cls_batch(1)
+    for mode, n in (("base", 20), ("learnable", 5)):
+        _, step = cls_step(mode, dtype=torch.bfloat16)
+        t = cuda_samples(lambda: step(x, y), n, warmup=2)
+        torch.cuda.reset_peak_memory_stats()
+        step(x, y)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"    eager bf16 {mode} step, ResNet-56, batch {CLS_BATCH}: "
+              f"median {np.median(t):.3f} ms, p90 {np.percentile(t, 90):.3f} "
+              f"ms over {n} steps, {CLS_BATCH * 1e3 / np.median(t):.1f} "
+              f"imgs/s, peak memory {peak:.3f} GiB ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = pgd_bf16_times(card, {(CLS_BATCH, 16, 32, 32): ALFA_GAMMA},
+                           "launch at the ALFA tap")
+    return {k: ALFA_STEPS * v if k != "bound_by" else v
+            for k, v in times.items()}
+
+
+def cls_bf16_phases(card):
+    """Phases 33-35; returns (launches, error, times per bf16 ALFA step) of
+    the bf16 PGD-update kernel on this path."""
+    updates, errs = [], []
+    launches = cls_bf16_runs(updates)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cls_bf16_kernels_vs_plain(updates, errs)
+    times = time_cls_bf16(card)
+    return {"pgd_update_bf16": (launches, max(errs), times)}
+
+
+def merge_launches(entries, parts):
+    """Add a path's kernel launches and largest error to the kernels'
+    entries; a kernel with no entry yet (an ``--only`` group) gets one with
+    this path's times."""
+    for name, (launches, err, times) in parts.items():
+        entry = next((e for e in entries if e["name"] == name), None)
+        if entry is None:
+            source, replaces = KERNEL_SOURCES[name.replace("_bf16", "")]
+            entries.append({"name": name, "route": "cuda", "source": source,
+                            "replaces": replaces, "launches": launches,
+                            "max_abs_err": err, **times,
+                            "library_ms": None})
+            continue
+        entry["launches"] = (entry["launches"] or 0) + launches
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
 
 
 KERNEL_SOURCES = {
@@ -2669,9 +3131,10 @@ class RecordingScan:
         return out
 
 
-def pgd_per_replay(scan, clip):
+def pgd_per_replay(scan, clip, bf16=False):
     """PGD-update kernels per replay, by kernel name (the clipped
-    instantiation with ``clip``), in a profiler trace of
+    instantiation with ``clip``, the bf16 one with ``bf16``), in a profiler
+    trace of
     ``SCAN_BATCHES`` more replays of ``scan``'s own graph, its step index
     reset to row 0 first. The replays train the model on: run it after the
     run's checkpoint is written."""
@@ -2681,7 +3144,8 @@ def pgd_per_replay(scan, clip):
         for _ in range(SCAN_BATCHES):
             scan.graph.replay()
         torch.cuda.synchronize()
-    want = "pgd_step_vec4<true>" if clip else "pgd_step_vec4<false>"
+    want = (f"pgd_step_{'bf16_vec8' if bf16 else 'vec4'}"
+            f"<{'true' if clip else 'false'}>")
     found = {e.key: e.count for e in prof.key_averages()
              if "pgd_step" in e.key}
     other = [k for k in found if want not in k]
@@ -2747,7 +3211,7 @@ def run_scan_cli(flags, epochs, tag, resume=False, batches=SCAN_BATCHES):
     with open(os.path.join(save_dir, "result.pkl"), "rb") as f:
         result = pickle.load(f)
     replays = scan.replays
-    per = pgd_per_replay(scan, clip="--clip" in flags)
+    per = pgd_per_replay(scan, clip="--clip" in flags, bf16="--bf16" in flags)
     print(f"    {tag}: {ran} epoch(s) of {spe} steps + validation "
           f"and test in {secs:.1f} s: {scan.eager_steps} eager steps, "
           f"{replays} graph replays; per-epoch mean loss "
@@ -3024,7 +3488,7 @@ def merge_entry(entries, extra):
 
 
 GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain", "scan", "variants",
-          "bf16")
+          "bf16", "detbf16", "clsbf16")
 
 
 def main(argv=None):
@@ -3093,8 +3557,16 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if only in (None, "scan"):
         merge_entry(entries, epoch_scan_phases(card))
+        gc.collect()
+        torch.cuda.empty_cache()
     if variant:
         merge_variant_launches(entries, variant)
+    if only in (None, "detbf16"):
+        merge_launches(entries, det_bf16_phases(card))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if only in (None, "clsbf16"):
+        merge_launches(entries, cls_bf16_phases(card))
 
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -422,13 +422,48 @@ def test_cli_resume_restores_everything(tmp_path, monkeypatch):
                for k, v in saved["state_dict"].items())
 
 
-@pytest.mark.parametrize("flag", [["--bf16"],
-                                  ["--epoch_scan", "--pgd_random_steps"],
+@pytest.mark.parametrize("flag", [["--epoch_scan", "--pgd_random_steps"],
                                   ["--num_devices", "2"]])
 def test_cli_refuses_unported_flags(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_classify.main(["--device", "cpu", "--save_dir", str(tmp_path)]
                             + flag)
+
+
+def test_cli_bf16_builds_a_bf16_model_and_runs_a_step(tmp_path, monkeypatch):
+    """``--bf16`` makes bfloat16 the model's compute dtype; its parameters
+    and checkpoint stay float32 (``tests/test_torch_classify_bf16.py``
+    holds the bf16 steps to ``afan``'s)."""
+    monkeypatch.setattr(train_classify, "cifar10_dataloaders", small_loaders)
+    built, losses = [], []
+    real_model, real_step = train_classify.build_model, train_classify.build_step
+
+    def model_recording(args, generator):
+        model = real_model(args, generator)
+        built.append((model.dtype, {p.dtype for p in model.parameters()}))
+        return model
+
+    def step_recording(*a):
+        step = real_step(*a)
+
+        def run(*args):
+            out = step(*args)
+            losses.append((out["loss"].dtype, float(out["loss"])))
+            return out
+        return run
+    monkeypatch.setattr(train_classify, "build_model", model_recording)
+    monkeypatch.setattr(train_classify, "build_step", step_recording)
+    d = str(tmp_path)
+    train_classify.main(["--device", "cpu", "--mode", "base", "--epochs",
+                         "1", "--limit_batches", "1", "--batch_size", "8",
+                         "--save_dir", d, "--host_aug", "--bf16"])
+    assert built == [(torch.bfloat16, {torch.float32})]
+    assert [dt for dt, _ in losses] == [torch.bfloat16]
+    assert np.isfinite([v for _, v in losses]).all()
+    saved = load_training_state(os.path.join(d, "checkpoint.pt"))
+    assert saved["step"] == 1
+    assert {v.dtype for v in saved["state_dict"].values()
+            if v.is_floating_point()} == {torch.float32}
 
 
 def test_cli_defaults_to_the_card(tmp_path):

@@ -375,6 +375,75 @@ def test_afan_detection_step_kernels_match_plain(card):
         assert abs(lk[k] - lp[k]) <= 1e-4 * max(abs(lp[k]), 1e-6), k
 
 
+# (shape, gamma): the bf16 ascents of the detection recipes (SE at tap 2 of a
+# 608x1008 batch of 8, SD on 8 x 128 pooled ROI vectors, gammas 0.05-0.2/255)
+# and of ALFA (tap 13) and learnable-eta (its taps' three shapes) at batch 128
+BF16_PGD_SHAPES = [((8, 512, 76, 126), 1.0 / 255), ((1024, 2048), 0.05 / 255),
+                   ((1024, 2048), 0.2 / 255), ((128, 16, 32, 32), 1.5 / 255),
+                   ((128, 32, 16, 16), 1.0 / 255), ((128, 64, 8, 8), 1.0 / 255)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [False, True], ids=["step", "clip"])
+@pytest.mark.parametrize("shape,gamma", BF16_PGD_SHAPES)
+def test_pgd_step_kernel_bf16_at_the_recipes_shapes(card, shape, gamma, clip):
+    gen = torch.Generator(device=card).manual_seed(len(shape))
+    x, g, c = (torch.randn(shape, generator=gen, device=card).bfloat16()
+               for _ in range(3))
+    kw = dict(gamma=gamma, eps=2.0 / 255 if clip else None, clip=clip)
+    got = kpgd.pgd_update(x, g, c if clip else None, **kw)
+    want = tpgd.pgd_update_plain(x, g, c if clip else None, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_bf16_afan_detection_step_on_the_card(card):
+    """One tiny A-FAN detection step (ResNet-18, 64x96 canvas) with the
+    model in bf16: finite losses, float32 parameters, 2 proposal NMS
+    launches on float32 boxes and 2 bf16 PGD-update launches."""
+    from afan_torch.data.voc_det import voc_detection_loaders
+    from afan_torch.models.frcnn import FasterRCNN, FRCNNConfig
+    from afan_torch.train import detect_loop
+    from afan_torch.train.optim import sgd
+
+    cfg = FRCNNConfig(backbone="resnet18", num_classes=21,
+                      anchor_sizes=(32, 64), train_pre_nms_top_n=128,
+                      train_post_nms_top_n=32, roi_samples=8, roi_fg_cap=2,
+                      rpn_samples=16, rpn_fg_cap=8)
+    model = FasterRCNN(cfg, torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(card)
+    batch = next(iter(voc_detection_loaders(None, 2, 64, 96)[0]))
+    args = [torch.from_numpy(a).to(card) for a in
+            (batch.images, batch.boxes, batch.labels.astype(np.int64),
+             batch.valid)]
+    opt, sched = sgd(detect_loop.detection_param_groups(model),
+                     lambda c: 0.01, 0.01, 0.9, 5e-4)
+    step = detect_loop.make_afan_det_step(
+        model, opt, sched, detect_loop.DetAfanConfig(
+            spectrum=3, mix_mask=(0, 1, 0), mix_sd=True))
+    boxes = []
+    saved = tnms.nms_sorted_mask
+
+    def nms(b, *a):
+        boxes.append(b.dtype)
+        return saved(b, *a)
+    before = (knms.launches, kpgd.bf16_launches)
+    try:
+        tnms.nms_sorted_mask = nms
+        out = step(*args, torch.Generator(card).manual_seed(0))
+    finally:
+        tnms.nms_sorted_mask = saved
+    torch.cuda.synchronize()
+    assert (knms.launches - before[0], kpgd.bf16_launches - before[1]) == (
+        2, 2)
+    assert boxes == [torch.float32] * 2
+    assert all(np.isfinite(float(v)) for v in out.values())
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+
+
 @pytest.fixture
 def deterministic():
     """cuDNN deterministic and no TF32, restored after the test."""

@@ -678,8 +678,8 @@ def recipe_flags():
 def test_cli_takes_the_recipe_flags():
     flags = recipe_flags()
     assert "--bf16" in flags
-    port_flags = [f for f in flags if f != "--bf16"]
-    args = train_detect.get_parser().parse_args(port_flags)
+    args = train_detect.get_parser().parse_args(flags)
+    assert args.bf16
     cfg = train_detect.afan_config_for(args)
     assert (args.variant, args.backbone, args.batch_size) == (
         "afan", "resnet50", 8)
@@ -691,13 +691,49 @@ def test_cli_takes_the_recipe_flags():
     assert cfg == train_detect.afan_config_for(j_args)
     assert j_train_detect.afan_config_for(j_args) == j_loop.DetAfanConfig(
         **{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_detect.main(flags + ["--device", "cpu"])
+    assert args.bf16 == j_args.bf16
 
 
-@pytest.mark.parametrize("flags", [["--bf16"], ["--pertub_idx_sd", "rpn"]],
-                         ids=["bf16", "sd_rpn"])
+@pytest.mark.parametrize("flags", [["--num_devices", "2"],
+                                   ["--pertub_idx_sd", "rpn"]],
+                         ids=["num_devices", "sd_rpn"])
 def test_cli_refuses_unported_flags(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_detect.main(["--device", "cpu", "-o", str(tmp_path)] + flags
                           + smoke_tiny_flags())
+
+
+def test_cli_bf16_builds_a_bf16_model_and_runs_a_step(tmp_path, monkeypatch):
+    """``--bf16`` makes bfloat16 the model's compute dtype; its parameters
+    and checkpoint stay float32 (``tests/test_torch_detect_bf16.py`` holds
+    the bf16 steps to ``afan``'s)."""
+    built, losses = [], []
+    real_model, real_step = train_detect.FasterRCNN, \
+        train_detect.make_baseline_det_step
+
+    def model_recording(*a):
+        model = real_model(*a)
+        built.append((model.dtype, {p.dtype for p in model.parameters()}))
+        return model
+
+    def step_recording(*a):
+        step = real_step(*a)
+
+        def run(*args):
+            out = step(*args)
+            losses.append(float(out["loss"]))
+            return out
+        return run
+    monkeypatch.setattr(train_detect, "FasterRCNN", model_recording)
+    monkeypatch.setattr(train_detect, "make_baseline_det_step",
+                        step_recording)
+    out = str(tmp_path)
+    flags = [a if a != "2" else "1" for a in smoke_tiny_flags()]
+    mean_ap = train_detect.main(["--device", "cpu", "--variant", "baseline",
+                                 "-o", out, "--bf16"] + flags)
+    assert built == [(torch.bfloat16, {torch.float32})]
+    assert len(losses) == 1 and np.isfinite(losses).all()
+    assert 0.0 <= mean_ap <= 1.0
+    weights = load_checkpoint(os.path.join(out, "model-1.pt"))
+    assert {v.dtype for v in weights.values()
+            if v.is_floating_point()} == {torch.float32}
