@@ -31,7 +31,11 @@ Data is ``afan``'s deterministic synthetic VOC or Cityscapes stand-in
 (``--dataset synthetic`` is VOC's, as in ``afan``; reading the datasets from
 disk is not ported yet); weights start from a seeded random init. The
 loop validates with mIoU every ``--val_interval`` iterations and at the
-end, and writes ``latest_*.pt`` / ``best_*.pt`` under ``checkpoints/<exp>/``.
+end, and writes ``latest_*.pt`` / ``best_*.pt`` under ``checkpoints/<exp>/``;
+``--enable_vis`` adds input | target | prediction PNG panels of the first
+``--vis_num_samples`` validation images under ``runs/<exp>/vis/``.
+``--test_only CKPT`` restores a checkpoint, validates, prints the metrics
+and returns them, training nothing.
 """
 from __future__ import annotations
 
@@ -54,6 +58,8 @@ from ..train.segment_loop import (SegAfanConfig, make_afan_seg_step,
                                   make_seg_eval_step)
 from ..utils.device import resolve_device
 from ..utils.logging import Log
+from ..utils.observe import save_image_panel
+from .eval_segment import decode_palette
 
 VARIANTS = ("baseline", "advtrain", "afan", "sat", "sat_clean", "multi",
             "multi_clean", "sat_multi", "sat_multi_clean")
@@ -134,6 +140,14 @@ def get_parser():
     p.add_argument("--input_adv", action="store_true",
                    help="input PGD on the clean term of --variant afan (the "
                         "sat/multi variants but *_clean imply it)")
+    p.add_argument("--test_only", type=str, default="",
+                   help="path to a checkpoint: restore, validate, print and "
+                        "exit (`args.py:17`)")
+    # the reference's visdom image panels as PNG files under runs/
+    p.add_argument("--enable_vis", action="store_true",
+                   help="write input|target|prediction panels at each "
+                        "validation")
+    p.add_argument("--vis_num_samples", type=int, default=8)
     return p
 
 
@@ -255,12 +269,40 @@ def main(argv=None):
         return (torch.from_numpy(imgs).to(device, non_blocking=True),
                 torch.from_numpy(labs).to(device, non_blocking=True))
 
-    def validate():
+    palette = decode_palette(args.dataset, num_classes)
+
+    def decode(lab: np.ndarray) -> np.ndarray:
+        rgb = np.zeros(lab.shape + (3,), np.uint8)
+        ok = lab < len(palette)
+        rgb[ok] = palette[lab[ok]]
+        return rgb
+
+    def validate(itrs=0, vis=args.enable_vis):
+        """The validation mIoU; with ``vis``, the first
+        ``--vis_num_samples`` images' panels, named as ``afan`` names them
+        (`cli/train_segment.py:355-368`)."""
         metrics = StreamSegMetrics(num_classes)
+        vis_left = args.vis_num_samples if vis else 0
         for imgs, labs in val_loader:
-            _, hist = eval_step(*to_device(imgs, labs))
+            preds, hist = eval_step(*to_device(imgs, labs))
             metrics.update_hist(hist.cpu().numpy())
+            if vis_left:
+                preds = preds.cpu().numpy()
+            for j in range(min(vis_left, len(imgs))):
+                save_image_panel(
+                    os.path.join("runs", exp, "vis",
+                                 f"itrs{itrs:06d}_{vis_left:02d}.png"),
+                    imgs[j], decode(labs[j]), decode(preds[j]))
+                vis_left -= 1
         return metrics.get_results()
+
+    if args.test_only:
+        frac = overlap_restore(model, load_checkpoint(args.test_only))
+        Log.i(f"[test_only] restored {frac:.1%} of the entries from "
+              f"{args.test_only}")
+        results = validate(vis=False)
+        Log.i(StreamSegMetrics.to_str(results))
+        return results
 
     interval_loss = 0.0
     t0 = time.time()
@@ -281,7 +323,7 @@ def main(argv=None):
                 interval_loss = 0.0
                 t0 = time.time()
             if cur_itrs % args.val_interval == 0 or cur_itrs >= total:
-                results = validate()
+                results = validate(cur_itrs)
                 score = results["Mean IoU"]
                 Log.i(f"[Val] itrs {cur_itrs}: "
                       f"{StreamSegMetrics.to_str(results)}")

@@ -49,8 +49,10 @@
 // Arithmetic is bitwise that of `pairwise_iou` (afan_torch/ops/nms.py):
 // area = (x2-x1+off)*(y2-y1+off); inter = max(min(x2)-max(x1)+off, 0) *
 // max(min(y2)-max(y1)+off, 0); iou = inter / max((area_a+area_b)-inter,
-// 1e-12) with an IEEE division, compared >= a float threshold. The build
-// passes -fmad=false so that no multiply-add is contracted into an FMA.
+// 1e-12) with an IEEE division, compared >= a float threshold; every max
+// and min passes a NaN on, as torch's do, so a pair with a NaN coordinate
+// never suppresses. The build passes -fmad=false so that no multiply-add is
+// contracted into an FMA.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,6 +71,17 @@ constexpr int kRing = 4;           // published kept words in flight
 __device__ __forceinline__ float box_area(float x1, float y1, float x2,
                                           float y2, float off) {
   return (x2 - x1 + off) * (y2 - y1 + off);
+}
+
+// torch.maximum / torch.minimum and clamp_min: a NaN operand gives NaN, as
+// in `pairwise_iou` and afan's jnp.maximum / jnp.minimum. fmaxf and fminf
+// drop a NaN, so a box with a NaN coordinate would get a finite overlap.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
 }
 
 // Bits lo..hi-1 of a word.
@@ -111,15 +124,18 @@ __global__ void nms_mask_kernel(const float* __restrict__ boxes, int n,
 #pragma unroll 16
   for (int k = 0; k < kTile; ++k) {
     const float4 b = cols[k];
-    const float w = fmaxf(fminf(r.z, b.z) - fmaxf(r.x, b.x) + off, 0.0f);
-    const float h = fmaxf(fminf(r.w, b.w) - fmaxf(r.y, b.y) + off, 0.0f);
+    const float w =
+        max_nan(min_nan(r.z, b.z) - max_nan(r.x, b.x) + off, 0.0f);
+    const float h =
+        max_nan(min_nan(r.w, b.w) - max_nan(r.y, b.y) + off, 0.0f);
     const float inter = w * h;
-    // 0 / fmaxf(uni, 1e-12) is exactly 0 for every uni (fmaxf drops a
-    // NaN), so skipping the division changes no result; a NaN inter still
-    // divides.
-    bool o = disjoint_over;
+    const float uni = (row_area + col_area[k]) - inter;
+    // 0 / max_nan(uni, 1e-12) is 0 unless uni is NaN, so skipping the
+    // division changes no result; a NaN inter still divides, and a NaN
+    // IoU is never >= thr.
+    bool o = disjoint_over && uni == uni;
     if (inter != 0.0f) {
-      o = inter / fmaxf((row_area + col_area[k]) - inter, 1e-12f) >= thr;
+      o = inter / max_nan(uni, 1e-12f) >= thr;
     }
     bits |= static_cast<u64>(o) << k;
   }

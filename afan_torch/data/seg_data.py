@@ -23,6 +23,13 @@ import numpy as np
 from .ext_transforms import cityscapes_train_transform, voc_train_transform
 
 IGNORE = 255
+# Cityscapes' 19 train-id colours (`datasets/cityscapes.py` decode_target)
+CITY_TRAIN_COLORS = np.asarray([
+    (128, 64, 128), (244, 35, 232), (70, 70, 70), (102, 102, 156),
+    (190, 153, 153), (153, 153, 153), (250, 170, 30), (220, 220, 0),
+    (107, 142, 35), (152, 251, 152), (70, 130, 180), (220, 20, 60),
+    (255, 0, 0), (0, 0, 142), (0, 0, 70), (0, 60, 100), (0, 80, 100),
+    (0, 0, 230), (119, 11, 32)], np.uint8)
 VOC_SEG_CLASSES = 21
 CITYSCAPES_CLASSES = 19
 UNPORTED = "is not ported yet (ROADMAP.md, queue 1, item 5)"

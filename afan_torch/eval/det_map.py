@@ -128,6 +128,14 @@ def evaluate_detections(num_classes: int,
     return mean_ap, aps
 
 
+def ground_truth(samples) -> Dict[str, Tuple[np.ndarray, np.ndarray,
+                                              np.ndarray]]:
+    """image_id → (boxes, labels, difficult) of the loader's samples; they
+    are synthetic, so no object is difficult."""
+    return {s.image_id: (s.boxes, s.labels, np.zeros(len(s.labels), bool))
+            for s in samples}
+
+
 class DetectionEvaluator:
     """The eval loop of `Detection/evaluator.py:20-47`: clean forward per
     batch → rescale boxes by 1/scale → prob>0.05 filter → dataset mAP."""
@@ -155,7 +163,7 @@ class DetectionEvaluator:
         prob_chunks: List[np.ndarray] = []
         for batch in self.loader:
             boxes, probs, keep = (t.cpu().numpy() for t in self.detect_fn(
-                torch.from_numpy(batch.images)))
+                torch.as_tensor(batch.images)))
             mask = keep & (probs > self.PROB_THRESH)
             bsel, psel, csel = np.nonzero(mask)
             scales = np.asarray(batch.scales, np.float64)[bsel]
@@ -163,9 +171,7 @@ class DetectionEvaluator:
             box_chunks.append(boxes[bsel, psel, csel] / scales[:, None])
             cls_chunks.append(csel)
             prob_chunks.append(probs[bsel, psel, csel])
-        # the loader's samples are synthetic: no difficult objects
-        gt = {s.image_id: (s.boxes, s.labels, np.zeros(len(s.labels), bool))
-              for s in self.loader.samples}
+        gt = ground_truth(self.loader.samples)
         all_ids = [i for chunk in id_chunks for i in chunk]
         if not all_ids:
             return 0.0, "no detections"

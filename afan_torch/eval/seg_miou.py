@@ -18,6 +18,22 @@ class StreamSegMetrics:
         self.confusion_matrix = np.zeros((n_classes, n_classes),
                                          dtype=np.int64)
 
+    def update(self, label_trues, label_preds) -> None:
+        """Add the confusion of each pair of ground-truth and predicted
+        label maps (numpy, any shape; labels outside ``[0, n_classes)`` are
+        left out), as ``afan``'s `seg_miou.py:22-25`."""
+        for lt, lp in zip(label_trues, label_preds):
+            self.confusion_matrix += self._fast_hist(np.asarray(lt).flatten(),
+                                                     np.asarray(lp).flatten())
+
+    def _fast_hist(self, label_true: np.ndarray, label_pred: np.ndarray
+                   ) -> np.ndarray:
+        mask = (label_true >= 0) & (label_true < self.n_classes)
+        return np.bincount(
+            self.n_classes * label_true[mask].astype(int) + label_pred[mask],
+            minlength=self.n_classes ** 2,
+        ).reshape(self.n_classes, self.n_classes)
+
     def update_hist(self, hist) -> None:
         """Add a precomputed confusion matrix."""
         self.confusion_matrix += np.asarray(hist, dtype=np.int64)
@@ -43,6 +59,10 @@ class StreamSegMetrics:
             "Mean IoU": float(mean_iu),
             "Class IoU": dict(zip(range(self.n_classes), iu)),
         }
+
+    def reset(self) -> None:
+        self.confusion_matrix = np.zeros((self.n_classes, self.n_classes),
+                                         dtype=np.int64)
 
     @staticmethod
     def to_str(results: Dict) -> str:

@@ -12,7 +12,8 @@ trainer); ``--only seg`` phases 1, 2 and
 11 then lacks the segmentation ascents' shapes); ``--only dettrain`` phases
 1, 2 and 15-17; ``--only scan`` phases 1, 2 and 18-21; ``--only variants``
 phases 1, 2 and 22-26; ``--only bf16`` phases 1, 2 and 27-29; ``--only
-detbf16`` phases 1, 2 and 30-32; ``--only clsbf16`` phases 1, 2 and 33-35.
+detbf16`` phases 1, 2 and 30-32; ``--only clsbf16`` phases 1, 2 and 33-35;
+``--only eval`` phases 1, 2 and 36-39.
 The kernels
 line then lists the kernels of the phases that ran; without phase 8 the
 upsample + CE kernels have no launch count (null), and under ``--only
@@ -204,7 +205,38 @@ Phases (any failure exits non-zero):
      taps) and step sizes, clipped and not, bit for bit;
  35. the graphed bf16 ALFA step in turns with the graphed f32 one (peak
      memory, each one's profile), the eager bf16 base and learnable steps,
-     and the bf16 PGD update at the ALFA tap.
+     and the bf16 PGD update at the ALFA tap;
+ 36. every ``eval_detect`` task at full width through
+     ``afan_torch.cli.eval_detect.main`` (ResNet-50 Faster R-CNN, 21
+     classes, canvas 608x1008, batch 1, eval NMS 6000 -> 300 at 0.7 and per
+     class at 0.3; phase 15's calibrated torso and seeded heads through
+     ``--checkpoint``; synthetic VOC): ``map`` on the 16 test images, ``rob``
+     (PGD-3, 2/255, 8/255) and ``sat_layers`` (tap 2, alpha 0.5, with and
+     without ``--mix``) on the first 4, ``sat_vis`` (spectrum 5) on 2,
+     ``input_surface`` at 8x8 points on 1 (its centre NaN), ``loss_vis``:
+     mAPs, the PNG count, the pickled surface, the probe's losses, and the
+     NMS and PGD-update launches of each run as its task implies;
+ 37. ``eval_segment`` through its ``main`` (DeepLabv3+ ResNet-50, OS 16,
+     batch 1; seeded weights with BatchNorm statistics fitted on two VOC
+     images, through ``--ckpt``): VOC (21 classes, crop 513, ``--crop_val``)
+     ``--task miou`` with ``--save_val_results`` and ``--task pgd`` (3 steps,
+     2/255, 8/255), plain and with ``--randinit_pgd --clip_pgd``; Cityscapes
+     (19 classes, crop 768) ``--task pgd``; ``train_segment --test_only`` on
+     the same checkpoint, whose mIoU must equal ``--task miou``'s; the
+     upsample + CE and PGD-update launches of each run;
+ 38. the kernels at the evaluation shapes: NMS on the eval paths' own
+     inputs (G=1, N=6000; per class G=20, N=300; N=12000 in the attack
+     losses; the all-NaN proposals of the surface's centre image) and on NaN
+     boxes (``NMS_NAN_CASES``), keep masks equal; the PGD update bit-equal
+     at (1, 608, 1008, 3), (1, 512, 76, 126), (1, 513, 513, 3) and every
+     shape the runs recorded, clipped and not; the upsample + CE at batch 1
+     (``EVAL_CE_CASES``, Cityscapes' 1024x2048 validation image included)
+     within phase 7's tolerances; then ``map``, ``rob`` and the VOC ``pgd``
+     (1 and 3 steps) again with the plain versions patched in: mAP and the
+     1-step mIoU equal, attacked images compared entry by entry;
+ 39. ms per image of each eval task (CUDA events, data loading left out),
+     the ms per surface grid point, and each kernel at the new shapes with
+     its plain version, bound and (upsample + CE) library composition.
 
 The line before the last lists each kernel with its launches on its main
 paths (the bf16 paths of phases 27-29 as entries of their own, ``_bf16``,
@@ -215,9 +247,13 @@ call plus per A-FAN detection step; PGD update: per ALFA step plus per A-FAN
 detection step plus per robust-eval batch); its launches include the variant
 runs of phases 22 and 23 and the bf16 runs of phases 30 and 33 (NMS in
 ``nms``, the bf16 updates in ``pgd_update_bf16``, whose times are phase
-29's where it ran, else the bf16 detection or ALFA step's). Launches are the wrappers' counts: a graph replay runs kernels that no wrapper call counts, so phase
-18 prints the PGD-update kernels its replays ran (the profiled kernels per
-replay times the replays) beside the wrapper's count. Before the kernels
+29's where it ran, else the bf16 detection or ALFA step's) and the eval runs
+of phases 36 and 37 (under ``--only eval`` the times are per ``rob`` image
+for NMS and the PGD update, per VOC ``pgd`` image for the upsample + CE).
+Launches are the wrappers' counts: a graph replay runs kernels that no
+wrapper call counts, so phase 18 prints the PGD-update kernels its replays
+ran (the profiled kernels per replay times the replays) beside the
+wrapper's count. Before the kernels
 line the script prints its total time; the last line is the device
 summary.
 """
@@ -241,13 +277,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from afan_torch.cli import (infer_classify, train_classify, train_detect,
-                            train_segment)
+from afan_torch.cli import (eval_detect, eval_segment, infer_classify,
+                            train_classify, train_detect, train_segment)
 from afan_torch.cli.infer_detect import build_state, preprocess_frame
 from afan_torch.cli.serve_websocket import FrameBatcher
 from afan_torch.core import attack
-from afan_torch.data import cifar
+from afan_torch.data import cifar, seg_data
 from afan_torch.data.voc_det import voc_detection_loaders
+from afan_torch.eval import feature_vis, robustness
 from afan_torch.eval.robustness import make_robust_eval_step
 from afan_torch.models.deeplab import build_model
 from afan_torch.models.deeplab.modeling import segmentation_param_groups
@@ -852,32 +889,39 @@ def patched_site_op(fn):
         segment_loop.fused_resize_nll_sums = saved
 
 
+def ce_case(name, B, hw, HW, C, focal, errs):
+    """Both upsample + CE kernels (twice) against the plain version on one
+    geometry: sums within ``CE_SUM_TOL`` and gradient within
+    ``CE_GRAD_TOL`` (max abs error over max abs value), two runs
+    bit-equal; the largest absolute errors go to ``errs``."""
+    lo, lab, g = ce_inputs(B, hw, HW, C, all_ignored=name == "all_ignored")
+    sums = krce.resize_ce_forward(lo, lab, focal)
+    dlo = krce.resize_ce_backward(lo, lab, g, focal)
+    again = (krce.resize_ce_forward(lo, lab, focal),
+             krce.resize_ce_backward(lo, lab, g, focal))
+    want_s = trce.fused_resize_nll_sums_plain(lo, lab, HW, focal)
+    want_d = trce.resize_ce_grad_plain(lo, lab, g, focal)
+    torch.cuda.synchronize()
+    es, eg = rel_err(sums, want_s), rel_err(dlo, want_d)
+    errs["fwd"].append(float((sums - want_s).abs().max()))
+    errs["bwd"].append(float((dlo - want_d).abs().max()))
+    repeat = torch.equal(again[0], sums) and torch.equal(again[1], dlo)
+    print(f"  {name}: B={B} {hw}->{HW} C={C} focal={focal}: sums rel "
+          f"{es:.3e}, grad rel {eg:.3e}, repeat bit-equal {repeat}")
+    require(es <= CE_SUM_TOL, f"{name}: sums rel err {es} > {CE_SUM_TOL}")
+    require(eg <= CE_GRAD_TOL, f"{name}: grad rel err {eg} > {CE_GRAD_TOL}")
+    require(repeat, f"{name}: two runs of the kernels differ")
+    if name == "all_ignored":
+        require(float(sums[-1]) == 0.0 and not dlo[-1].any(),
+                "an entry of ignored labels has a loss or a gradient")
+
+
 def ce_kernels_vs_plain(errs):
     """Phase 7: both kernels against the plain version on the geometries
     of ``CE_CASES``; appends the largest absolute errors to ``errs``."""
     print("[7] upsample + CE kernels vs plain version")
-    for name, B, hw, HW, C, focal in CE_CASES:
-        lo, lab, g = ce_inputs(B, hw, HW, C, all_ignored=name == "all_ignored")
-        sums = krce.resize_ce_forward(lo, lab, focal)
-        dlo = krce.resize_ce_backward(lo, lab, g, focal)
-        again = (krce.resize_ce_forward(lo, lab, focal),
-                 krce.resize_ce_backward(lo, lab, g, focal))
-        want_s = trce.fused_resize_nll_sums_plain(lo, lab, HW, focal)
-        want_d = trce.resize_ce_grad_plain(lo, lab, g, focal)
-        torch.cuda.synchronize()
-        es, eg = rel_err(sums, want_s), rel_err(dlo, want_d)
-        errs["fwd"].append(float((sums - want_s).abs().max()))
-        errs["bwd"].append(float((dlo - want_d).abs().max()))
-        repeat = torch.equal(again[0], sums) and torch.equal(again[1], dlo)
-        print(f"  {name}: B={B} {hw}->{HW} C={C} focal={focal}: sums rel "
-              f"{es:.3e}, grad rel {eg:.3e}, repeat bit-equal {repeat}")
-        require(es <= CE_SUM_TOL, f"{name}: sums rel err {es} > {CE_SUM_TOL}")
-        require(eg <= CE_GRAD_TOL,
-                f"{name}: grad rel err {eg} > {CE_GRAD_TOL}")
-        require(repeat, f"{name}: two runs of the kernels differ")
-        if name == "all_ignored":
-            require(float(sums[-1]) == 0.0 and not dlo[-1].any(),
-                    "an entry of ignored labels has a loss or a gradient")
+    for case in CE_CASES:
+        ce_case(*case, errs)
     # the autograd Function on a CUDA tensor goes through both kernels
     lo, lab, g = ce_inputs(2, (192, 192), (768, 768), 19, seed=1)
     before = (krce.fwd_launches, krce.bwd_launches)
@@ -3064,8 +3108,8 @@ def merge_launches(entries, parts):
             source, replaces = KERNEL_SOURCES[name.replace("_bf16", "")]
             entries.append({"name": name, "route": "cuda", "source": source,
                             "replaces": replaces, "launches": launches,
-                            "max_abs_err": err, **times,
-                            "library_ms": None})
+                            "max_abs_err": err, "library_ms": None,
+                            **times})
             continue
         entry["launches"] = (entry["launches"] or 0) + launches
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -3471,6 +3515,584 @@ def epoch_scan_phases(card):
             **times, "library_ms": None}
 
 
+# ---------- evaluation: phases 36-39 ----------
+
+EVAL_OUT = os.path.join("checkpoints", "chip_smoke_eval")
+# afan's eval loader and the VOC canvas: ResNet-50, 21 classes, batch 1,
+# 608x1008, the eval NMS 6000 -> 300 at 0.7 and per class at 0.3; the
+# attack losses sample with the training NMS (12000 -> 2000 at 0.7)
+EVAL_DET_FLAGS = ["-s", "voc2007", "-b", "resnet50", "--data_dir",
+                  os.path.join(ROOT, "no_voc_here"), "--image_min_side",
+                  "600", "--image_max_side", "1000", "--rpn_pre_nms_top_n",
+                  "6000", "--rpn_post_nms_top_n", "300"]
+# the probe's grid holds 0 exactly at 8 points (-0.1 + 4 * f32(0.025)), so
+# its centre image is all zero and its loss NaN, which sends NaN boxes
+# through the proposal NMS; at 6 or at the reference's 40 points the float32
+# grid misses 0 by 7.45e-9 and no cell is NaN, in afan as here
+ROB_IMAGES, SAT_IMAGES, SAT_VIS_IMAGES, SURFACE_POINTS = 4, 4, 2, 8
+EVAL_PGD_STEPS = 3
+SEG_EVAL_FLAGS = ["--model", SEG_MODEL, "--output_stride", "16",
+                  "--data_root", os.path.join(ROOT, "no_data_here")]
+VOC_EVAL = ["--dataset", "voc", "--crop_size", "513", "--crop_val",
+            "--val_batch_size", "1"]
+CITY_EVAL = ["--dataset", "cityscapes", "--crop_size", "768"]
+SEG_PGD = ["--task", "pgd", "--pgd_steps", str(EVAL_PGD_STEPS),
+           "--pgd_gamma", "2", "--pgd_eps", "8"]
+SEG_VAL_IMAGES = 16
+# the new shapes: the PGD update on the VOC canvas, at the SE tap feature
+# (layer 2 of the ResNet-50, stride 8) and on the VOC crop; the upsample +
+# CE at batch 1 on the VOC and Cityscapes crops and on Cityscapes' whole
+# 1024x2048 validation image (afan/data/seg_data.py:257)
+EVAL_PGD_SHAPES = ((1, 608, 1008, 3), (1, 512, 76, 126), (1, 513, 513, 3))
+EVAL_CE_CASES = [
+    ("voc513_b1", 1, (129, 129), (513, 513), 21, None),
+    ("city768_b1", 1, (192, 192), (768, 768), 19, None),
+    ("city_val_1024x2048", 1, (256, 512), (1024, 2048), 19, None),
+]
+# differing entries between the attacked images of the kernel and plain
+# segmentation runs: after one step only entries whose gradient float
+# order turns over (near zero); after three the trajectories part (about a
+# fifth of the entries on the H100 at the VOC crop) though most entries
+# still agree (unrelated sign fields would leave 7/8 of them apart)
+ADV_DIFF_SHARE, ADV_DIFF_SHARE_3 = 0.001, 0.5
+# a few attacked entries apart can move a pixel's prediction across a class
+# boundary, so the segmentation mIoU is held within these of the plain run's
+MIOU_TOL, MIOU_TOL_3 = 1e-4, 1e-2
+
+
+def nan_mixed_boxes(n, seed):
+    """Score-sorted boxes with whole NaN boxes and single NaN coordinates
+    among ordinary ones."""
+    b = sorted_boxes(n, seed).copy()
+    b[5::7] = np.nan
+    b[3::11, 2] = np.nan
+    b[2::13, 1] = np.nan
+    return b
+
+
+# NaN boxes: what a NaN image sends into the proposal NMS (every box NaN),
+# NaN boxes among ordinary ones, and NaN boxes in invalid slots
+NMS_NAN_CASES = {
+    "nan_all": lambda: (np.full((12000, 4), np.nan, np.float32),
+                        np.ones(12000, bool), 0.7),
+    "nan_mixed": lambda: (nan_mixed_boxes(6000, 3), np.ones(6000, bool),
+                          0.7),
+    "nan_mixed_0.3": lambda: (nan_mixed_boxes(300, 4), np.ones(300, bool),
+                              0.3),
+    "nan_invalid": lambda: (nan_mixed_boxes(600, 5),
+                            ~np.isnan(nan_mixed_boxes(600, 5)).any(1), 0.7),
+}
+
+
+def eval_counts():
+    return {"nms": knms.launches, "pgd_update": kpgd.launches,
+            "resize_ce_forward": krce.fwd_launches,
+            "resize_ce_backward": krce.bwd_launches}
+
+
+def run_eval_cli(main, argv, tag, images, expected):
+    """One run of an eval CLI's ``main``: every kernel count set to 0 just
+    before it and read just after; ``expected`` per image (a dict of
+    counts) is required. Returns (result, counts)."""
+    knms.launches = kpgd.launches = 0
+    krce.fwd_launches = krce.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = main(argv)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    counts = eval_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: images * expected.get(k, 0) for k in counts}
+    require(counts == want, f"{tag}: launches {counts}, expected {want}")
+    print(f"    {tag}: {images} images in {secs:.2f} s wall "
+          f"({secs * 1e3 / images:.1f} ms per image, data and host work "
+          f"included), launches {counts} ("
+          f"{ {k: v // images for k, v in counts.items() if v} } per image), "
+          f"peak memory {peak:.2f} GiB")
+    return out, counts
+
+
+@contextlib.contextmanager
+def first_test_images(n):
+    """``eval_detect`` on the first ``n`` test images: ``afan``'s ``map``,
+    ``rob`` and ``sat_layers`` go through the whole test split and ignore
+    ``--limit_images``, so the phase cuts the loader's samples."""
+    real = eval_detect.detection_loaders
+
+    def cut(*a, **kw):
+        train, ev, nc = real(*a, **kw)
+        ev.samples = ev.samples[:n]
+        return train, ev, nc
+
+    eval_detect.detection_loaders = cut
+    try:
+        yield
+    finally:
+        eval_detect.detection_loaders = real
+
+
+@contextlib.contextmanager
+def recording(module, name, outputs):
+    """``module.name``, an attack factory, patched so that each attack's
+    output is appended to ``outputs``."""
+    real = getattr(module, name)
+
+    def factory(*a, **kw):
+        attack_fn = real(*a, **kw)
+
+        def run(*args):
+            adv = attack_fn(*args)
+            outputs.append(adv.detach().clone())
+            return adv
+        return run
+
+    setattr(module, name, factory)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def eval_det_weights():
+    """The detection phases' seeded torso (frozen-BatchNorm statistics
+    fitted, ``calibrated_backbone``) in the seeded ResNet-50 Faster R-CNN,
+    written as a port checkpoint for ``--checkpoint``."""
+    calibrated_backbone()
+    os.makedirs(EVAL_OUT, exist_ok=True)
+    path = os.path.join(EVAL_OUT, "frcnn_resnet50_voc.pt")
+    torch.save({"state_dict": det_model(0).state_dict()}, path)
+    return path
+
+
+def eval_detect_runs(ckpt, nms_calls, updates):
+    """Phase 36: every ``eval_detect`` task at full width through its
+    ``main``; the NMS inputs go to ``nms_calls`` and the PGD updates'
+    (shape, clip) to ``updates``. Returns the tasks' results and launches."""
+    print(f"[36] eval_detect: ResNet-50 Faster R-CNN, 21 classes, canvas "
+          f"608x1008, batch 1, eval NMS 6000 -> 300 at 0.7, per class at "
+          f"0.3; weights: the seeded calibrated torso and seeded heads "
+          f"through --checkpoint {ckpt}; depth cut: map on the "
+          f"{DET_EVAL_IMAGES} synthetic test images, rob and sat_layers on "
+          f"the first {ROB_IMAGES}, sat_vis on {SAT_VIS_IMAGES}, "
+          f"input_surface at {SURFACE_POINTS}x{SURFACE_POINTS} points on 1 "
+          f"(the reference probes 40x40 on 20)")
+    base = EVAL_DET_FLAGS + ["--checkpoint", ckpt, "--pgd_steps",
+                             str(EVAL_PGD_STEPS)]
+    out, launches = {}, {}
+    steps = EVAL_PGD_STEPS
+    runs = [
+        ("map", [], DET_EVAL_IMAGES, {"nms": 2}),
+        ("rob", [], ROB_IMAGES, {"nms": steps + 2, "pgd_update": steps}),
+        ("sat_layers", ["--sat_tap", "2", "--sat_alpha", "0.5"], SAT_IMAGES,
+         {"nms": steps + 2, "pgd_update": steps}),
+        ("sat_layers_mix", ["--sat_tap", "2", "--sat_alpha", "0.5", "--mix"],
+         SAT_IMAGES, {"nms": steps + 2, "pgd_update": steps}),
+        ("sat_vis", ["--spectrum", "5", "--limit_images",
+                     str(SAT_VIS_IMAGES), "--dump_dir",
+                     os.path.join(EVAL_OUT, "feature_maps")],
+         SAT_VIS_IMAGES, {"nms": steps, "pgd_update": steps}),
+        ("input_surface", ["--grid_points", str(SURFACE_POINTS),
+                           "--limit_images", "1", "--surface_out",
+                           os.path.join(EVAL_OUT, "alp_adv.pkl")],
+         1, {"nms": SURFACE_POINTS ** 2 + 1}),
+        ("loss_vis", [], 1, {"nms": len(eval_detect.LOSS_VIS_SCALES)}),
+    ]
+    shutil.rmtree(os.path.join(EVAL_OUT, "feature_maps"), ignore_errors=True)
+    for tag, extra, images, expected in runs:
+        task = tag.replace("_mix", "")
+        calls = []
+        cut = (first_test_images(images) if task in ("rob", "sat_layers")
+               else contextlib.nullcontext())
+        with cut, patched_nms(recording_nms(knms.nms_sorted_mask, calls)), \
+                patched_update(recording_update(updates)):
+            out[tag], launches[tag] = run_eval_cli(
+                eval_detect.main, base + ["--task", task] + extra,
+                f"eval_detect --task {tag}", images, expected)
+        nms_calls[tag] = calls
+    for tag in ("map", "rob", "sat_layers", "sat_layers_mix"):
+        require(0.0 <= out[tag] <= 1.0, f"{tag}: mAP {out[tag]}")
+    files = sorted(os.listdir(os.path.join(EVAL_OUT, "feature_maps")))
+    require(out["sat_vis"] == SAT_VIS_IMAGES * 6 == len(files),
+            f"sat_vis wrote {out['sat_vis']} PNGs, {len(files)} files")
+    for name in files:
+        with open(os.path.join(EVAL_OUT, "feature_maps", name), "rb") as f:
+            require(f.read(8) == b"\x89PNG\r\n\x1a\n", f"{name} is not a PNG")
+    with open(os.path.join(EVAL_OUT, "alp_adv.pkl"), "rb") as f:
+        surfaces = pickle.load(f)
+    (z,) = surfaces.values()
+    c = SURFACE_POINTS // 2
+    zero = (robustness.surface_grid(0.1, SURFACE_POINTS) == 0).numpy()
+    require(z.shape == (SURFACE_POINTS,) * 2 and zero[c] and zero.sum() == 1
+            and np.array_equal(~np.isfinite(z), zero[:, None] & zero[None]),
+            f"input surface {z.shape}, non-finite at "
+            f"{np.argwhere(~np.isfinite(z)).tolist()} (expected only "
+            f"[{c}, {c}], where the grid is 0)")
+    require(len(out["loss_vis"]) == 5 and np.isfinite(out["loss_vis"]).all(),
+            f"loss_vis {out['loss_vis']}")
+    print(f"    mAP: map {out['map']:.4f}, rob {out['rob']:.4f}, sat_layers "
+          f"{out['sat_layers']:.4f}, with --mix {out['sat_layers_mix']:.4f}; "
+          f"sat_vis {out['sat_vis']} PNGs; input surface NaN only at the "
+          f"centre [{c}, {c}], finite range [{np.nanmin(z):.4f}, "
+          f"{np.nanmax(z):.4f}]; loss_vis "
+          f"{[round(v, 4) for v in out['loss_vis']]}")
+    return out, launches
+
+
+def seg_eval_checkpoint():
+    """A seeded DeepLabv3+ ResNet-50 (21 classes) whose BatchNorms take
+    their inputs' per-channel mean and variance on two synthetic VOC
+    validation images, each set before it runs in one eval-mode forward
+    (random weights with identity statistics predict one class
+    everywhere), written as a port training checkpoint (``model_state``)
+    for ``--ckpt`` and ``--test_only``."""
+    model = build_model(SEG_MODEL, 21, 16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.cuda().eval()
+
+    def fit(bn, inputs):
+        var, mean = torch.var_mean(inputs[0], dim=(0, 2, 3), correction=0)
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(var)
+
+    hooks = [m.register_forward_pre_hook(fit) for m in model.modules()
+             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    _, val, _ = seg_data.voc_seg_loaders(None, 2, 513, val_batch_size=2,
+                                         crop_val=True)
+    try:
+        with torch.no_grad():
+            model(cuda(next(iter(val))[0]).permute(0, 3, 1, 2))
+    finally:
+        for h in hooks:
+            h.remove()
+    os.makedirs(EVAL_OUT, exist_ok=True)
+    path = os.path.join(EVAL_OUT, "deeplabv3plus_resnet50_voc.pt")
+    torch.save({"model_state": model.state_dict()}, path)
+    return path
+
+
+def eval_segment_runs(ckpt, updates):
+    """Phase 37: ``eval_segment --task miou|pgd`` on VOC (plain and with
+    ``--randinit_pgd --clip_pgd``, ``--save_val_results``), ``--task pgd``
+    on Cityscapes (19 classes, crop 768; its weights are the VOC
+    checkpoint's but the classifier's last layer), and ``train_segment
+    --test_only`` on the VOC checkpoint."""
+    print(f"[37] eval_segment: DeepLabv3+ ResNet-50, OS 16, batch 1; "
+          f"weights: seeded, BatchNorm statistics of two VOC images, "
+          f"through --ckpt {ckpt}; the {SEG_VAL_IMAGES} synthetic validation "
+          f"images of each dataset (no cut)")
+    res_dir = os.path.join(EVAL_OUT, "results")
+    shutil.rmtree(res_dir, ignore_errors=True)
+    steps = EVAL_PGD_STEPS
+    pgd_counts = {"resize_ce_forward": steps, "resize_ce_backward": steps,
+                  "pgd_update": steps}
+    voc = SEG_EVAL_FLAGS + VOC_EVAL + ["--ckpt", ckpt]
+    runs = [
+        ("voc miou", voc + ["--task", "miou", "--save_val_results",
+                            "--results_dir", res_dir], {}),
+        ("voc pgd", voc + SEG_PGD, pgd_counts),
+        ("voc pgd --randinit_pgd --clip_pgd",
+         voc + SEG_PGD + ["--randinit_pgd", "--clip_pgd"], pgd_counts),
+        ("cityscapes pgd", SEG_EVAL_FLAGS + CITY_EVAL + SEG_PGD
+         + ["--ckpt", ckpt], pgd_counts),
+    ]
+    out, launches = {}, {}
+    for tag, argv, expected in runs:
+        rec = []
+        # the clean runs are held to train_segment --test_only's below
+        exact = deterministic() if tag == "voc miou" else \
+            contextlib.nullcontext()
+        with exact, patched_update(recording_update(rec)):
+            out[tag], launches[tag] = run_eval_cli(
+                eval_segment.main, argv, f"eval_segment {tag}",
+                SEG_VAL_IMAGES, expected)
+        updates += rec
+        clips = {c for _, c in rec}
+        require(clips == ({True} if "clip" in tag else {False} if rec
+                          else set()), f"{tag}: clip modes {clips}")
+    pngs = sorted(os.listdir(res_dir))
+    require(len(pngs) == SEG_VAL_IMAGES, f"{len(pngs)} result PNGs")
+    with deterministic():
+        test_out, _ = run_eval_cli(
+            train_segment.main, ["--test_only", ckpt, "--variant",
+                                 "baseline", "--random_seed", "0"]
+            + SEG_EVAL_FLAGS + VOC_EVAL,
+            "train_segment --test_only", SEG_VAL_IMAGES, {})
+    for tag, v in out.items():
+        require(np.isfinite(v) and 0.0 <= v <= 1.0, f"{tag}: mIoU {v}")
+    require(test_out["Mean IoU"] == out["voc miou"],
+            f"--test_only mIoU {test_out['Mean IoU']} != eval_segment "
+            f"--task miou {out['voc miou']}")
+    print(f"    mIoU: {', '.join(f'{k} {v:.4f}' for k, v in out.items())}; "
+          f"train_segment --test_only {test_out['Mean IoU']:.4f} (equal to "
+          f"--task miou); {len(pngs)} prediction PNGs")
+    return out, launches
+
+
+def eval_kernels_vs_plain(nms_calls, updates, errs):
+    """Phase 38, the kernels at the new shapes: NMS on the eval paths'
+    recorded inputs and on NaN boxes, the PGD update at the new shapes, the
+    upsample + CE at batch 1."""
+    print("[38] kernels vs plain versions at the evaluation shapes")
+    picks = [("detect proposals", nms_calls["map"][0]),
+             ("detect per-class", nms_calls["map"][1]),
+             ("rob attack losses", nms_calls["rob"][0]),
+             ("rob detect proposals", nms_calls["rob"][EVAL_PGD_STEPS]),
+             ("input_surface gradient", nms_calls["input_surface"][0]),
+             ("input_surface centre cell",
+              nms_calls["input_surface"][1 + (SURFACE_POINTS // 2)
+                                         * (SURFACE_POINTS + 1)])]
+    for name, (boxes, valid, thr, plus_one, keep) in picks:
+        got = kernel_vs_plain(name, boxes, valid, thr, plus_one, errs["nms"])
+        require(torch.equal(got, keep), f"{name}: a second kernel run differs")
+        print(f"    {name}: NaN boxes {int(torch.isnan(boxes).any(-1).sum())}")
+    centre = picks[-1][1][0]
+    require(bool(torch.isnan(centre).all()),
+            "the centre cell's proposals are not all NaN")
+    for name, case in NMS_NAN_CASES.items():
+        boxes, valid, thr = case()
+        kernel_vs_plain(name, cuda(boxes[None]), cuda(valid[None]), thr,
+                        True, errs["nms"])
+    shapes = sorted(set(EVAL_PGD_SHAPES) | {s for s, _ in updates})
+    for i, shape in enumerate(shapes):
+        for clip in (False, True):
+            pgd_case(f"eval {shape}", *pgd_inputs(shape, 200 + i), clip,
+                     errs["pgd_update"], gamma=2.0 / 255, eps=8.0 / 255)
+    ce_errs = {"fwd": [], "bwd": []}
+    for case in EVAL_CE_CASES:
+        ce_case(*case, ce_errs)
+    errs["resize_ce_forward"] += ce_errs["fwd"]
+    errs["resize_ce_backward"] += ce_errs["bwd"]
+
+
+def eval_paths_vs_plain(det_ckpt, seg_ckpt):
+    """Phase 38, the paths: ``eval_detect --task map`` and ``rob`` and
+    ``eval_segment --task pgd`` (1 and 3 steps) run again with the plain
+    NMS, PGD update and upsample + CE patched in, cuDNN deterministic and
+    no TF32 in both runs. A sign step turns a float difference at a
+    near-zero gradient entry into a whole step on that entry, and later
+    steps start from images that differ there: the attacked images are
+    compared entry by entry, the mAP exactly and the mIoU within
+    ``MIOU_TOL`` (1 step) and ``MIOU_TOL_3``."""
+    det = EVAL_DET_FLAGS + ["--checkpoint", det_ckpt, "--pgd_steps",
+                            str(EVAL_PGD_STEPS)]
+    seg = SEG_EVAL_FLAGS + VOC_EVAL + SEG_PGD + ["--ckpt", seg_ckpt]
+    results = {}
+    with deterministic():
+        for plain in (False, True):
+            patches = contextlib.ExitStack()
+            if plain:
+                patches.enter_context(patched_nms(tnms.nms_sorted_mask_plain))
+                patches.enter_context(patched_update(tpgd.pgd_update_plain))
+                patches.enter_context(
+                    patched_site_op(trce.fused_resize_nll_sums_plain))
+            adv = {"rob": [], "pgd-1": [], "pgd-3": []}
+            with patches:
+                m = eval_detect.main(det + ["--task", "map"])
+                with first_test_images(ROB_IMAGES), recording(
+                        eval_detect, "make_detection_pgd_fn", adv["rob"]):
+                    r = eval_detect.main(det + ["--task", "rob"])
+                with recording(eval_segment, "make_seg_pgd_fn", adv["pgd-1"]):
+                    p1 = eval_segment.main(seg + ["--pgd_steps", "1"])
+                with recording(eval_segment, "make_seg_pgd_fn", adv["pgd-3"]):
+                    p3 = eval_segment.main(seg)
+            results[plain] = (m, r, p1, p3, adv)
+    (m, r, p1, p3, ours), (mp, rp, pp1, pp3, theirs) = (results[False],
+                                                        results[True])
+    print(f"    kernels vs plain versions, cuDNN deterministic: map mAP "
+          f"{m:.6f} vs {mp:.6f}; rob mAP {r:.6f} vs {rp:.6f}; VOC pgd mIoU "
+          f"1 step {p1:.6f} vs {pp1:.6f}, {EVAL_PGD_STEPS} steps {p3:.6f} "
+          f"vs {pp3:.6f}")
+    for what, bound in (("rob", 0.0), ("pgd-1", ADV_DIFF_SHARE),
+                        ("pgd-3", ADV_DIFF_SHARE_3)):
+        a, b = ours[what], theirs[what]
+        require(len(a) == len(b) == (ROB_IMAGES if what == "rob"
+                                     else SEG_VAL_IMAGES),
+                f"{what}: recorded attacks {len(a)}, {len(b)}")
+        n_diff = sum(int((x != y).sum()) for x, y in zip(a, b))
+        n_all = sum(x.numel() for x in a)
+        max_diff = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        steps = 1 if what == "pgd-1" else EVAL_PGD_STEPS
+        print(f"    {what} attacked images: {n_diff} of {n_all} entries "
+              f"differ ({100 * n_diff / n_all:.5f}%; bound "
+              f"{100 * bound}%), by at most {max_diff:.6g} (bound "
+              f"{2 * steps} steps of 2/255)")
+        require(n_diff <= bound * n_all,
+                f"{what}: {n_diff} of {n_all} attacked entries differ")
+        require(max_diff <= 2 * steps * 2.0 / 255 + 1e-6,
+                f"{what}: attacked entries differ by {max_diff}")
+    require(m == mp and r == rp, "detection mAP differs with the plain "
+            "versions")
+    require(abs(p1 - pp1) <= MIOU_TOL and abs(p3 - pp3) <= MIOU_TOL_3,
+            f"VOC pgd mIoU {p1}, {p3} against {pp1}, {pp3} with the plain "
+            f"versions (tolerances {MIOU_TOL}, {MIOU_TOL_3})")
+
+
+def eval_timings(card, det_ckpt, seg_ckpt, nms_calls):
+    """Phase 39: ms per image of each eval task (CUDA events around the
+    task's device work for one image, data loading left out), and each
+    kernel at the new shapes with its plain version and bound. Returns the
+    kernels' times per attacked image: NMS and PGD update per ``rob``
+    image, the upsample + CE per VOC ``pgd`` image."""
+    print(f"[39] eval timing on {card}")
+    args = eval_detect.get_parser().parse_args(
+        EVAL_DET_FLAGS + ["--checkpoint", det_ckpt])
+    model = eval_detect.build_model(args, 21, torch.device("cuda"))
+    _, loader, _ = voc_detection_loaders(None, 1, MIN_SIDE, MAX_SIDE)
+    batch = eval_detect.batch_tensors(next(iter(loader)),
+                                      torch.device("cuda"))
+    x, gt = batch[0], batch[1:]
+    gen = torch.Generator("cuda")
+    detect = make_detect_fn(model)
+    attack = robustness.make_detection_pgd_fn(model, EVAL_PGD_STEPS,
+                                              2.0 / 255, 8.0 / 255)
+    per_image = {
+        "map": lambda: detect(x),
+        "rob": lambda: detect(attack(x, *gt, gen.manual_seed(1))),
+        "sat_layers": lambda: robustness.make_sat_layer_detect_fn(
+            model, 2, 0.5, EVAL_PGD_STEPS, 2.0 / 255)(
+                x, *gt, gen.manual_seed(1)),
+        "sat_layers --mix": lambda: robustness.make_sat_layer_detect_fn(
+            model, 2, 0.5, EVAL_PGD_STEPS, 2.0 / 255, mix=True)(
+                x, *gt, gen.manual_seed(1)),
+        "sat_vis (device part)": lambda: feature_vis.make_spectrum_features_fn(
+            model, 2, 0.9 / 255, EVAL_PGD_STEPS, 8.0 / 255, 5)(
+                x, *gt, gen.manual_seed(0)),
+    }
+    for name, fn in per_image.items():
+        t = cuda_samples(fn, 5, warmup=1)
+        print(f"    eval_detect {name}: median {np.median(t):.3f} ms per "
+              f"image over {len(t)} ({card})")
+    surface = robustness.make_input_surface_fn(model, 0.1, SURFACE_POINTS)
+    t = cuda_samples(lambda: surface(x, *gt, gen.manual_seed(0)), 2,
+                     warmup=1)
+    print(f"    eval_detect input_surface {SURFACE_POINTS}x{SURFACE_POINTS}: "
+          f"median {np.median(t):.3f} ms per image, "
+          f"{np.median(t) / SURFACE_POINTS ** 2:.3f} ms per grid point; the "
+          f"reference's 40x40 probe would take about "
+          f"{1600 * np.median(t) / SURFACE_POINTS ** 2 / 1e3:.1f} s per image "
+          f"({card})")
+    dirs = robustness.perturb_weight_directions(model,
+                                                np.random.RandomState(0))
+    scales = eval_detect.LOSS_VIS_SCALES
+    t = cuda_samples(lambda: robustness.loss_landscape_probe(
+        lambda: model.losses(x, *gt, gen.manual_seed(0)).total(), model,
+        dirs, scales), 2, warmup=1)
+    print(f"    eval_detect loss_vis: median {np.median(t):.3f} ms for "
+          f"{len(scales)} scales, {np.median(t) / len(scales):.3f} ms per "
+          f"scale ({card})")
+    del model, dirs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for tag, flags, nc in (("VOC", VOC_EVAL, 21), ("Cityscapes", CITY_EVAL,
+                                                   19)):
+        sargs = eval_segment.get_parser().parse_args(
+            SEG_EVAL_FLAGS + flags + SEG_PGD + ["--ckpt", seg_ckpt])
+        seg = build_model(SEG_MODEL, nc, 16)
+        seg.reset_parameters(torch.Generator().manual_seed(0))
+        eval_segment.restore(seg, sargs)
+        seg.cuda().eval()
+        loaders = (seg_data.voc_seg_loaders if nc == 21
+                   else seg_data.cityscapes_loaders)
+        _, val, _ = loaders(None, 1, sargs.crop_size, crop_val=sargs.crop_val)
+        imgs, labs = next(iter(val))
+        xs, ys = cuda(imgs), cuda(labs)
+        step = segment_loop.make_seg_eval_step(seg, nc)
+        seg_attack = eval_segment.make_seg_pgd_fn(seg, sargs)
+        for task, fn in (("miou", lambda: step(xs, ys)),
+                         ("pgd", lambda: step(seg_attack(
+                             xs, ys, gen.manual_seed(0)), ys))):
+            t = cuda_samples(fn, 5, warmup=1)
+            print(f"    eval_segment {tag} --task {task} "
+                  f"{tuple(xs.shape)}: median {np.median(t):.3f} ms per "
+                  f"image over {len(t)} ({card})")
+        del seg
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    nms = {}
+    for name, (tag, idx) in {
+            "detect proposals": ("map", 0), "detect per-class": ("map", 1),
+            "attack losses": ("rob", 0),
+            "input_surface centre cell (NaN)": (
+                "input_surface",
+                1 + (SURFACE_POINTS // 2) * (SURFACE_POINTS + 1))}.items():
+        boxes, valid, thr, plus_one, _ = nms_calls[tag][idx]
+        nms[name] = time_nms_shape(card, name, boxes, valid, thr, plus_one)
+    pgd = {shape: time_pgd_update(card, shape, gamma=2.0 / 255,
+                                  eps=8.0 / 255)
+           for shape in EVAL_PGD_SHAPES}
+    ce = {}
+    for name, B, hw, HW, C, _ in EVAL_CE_CASES:
+        lo, lab, g = ce_inputs(B, hw, HW, C, seed=3)
+        ce[name] = parts = ce_parts(lo, lab, g)
+        print(f"    resize+CE {name} B={B} {hw}->{HW} C={C}: forward kernel "
+              f"{parts['fwd']:.4f} ms, plain {parts['plain_fwd']:.4f}, "
+              f"library {parts['lib_fwd']:.4f}, bound max(bytes "
+              f"{parts['fwd_bytes_ms']:.5f}, operations "
+              f"{parts['fwd_ops_ms']:.5f}); backward kernel "
+              f"{parts['bwd']:.4f} ms, plain {parts['plain_bwd']:.4f}, "
+              f"library {parts['lib_bwd']:.4f}, bound max(bytes "
+              f"{parts['bwd_bytes_ms']:.5f}, operations "
+              f"{parts['bwd_ops_ms']:.5f}) ({card})")
+
+    def entry(ms, plain_ms, byte_ms, op_ms, library_ms=None):
+        return {"ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(byte_ms, op_ms),
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                "library_ms": library_ms}
+
+    # per rob image: the attack's losses, then the detect call
+    rob_nms = [nms["attack losses"]] * EVAL_PGD_STEPS + [
+        nms["detect proposals"], nms["detect per-class"]]
+    k, p, b, o = (sum(v[i] for v in rob_nms) for i in range(4))
+    k_pgd, p_pgd, b_pgd, o_pgd = pgd[EVAL_PGD_SHAPES[0]][False]
+    voc = ce["voc513_b1"]
+    n = EVAL_PGD_STEPS
+    times = {
+        "nms": entry(k, p, b, o),
+        "pgd_update": entry(n * k_pgd, n * p_pgd, n * b_pgd, n * o_pgd),
+        "resize_ce_forward": entry(
+            n * voc["fwd"], n * voc["plain_fwd"], n * voc["fwd_bytes_ms"],
+            n * voc["fwd_ops_ms"], n * voc["lib_fwd"]),
+        "resize_ce_backward": entry(
+            n * voc["bwd"], n * voc["plain_bwd"], n * voc["bwd_bytes_ms"],
+            n * voc["bwd_ops_ms"], n * voc["lib_bwd"]),
+    }
+    for name, t in times.items():
+        per = "rob" if name in ("nms", "pgd_update") else "VOC pgd"
+        print(f"    {name} per {per} image: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.5f} "
+              f"({t['bound_by']}), library {t['library_ms']} ({card})")
+    return times
+
+
+def eval_phases(card):
+    """Phases 36-39; returns (launches, error, times) of each kernel on the
+    eval paths."""
+    det_ckpt = eval_det_weights()
+    nms_calls, det_updates, seg_updates = {}, [], []
+    _, det_launches = eval_detect_runs(det_ckpt, nms_calls, det_updates)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seg_ckpt = seg_eval_checkpoint()
+    _, seg_launches = eval_segment_runs(seg_ckpt, seg_updates)
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = {k: [] for k in eval_counts()}
+    eval_kernels_vs_plain(nms_calls, det_updates + seg_updates, errs)
+    eval_paths_vs_plain(det_ckpt, seg_ckpt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = eval_timings(card, det_ckpt, seg_ckpt, nms_calls)
+    launches = {k: sum(c[k] for c in list(det_launches.values())
+                       + list(seg_launches.values()))
+                for k in eval_counts()}
+    print(f"    eval launches (phases 36 and 37): {launches}")
+    return {k: (launches[k], max(errs[k]), times[k]) for k in launches}
+
+
 def merge_entry(entries, extra):
     """Add the detection training path's part to a kernel's entry: the
     launches, times and bounds of both paths summed, the larger error."""
@@ -3488,7 +4110,7 @@ def merge_entry(entries, extra):
 
 
 GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain", "scan", "variants",
-          "bf16", "detbf16", "clsbf16")
+          "bf16", "detbf16", "clsbf16", "eval")
 
 
 def main(argv=None):
@@ -3567,6 +4189,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if only in (None, "clsbf16"):
         merge_launches(entries, cls_bf16_phases(card))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if only in (None, "eval"):
+        merge_launches(entries, eval_phases(card))
 
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

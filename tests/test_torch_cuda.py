@@ -17,7 +17,7 @@ from afan_torch.ops import resize_ce as trce
 from afan_torch.ops.kernels import nms as knms
 from afan_torch.ops.kernels import pgd_step as kpgd
 from afan_torch.ops.kernels import resize_ce as krce
-from chip_smoke import NMS_EDGE_CASES, sorted_boxes
+from chip_smoke import NMS_EDGE_CASES, NMS_NAN_CASES, sorted_boxes
 
 
 @pytest.fixture
@@ -575,3 +575,37 @@ def test_robust_eval_kernel_matches_plain(card, deterministic):
     (ak, ck, lk), (ap, cp, lp) = runs
     assert (lk, lp) == (3, 0)
     assert _bits_equal(ak, ap) and ck == cp
+
+
+# The evaluation paths' shapes: the PGD update on the VOC detection canvas,
+# at the SE tap feature (layer 2, stride 8) and on the VOC segmentation crop,
+# at batch 1, with eval_detect's and eval_segment's gamma and eps.
+EVAL_PGD_SHAPES = [(1, 608, 1008, 3), (1, 512, 76, 126), (1, 513, 513, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [False, True], ids=["step", "clip"])
+@pytest.mark.parametrize("shape", EVAL_PGD_SHAPES)
+def test_pgd_step_kernel_at_the_eval_shapes(card, shape, clip):
+    n = int(np.prod(shape))
+    x, g, c = (t.reshape(shape) for t in _pgd_inputs(card, n, len(shape)))
+    kw = dict(gamma=2.0 / 255, eps=8.0 / 255 if clip else None, clip=clip)
+    got = kpgd.pgd_update(x, g, c if clip else None, **kw)
+    want = tpgd.pgd_update_plain(x, g, c if clip else None, **kw)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NMS_NAN_CASES))
+def test_nms_kernel_on_nan_boxes(card, name):
+    """A NaN image sends NaN boxes into the proposal NMS: the kernel keeps
+    what the plain version keeps (a pair with a NaN coordinate never
+    suppresses), and returns."""
+    boxes, valid, thr = NMS_NAN_CASES[name]()
+    b = torch.from_numpy(boxes).to(card)[None]
+    v = torch.from_numpy(valid).to(card)[None]
+    got = knms.nms_sorted_mask(b, v, thr)
+    want = tnms.nms_sorted_mask_plain(b, v, thr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
