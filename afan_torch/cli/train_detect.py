@@ -26,14 +26,16 @@ bfloat16 compute::
 
 ``--bf16`` makes bfloat16 the model's compute dtype (``afan``'s
 ``FasterRCNN(dtype=bf16)``); parameters, optimizer state and checkpoints
-stay float32.
+stay float32. ``recipes/detect_coco_final_setting.sh`` N (1-6) runs as
+written too: ``-s coco2017`` at 800x1333, four anchor sizes, 92 classes.
+``--pertub_idx_sd rpn`` puts the SD attack on the RPN trunk feature.
 
-Data is ``afan``'s synthetic VOC stand-in (reading VOC from disk is not
-ported yet); weights start from a seeded random init, the torso from
-``--pretrained_backbone`` where given. The loop writes
+Data is ``afan``'s synthetic stand-in of each dataset (reading VOC or COCO
+images from disk is not ported yet); weights start from a seeded random
+init, the torso from ``--pretrained_backbone`` where given. The loop writes
 ``model-{step}.pt`` (model, optimizer, schedule and step) every
-``--num_steps_to_snapshot`` steps and at the end, and ends with a VOC mAP of
-the test split.
+``--num_steps_to_snapshot`` steps and at the end, and ends with the test
+split's mAP: VOC's protocol, or COCO's (AP@[.5:.95]) for the COCO names.
 """
 from __future__ import annotations
 
@@ -155,8 +157,8 @@ def get_parser():
 
 def refuse_unported(args) -> None:
     """The flags whose paths are not ported yet raise, naming the ROADMAP,
-    instead of running something else (``--pertub_idx_sd rpn`` and
-    ``--remat_tails`` raise in the step's factory)."""
+    instead of running something else (``--remat_tails`` raises in the
+    step's factory)."""
     where = "not ported yet (ROADMAP.md, queue 1: detection)"
     if args.num_devices is not None and args.num_devices > 1:
         raise NotImplementedError(f"--num_devices > 1 is {where}")
@@ -270,8 +272,9 @@ def main(argv=None):
         train_step = make_afan_det_step(model, optimizer, scheduler,
                                         afan_config_for(args))
     generator = torch.Generator(device).manual_seed(args.seed)
-    evaluator = DetectionEvaluator(eval_loader, make_detect_fn(model),
-                                   num_classes)
+    evaluator = DetectionEvaluator(
+        eval_loader, make_detect_fn(model), num_classes,
+        protocol="coco" if args.dataset.startswith("coco") else "voc")
 
     def to_device(batch):
         return (torch.from_numpy(batch.images).to(device),

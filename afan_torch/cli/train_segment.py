@@ -27,6 +27,13 @@ and the VOC recipes ``recipes/seg_voc07_final1.sh`` and
 513). ``--bf16`` makes bfloat16 the models' compute dtype
 (:mod:`afan_torch.models.resnet`); the parameters stay float32.
 
+``--model`` takes every DeepLab of ``afan`` (v3 and v3+ on ResNet-50,
+ResNet-101 and MobileNetV2), ``--separable_conv`` makes the head's k > 1
+convolutions depthwise-separable, and ``--pretrained_backbone`` overlap-loads
+a torchvision ResNet ``.pth`` into the backbone, logging ``afan``'s two
+matched fractions (a MobileNetV2 backbone matches none of its keys, as in
+``afan``).
+
 Data is ``afan``'s deterministic synthetic VOC or Cityscapes stand-in
 (``--dataset synthetic`` is VOC's, as in ``afan``; reading the datasets from
 disk is not ported yet); weights start from a seeded random init. The
@@ -51,7 +58,8 @@ from ..eval.seg_miou import StreamSegMetrics
 from ..models.deeplab import build_model
 from ..models.deeplab.modeling import segmentation_param_groups
 from ..train.checkpoint import (load_checkpoint, load_training_state,
-                                overlap_restore, save_checkpoint)
+                                overlap_restore, restore_pretrained_backbone,
+                                save_checkpoint)
 from ..train.optim import poly_schedule, sgd, step_schedule
 from ..train.segment_loop import (SegAfanConfig, make_afan_seg_step,
                                   make_seg_advtrain_step, make_seg_base_step,
@@ -76,6 +84,9 @@ def get_parser():
                         "--data_root, the synthetic VOC samples")
     p.add_argument("--model", type=str, default="deeplabv3plus_resnet50")
     p.add_argument("--output_stride", type=int, default=16, choices=[8, 16])
+    p.add_argument("--separable_conv", action="store_true",
+                   help="AtrousSeparableConvolution in the decoder "
+                        "(convert_to_separable_conv parity)")
     p.add_argument("--total_itrs", type=int, default=30000)
     p.add_argument("--limit_itrs", type=int, default=0,
                    help="stop after this many iterations (the poly "
@@ -93,6 +104,10 @@ def get_parser():
     p.add_argument("--val_interval", type=int, default=100)
     p.add_argument("--print_interval", type=int, default=10)
     p.add_argument("--ckpt", type=str, default=None)
+    p.add_argument("--pretrained_backbone", default=None,
+                   help="torchvision resnet .pth; overlap-loaded into the "
+                        "backbone like the reference's ImageNet init "
+                        "(`network/backbone/resnet.py:307-319`)")
     p.add_argument("--continue_training", action="store_true")
     p.add_argument("--exp", type=str, default="afan")
     p.add_argument("--random_seed", type=int, default=1)
@@ -242,8 +257,14 @@ def main(argv=None):
 
     torch.manual_seed(args.random_seed)
     model = build_model(args.model, num_classes, args.output_stride,
-                        torch.bfloat16 if args.bf16 else torch.float32)
+                        torch.bfloat16 if args.bf16 else torch.float32,
+                        separable_conv=args.separable_conv)
     model.reset_parameters(torch.Generator().manual_seed(args.random_seed))
+    if args.pretrained_backbone:
+        fp, fs = restore_pretrained_backbone(model.backbone,
+                                             args.pretrained_backbone)
+        Log.i(f"ImageNet backbone loaded (params {fp:.1%}, stats {fs:.1%}) "
+              f"from {args.pretrained_backbone}")
     model.to(device)
     total = args.limit_itrs or args.total_itrs
     optimizer, scheduler = sgd(

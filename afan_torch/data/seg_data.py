@@ -32,7 +32,8 @@ CITY_TRAIN_COLORS = np.asarray([
     (0, 0, 230), (119, 11, 32)], np.uint8)
 VOC_SEG_CLASSES = 21
 CITYSCAPES_CLASSES = 19
-UNPORTED = "is not ported yet (ROADMAP.md, queue 1, item 5)"
+UNPORTED = ("is not ported yet (ROADMAP.md, queue 1, item 6: datasets from "
+            "disk)")
 
 
 def _synth_pair(seed: int, num_classes: int, size

@@ -36,7 +36,7 @@ VOC_CLASSES = (
 PRECISION_BITS = 32 - 8 - 2     # Pillow's fixed point for 8-bit images
 
 MAX_GT_BOXES = 64  # static gt capacity (VOC images have <= ~42 objects)
-UNPORTED = "not ported yet (ROADMAP.md, queue 1: detection)"
+UNPORTED = "not ported yet (ROADMAP.md, queue 1, item 6: datasets from disk)"
 
 
 @dataclass
@@ -47,6 +47,9 @@ class DetSample:
     height: int
     boxes: np.ndarray             # (G, 4) float32, 0-based pixel coords
     labels: np.ndarray            # (G,) int64 (1-based classes)
+    # COCO iscrowd gt: not a training target, an ignore region at eval
+    crowd_boxes: Optional[np.ndarray] = None
+    crowd_labels: Optional[np.ndarray] = None
     synthetic_seed: Optional[int] = None
 
 
@@ -180,7 +183,8 @@ def render_synthetic(sample: DetSample) -> np.ndarray:
 
 
 def load_image(sample: DetSample) -> np.ndarray:
-    """float32 [0, 1] HWC image of a synthetic sample."""
+    """float32 [0, 1] HWC image of a synthetic sample; an image on disk (a
+    VOC or COCO JPEG) raises."""
     if sample.image_path is not None:
         raise NotImplementedError(f"decoding {sample.image_path} is "
                                   f"{UNPORTED}")

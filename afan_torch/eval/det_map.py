@@ -1,6 +1,7 @@
-"""PASCAL VOC detection mAP — a copy of ``afan/eval/det_map.py`` (the
-behavioral port of `Detection/voc_eval.py` plus the evaluation loop of
-`Detection/evaluator.py:20-47`), its loop taking the port's detect function.
+"""Detection mAP — a copy of ``afan/eval/det_map.py`` (the behavioral port
+of `Detection/voc_eval.py` plus the evaluation loop of
+`Detection/evaluator.py:20-47`), its loop taking the port's detect function
+and scoring by the VOC protocol or COCO's (:mod:`.coco_map`).
 
 The reference writes per-class result files (comp3 protocol,
 `voc2007.py:152-161`) and re-reads them; here evaluation is in-memory, but
@@ -15,6 +16,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from .coco_map import coco_bbox_ap, format_coco_summary
 
 
 def voc_ap(rec: np.ndarray, prec: np.ndarray, use_07_metric: bool = False
@@ -131,9 +134,15 @@ def evaluate_detections(num_classes: int,
 def ground_truth(samples) -> Dict[str, Tuple[np.ndarray, np.ndarray,
                                               np.ndarray]]:
     """image_id → (boxes, labels, difficult) of the loader's samples; they
-    are synthetic, so no object is difficult."""
+    are synthetic or COCO's, so no object is difficult."""
     return {s.image_id: (s.boxes, s.labels, np.zeros(len(s.labels), bool))
             for s in samples}
+
+
+def crowd_regions(samples) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """image_id → (boxes, labels) of the samples' COCO crowd annotations."""
+    return {s.image_id: (s.crowd_boxes, s.crowd_labels) for s in samples
+            if s.crowd_boxes is not None and len(s.crowd_boxes)}
 
 
 class DetectionEvaluator:
@@ -146,15 +155,15 @@ class DetectionEvaluator:
                  use_07_metric: bool = True, protocol: str = "voc"):
         """``detect_fn(images (B, H, W, 3))`` → (boxes, probs, keep), as
         :func:`afan_torch.train.detect_loop.make_detect_fn` gives it.
-        ``protocol``: 'voc' (voc_eval AP@0.5); 'coco' is not ported yet."""
-        if protocol != "voc":
-            raise NotImplementedError(
-                f"the {protocol!r} protocol is not ported yet (ROADMAP.md, "
-                f"queue 1: detection)")
+        ``protocol``: 'voc' (voc_eval 11-pt/continuous AP@0.5) or 'coco'
+        (COCOeval AP@[.5:.95], :mod:`.coco_map`)."""
+        if protocol not in ("voc", "coco"):
+            raise ValueError(f"unknown protocol {protocol!r}")
         self.loader = loader
         self.detect_fn = detect_fn
         self.num_classes = num_classes
         self.use_07 = use_07_metric
+        self.protocol = protocol
 
     def evaluate(self) -> Tuple[float, str]:
         id_chunks: List[List[str]] = []
@@ -175,10 +184,18 @@ class DetectionEvaluator:
         all_ids = [i for chunk in id_chunks for i in chunk]
         if not all_ids:
             return 0.0, "no detections"
+        boxes_arr = np.concatenate(box_chunks).reshape(-1, 4)
+        classes_arr = np.concatenate(cls_chunks)
+        probs_arr = np.concatenate(prob_chunks)
+        if self.protocol == "coco":
+            res = coco_bbox_ap(self.num_classes,
+                               {k: (b, lab) for k, (b, lab, _) in gt.items()},
+                               all_ids, boxes_arr, classes_arr, probs_arr,
+                               crowd=crowd_regions(self.loader.samples)
+                               or None)
+            return res["AP"], format_coco_summary(res)
         mean_ap, aps = evaluate_detections(
-            self.num_classes, gt, all_ids,
-            np.concatenate(box_chunks).reshape(-1, 4),
-            np.concatenate(cls_chunks), np.concatenate(prob_chunks),
-            use_07_metric=self.use_07)
+            self.num_classes, gt, all_ids, boxes_arr, classes_arr,
+            probs_arr, use_07_metric=self.use_07)
         detail = "\n".join(f"{c:d}: AP = {ap:.4f}" for c, ap in aps.items())
         return mean_ap, detail

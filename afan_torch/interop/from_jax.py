@@ -1,4 +1,5 @@
-"""Carry ``afan``'s Faster R-CNN, DeepLab and ResNet-s weights into the port.
+"""Carry ``afan``'s Faster R-CNN, DeepLab (ResNet or MobileNetV2, plain or
+separable heads) and ResNet-s weights into the port.
 
 :func:`frcnn_variables_to_state_dict` takes the flax ``{"params",
 "batch_stats"}`` tree of ``afan.models.frcnn.FasterRCNN`` as nested dicts of
@@ -89,6 +90,8 @@ def frcnn_variables_to_state_dict(variables: Mapping[str, Any]
 
 
 _CONV_BN = {"conv": 0, "bn": 1}
+# ``afan``'s AtrousSeparableConv halves → the reference's ``body`` indices
+_SEPARABLE = {"depthwise": ".body.0", "pointwise": ".body.1"}
 
 
 def _deeplab_head_module(path: Tuple[str, ...], plus: bool) -> str:
@@ -119,9 +122,13 @@ def deeplab_variables_to_state_dict(variables: Mapping[str, Any],
     """``afan``'s DeepLab ``{"params", "batch_stats"}`` (nested dicts of
     numpy arrays) → the port's :class:`afan_torch.models.deeplab.DeepLab`
     ``state_dict``: the inverse of
-    ``afan/interop/torch_zoo.py:convert_torch_deeplab``. Conv kernels HWIO →
-    OIHW; BatchNorm ``scale``, ``bias``, ``mean``, ``var`` → ``weight``,
-    ``bias``, ``running_mean``, ``running_var``, with
+    ``afan/interop/torch_zoo.py:convert_torch_deeplab``, for the ResNet and
+    MobileNetV2 backbones (the latter under ``afan``'s own module names) and
+    the separable heads (``conv/depthwise``, ``conv/pointwise`` →
+    ``body.0``, ``body.1``). Conv kernels HWIO → OIHW (a depthwise
+    ``(3, 3, 1, C)`` → ``(C, 1, 3, 3)``); BatchNorm ``scale``, ``bias``,
+    ``mean``, ``var`` → ``weight``, ``bias``, ``running_mean``,
+    ``running_var``, with
     ``num_batches_tracked``, so the result loads with
     ``load_state_dict(strict=True)``."""
     out: Dict[str, np.ndarray] = {}
@@ -131,7 +138,11 @@ def deeplab_variables_to_state_dict(variables: Mapping[str, Any],
             if path[0] == "backbone":
                 mod = "backbone." + _torso_module(path[1:-1])
             elif path[0] == "classifier":
-                mod = _deeplab_head_module(path[1:-1], plus)
+                body = _SEPARABLE.get(path[-2])
+                if body is None:
+                    mod = _deeplab_head_module(path[1:-1], plus)
+                else:
+                    mod = _deeplab_head_module(path[1:-2], plus) + body
             else:
                 raise KeyError(f"no port destination for {'/'.join(path)}")
             name = ("weight" if leaf in ("kernel", "scale")

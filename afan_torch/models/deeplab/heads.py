@@ -9,6 +9,11 @@ its checkpoints load with ``load_state_dict`` and
 relu, dropout 0.1); the V3+ head's ``project`` (48-channel low-level
 projection), ``aspp`` and ``classifier`` (3x3 conv-bn-relu, 1x1 logits with
 a bias); the V3 head's ``classifier`` = (ASPP, 3x3 conv, bn, relu, 1x1).
+With ``separable`` (``--separable_conv``) every convolution with a kernel
+above 1 (the ASPP's three atrous branches and the classifier's 3x3) is an
+:class:`AtrousSeparableConv`, as ``afan`` builds it for both heads: the
+reference's ``AtrousSeparableConvolution`` under its name ``body``, with
+``afan``'s choices (no bias, Flax's fan-in init).
 Layout is NCHW; every BatchNorm is the trainable
 :class:`afan_torch.models.resnet.BatchNorm` and every convolution a
 :class:`afan_torch.models.resnet.Conv2d`, so the heads follow the model's
@@ -89,14 +94,38 @@ class GlobalMean(nn.Module):
         return x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
 
 
+class AtrousSeparableConv(nn.Module):
+    """Depthwise (dilated) then pointwise convolution, both without a bias
+    (``afan/models/deeplab/heads.py:AtrousSeparableConv``), as ``body.0``
+    and ``body.1`` (`_deeplab.py:115-139`)."""
+
+    def __init__(self, cin: int, cout: int, k: int, dilation: int = 1):
+        super().__init__()
+        self.body = nn.Sequential(
+            Conv2d(cin, cin, k, padding=(k // 2) * dilation,
+                   dilation=dilation, groups=cin, bias=False),
+            Conv2d(cin, cout, 1, bias=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.body(x)
+
+
+def _conv(cin: int, cout: int, k: int, dilation: int = 1,
+          separable: bool = False) -> nn.Module:
+    """A bias-free k x k convolution; separable when asked and k > 1."""
+    if separable and k > 1:
+        return AtrousSeparableConv(cin, cout, k, dilation)
+    return Conv2d(cin, cout, k, padding=(k // 2) * dilation,
+                  dilation=dilation, bias=False)
+
+
 class ConvBNReLU(nn.Sequential):
     """conv (no bias) → BatchNorm → ReLU, as ``(0, 1, 2)``."""
 
-    def __init__(self, cin: int, cout: int, k: int, dilation: int = 1):
-        super().__init__(
-            Conv2d(cin, cout, k, padding=(k // 2) * dilation,
-                   dilation=dilation, bias=False),
-            BatchNorm(cout), nn.ReLU())
+    def __init__(self, cin: int, cout: int, k: int, dilation: int = 1,
+                 separable: bool = False):
+        super().__init__(_conv(cin, cout, k, dilation, separable),
+                         BatchNorm(cout), nn.ReLU())
 
 
 class ASPPPooling(nn.Sequential):
@@ -113,11 +142,12 @@ class ASPPPooling(nn.Sequential):
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling (`_deeplab.py:163-192`)."""
 
-    def __init__(self, cin: int, rates: Sequence[int], cout: int = 256):
+    def __init__(self, cin: int, rates: Sequence[int], cout: int = 256,
+                 separable: bool = False):
         super().__init__()
         self.convs = nn.ModuleList(
             [ConvBNReLU(cin, cout, 1)]
-            + [ConvBNReLU(cin, cout, 3, r) for r in rates]
+            + [ConvBNReLU(cin, cout, 3, r, separable) for r in rates]
             + [ASPPPooling(cin, cout)])
         self.project = nn.Sequential(
             Conv2d(5 * cout, cout, 1, bias=False), BatchNorm(cout),
@@ -127,10 +157,10 @@ class ASPP(nn.Module):
         return self.project(torch.cat([m(x) for m in self.convs], dim=1))
 
 
-def _classifier3x3(cin: int, num_classes: int) -> nn.Sequential:
+def _classifier3x3(cin: int, num_classes: int, separable: bool = False
+                   ) -> nn.Sequential:
     """3x3 conv-bn-relu + 1x1 logits (`_deeplab.py:39-44`)."""
-    return nn.Sequential(Conv2d(cin, 256, 3, padding=1, bias=False),
-                         BatchNorm(256), nn.ReLU(),
+    return nn.Sequential(*ConvBNReLU(cin, 256, 3, 1, separable),
                          Conv2d(256, num_classes, 1))
 
 
@@ -138,11 +168,12 @@ class DeepLabHeadV3Plus(nn.Module):
     """The V3+ decoder with its two SD tap points (`_deeplab.py:28-80`)."""
 
     def __init__(self, in_channels: int, low_level_channels: int,
-                 num_classes: int, aspp_dilate: Sequence[int] = (12, 24, 36)):
+                 num_classes: int, aspp_dilate: Sequence[int] = (12, 24, 36),
+                 separable: bool = False):
         super().__init__()
         self.project = ConvBNReLU(low_level_channels, 48, 1)
-        self.aspp = ASPP(in_channels, aspp_dilate)
-        self.classifier = _classifier3x3(304, num_classes)
+        self.aspp = ASPP(in_channels, aspp_dilate, separable=separable)
+        self.classifier = _classifier3x3(304, num_classes, separable)
 
     def _concat(self, low_level: torch.Tensor, aspp_out: torch.Tensor
                 ) -> torch.Tensor:
@@ -177,10 +208,12 @@ class DeepLabHead(nn.Module):
     (`_deeplab.py:93-114`). Tap points: 'aspp' only."""
 
     def __init__(self, in_channels: int, num_classes: int,
-                 aspp_dilate: Sequence[int] = (12, 24, 36)):
+                 aspp_dilate: Sequence[int] = (12, 24, 36),
+                 separable: bool = False):
         super().__init__()
-        self.classifier = nn.Sequential(ASPP(in_channels, aspp_dilate),
-                                        *_classifier3x3(256, num_classes))
+        self.classifier = nn.Sequential(
+            ASPP(in_channels, aspp_dilate, separable=separable),
+            *_classifier3x3(256, num_classes, separable))
 
     def forward(self, out: torch.Tensor, low_level: torch.Tensor = None
                 ) -> torch.Tensor:

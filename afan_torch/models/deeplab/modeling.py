@@ -7,10 +7,13 @@ dict-dispatch forward is a set of methods with ``afan``'s names; inputs are
 NCHW images in [0, 1] and every output is NCHW. Train or eval mode is the
 module's own (``model.train()`` / ``model.eval()``), where ``afan`` passes
 ``train``. Every BatchNorm trains with momentum 0.01; the backbone's lr x0.1
-group is :func:`segmentation_param_groups`. ``dtype`` is the compute dtype
-(``afan``'s ``build_model(..., dtype)``; bfloat16 under ``--bf16``): the
-parameters stay float32 and the activations, features and logits take
-``dtype`` (see :mod:`afan_torch.models.resnet`).
+group is :func:`segmentation_param_groups`. The backbone is a ResNet
+(:mod:`afan_torch.models.resnet`) or ``afan``'s MobileNetV2
+(:mod:`.mobilenetv2`); ``separable_conv`` makes the head's k > 1
+convolutions depthwise-separable in both heads, as ``afan`` does. ``dtype``
+is the compute dtype (``afan``'s ``build_model(..., dtype)``; bfloat16 under
+``--bf16``): the parameters stay float32 and the activations, features and
+logits take ``dtype`` (see :mod:`afan_torch.models.resnet`).
 """
 from __future__ import annotations
 
@@ -19,9 +22,15 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from ..resnet import (BACKBONES, NUM_HIDDEN_OUT, NUM_LOW_LEVEL_OUT,
-                      BatchNorm, from_name, set_compute_dtype)
+from .. import resnet
+from ..resnet import BatchNorm, from_name, set_compute_dtype
 from .heads import DeepLabHead, DeepLabHeadV3Plus, resize_bilinear
+from .mobilenetv2 import MobileNetV2Backbone
+
+BACKBONES = (*resnet.BACKBONES, "mobilenet")
+# channels of the backbone's output and of ``low_level``
+NUM_HIDDEN_OUT = {**resnet.NUM_HIDDEN_OUT, "mobilenet": 320}
+NUM_LOW_LEVEL_OUT = {**resnet.NUM_LOW_LEVEL_OUT, "mobilenet": 24}
 
 SdDict = Dict[str, torch.Tensor]
 
@@ -32,26 +41,33 @@ class DeepLab(nn.Module):
 
     def __init__(self, backbone_name: str = "resnet50", num_classes: int = 21,
                  output_stride: int = 16, plus: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 separable_conv: bool = False):
         super().__init__()
         if backbone_name not in BACKBONES:
-            raise NotImplementedError(
-                f"backbone {backbone_name!r} is not ported yet; have "
-                f"{list(BACKBONES)}")
-        self.backbone = from_name(backbone_name, output_stride=output_stride,
-                                  norm=BatchNorm)
+            raise ValueError(f"unknown backbone {backbone_name!r}; have "
+                             f"{list(BACKBONES)}")
+        if backbone_name == "mobilenet":
+            self.backbone = MobileNetV2Backbone(output_stride)
+        else:
+            self.backbone = from_name(backbone_name,
+                                      output_stride=output_stride,
+                                      norm=BatchNorm)
         rates = (12, 24, 36) if output_stride == 8 else (6, 12, 18)
         cin = NUM_HIDDEN_OUT[backbone_name]
         self.classifier = (
             DeepLabHeadV3Plus(cin, NUM_LOW_LEVEL_OUT[backbone_name],
-                              num_classes, rates)
-            if plus else DeepLabHead(cin, num_classes, rates))
+                              num_classes, rates, separable_conv)
+            if plus else DeepLabHead(cin, num_classes, rates,
+                                     separable_conv))
         self.dtype = dtype
         set_compute_dtype(self, dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """flax's init: kaiming-normal fan_out backbone convs, kaiming-normal
-        fan_in head convs, zero logits bias, identity BatchNorm."""
+        """flax's init: the backbone's own (ResNet: kaiming-normal fan_out
+        convs; MobileNetV2: lecun-normal), kaiming-normal fan_in head convs
+        (depthwise and pointwise alike), zero logits bias, identity
+        BatchNorm."""
         self.backbone.reset_parameters(generator)
         for m in self.classifier.modules():
             if isinstance(m, nn.Conv2d):
@@ -67,7 +83,8 @@ class DeepLab(nn.Module):
 
     def backbone_head(self, x: torch.Tensor, tap: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(feature after layer ``tap``, low_level after layer1)."""
+        """(feature at ``tap``, low_level: after layer1, or MobileNetV2's
+        24-channel stage)."""
         return self.backbone.head(x, tap)
 
     def forward_tail_logits(self, feat: torch.Tensor,
@@ -144,15 +161,16 @@ MODEL_MAP = {
     "deeplabv3plus_resnet50": dict(backbone_name="resnet50", plus=True),
     "deeplabv3_resnet101": dict(backbone_name="resnet101", plus=False),
     "deeplabv3plus_resnet101": dict(backbone_name="resnet101", plus=True),
+    "deeplabv3_mobilenet": dict(backbone_name="mobilenet", plus=False),
+    "deeplabv3plus_mobilenet": dict(backbone_name="mobilenet", plus=True),
 }
-NOT_PORTED = ("deeplabv3_mobilenet", "deeplabv3plus_mobilenet")
 
 
 def build_model(name: str, num_classes: int, output_stride: int = 16,
-                dtype: torch.dtype = torch.float32) -> DeepLab:
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"{name} (MobileNetV2) is not ported yet")
+                dtype: torch.dtype = torch.float32,
+                separable_conv: bool = False) -> DeepLab:
     if name not in MODEL_MAP:
         raise ValueError(f"unknown model {name!r}; have {list(MODEL_MAP)}")
     return DeepLab(num_classes=num_classes, output_stride=output_stride,
-                   dtype=dtype, **MODEL_MAP[name])
+                   dtype=dtype, separable_conv=separable_conv,
+                   **MODEL_MAP[name])

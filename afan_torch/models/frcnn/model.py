@@ -6,11 +6,14 @@ The reference's input-dict modes map onto methods as in ``afan``:
 ``flag='head'`` is :meth:`FasterRCNN.backbone_head`, a tail or clean
 forward is :meth:`FasterRCNN.losses` (with ``feature_tap`` /
 ``adv_feature``), ``out_idx='roi_head'`` is
-:meth:`FasterRCNN.roi_head_forward` and ``'roi_tail'``
-:meth:`FasterRCNN.roi_tail_losses`. Every method that samples anchors and
+:meth:`FasterRCNN.roi_head_forward`, ``'roi_tail'``
+:meth:`FasterRCNN.roi_tail_losses`, ``'rpn_head'``
+:meth:`FasterRCNN.rpn_head_forward` and ``'rpn_tail'``
+:meth:`FasterRCNN.rpn_tail_losses`. Every method that samples anchors and
 proposals takes a ``generator`` and optional ``targets``; with targets
 given it samples nothing (no NMS, no labeling), so a step can reuse one
-forward's sample and a test can inject ``afan``'s.
+forward's sample and a test can inject ``afan``'s. The RPN tail samples in
+every call, from its own proposals, with given sampling ``priorities``.
 
 Module names are the reference's (`Detection/model.py`): ``features`` (the
 torso), ``rpn`` (``_features.0``, ``_anchor_objectness``,
@@ -40,9 +43,13 @@ from ..resnet import (NUM_FEATURES_OUT, NUM_HIDDEN_OUT, from_name,
 from .anchors import ANCHOR_RATIOS, ANCHOR_SIZES, generate_anchors
 from .roi_head import (RoiPredictors, RoiTargets, generate_detections,
                        pool_and_hidden, roi_loss, roi_targets)
+from . import sampling
 from .rpn import RPNHeads, RPNTargets, generate_proposals, rpn_loss, rpn_targets
+from .sampling import Priorities
 
 Targets = Tuple[RPNTargets, RoiTargets]
+# the sampling uniforms of one forward: the anchors', then the proposals'
+SamplePriorities = Tuple[Priorities, Priorities]
 
 
 class DetectionLosses(NamedTuple):
@@ -133,22 +140,41 @@ class FasterRCNN(nn.Module):
                        image_hw: Tuple[int, int], obj: torch.Tensor,
                        reg: torch.Tensor, gt_boxes: torch.Tensor,
                        gt_classes: torch.Tensor, gt_valid: torch.Tensor,
-                       generator: Optional[torch.Generator]) -> Targets:
+                       generator: Optional[torch.Generator],
+                       priorities: Optional[SamplePriorities] = None
+                       ) -> Targets:
         """One forward's sample: label and sample the anchors, make the
         proposals from the detached RPN outputs (top 12000, NMS at 0.7,
         2000 kept, in one kernel launch for the batch), then label and
-        sample them. Draws the RPN priorities, then the ROI ones."""
+        sample them. Draws the RPN priorities, then the ROI ones, unless
+        ``priorities`` gives them."""
         ih, iw = image_hw
         cfg = self.cfg
+        rpn_p, roi_p = priorities if priorities is not None else (None, None)
         anchors = self._anchors(image_hw, tuple(features.shape[2:]))
         rpn_t = rpn_targets(anchors, gt_boxes, gt_valid, iw, ih,
-                            cfg.rpn_samples, cfg.rpn_fg_cap, generator)
+                            cfg.rpn_samples, cfg.rpn_fg_cap, generator,
+                            rpn_p)
         proposals, _ = generate_proposals(
             anchors, obj.detach(), reg.detach(), iw, ih,
             cfg.train_pre_nms_top_n, cfg.train_post_nms_top_n)
         roi_t = roi_targets(proposals, gt_boxes, gt_classes, gt_valid,
-                            cfg.roi_samples, cfg.roi_fg_cap, generator)
+                            cfg.roi_samples, cfg.roi_fg_cap, generator,
+                            roi_p)
         return rpn_t, roi_t
+
+    def draw_priorities(self, features: torch.Tensor,
+                        image_hw: Tuple[int, int],
+                        generator: Optional[torch.Generator]
+                        ) -> SamplePriorities:
+        """The uniforms one sampling forward on ``features`` draws: the
+        anchors' (B, A), then the proposals' (B, post_nms_top_n)."""
+        bsz, dev = features.shape[0], features.device
+        n_anchors = self._anchors(image_hw, tuple(features.shape[2:])
+                                  ).shape[0]
+        return (sampling.draw_priorities((bsz, n_anchors), generator, dev),
+                sampling.draw_priorities(
+                    (bsz, self.cfg.train_post_nms_top_n), generator, dev))
 
     def losses(self, images: torch.Tensor, gt_boxes: torch.Tensor,
                gt_classes: torch.Tensor, gt_valid: torch.Tensor,
@@ -260,6 +286,37 @@ class FasterRCNN(nn.Module):
         return DetectionLosses(roi_dict["anchor_objectness_losses"],
                                roi_dict["anchor_transformer_losses"],
                                p_ce, p_l1)
+
+    # ---------- SD tap: the RPN trunk feature ----------
+
+    def rpn_head_forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        """``out_idx='rpn_head'``: the clean layer3 ``features`` and the RPN
+        trunk feature ``rpn_feature`` (B, 512, H/16, W/16), the SD tap
+        (`model.py:77-113`; the reference's ascent on it is dead code,
+        ``afan`` runs the intended one)."""
+        features = self.features_clean(_nchw(images))
+        return {"features": features, "rpn_feature": self.rpn.trunk(features)}
+
+    def rpn_tail_losses(self, rpn_dict: Dict[str, Any],
+                        image_hw: Tuple[int, int], gt_boxes: torch.Tensor,
+                        gt_classes: torch.Tensor, gt_valid: torch.Tensor,
+                        priorities: SamplePriorities,
+                        rpn_feature: Optional[torch.Tensor] = None
+                        ) -> DetectionLosses:
+        """``out_idx='rpn_tail'``: the RPN predictions from a (possibly
+        adversarial) trunk feature, the anchors and the proposals made from
+        those predictions detached (the proposal NMS) sampled with
+        ``priorities``, and the ROI losses pooled from the dict's clean
+        ``features``. ``afan`` draws every call's sample from one key, so
+        a step passes the same ``priorities`` to each call."""
+        features = rpn_dict["features"]
+        trunk = rpn_dict["rpn_feature"] if rpn_feature is None else rpn_feature
+        obj, reg = self.rpn.predict(trunk)
+        targets = self.sample_targets(features, image_hw, obj, reg, gt_boxes,
+                                      gt_classes, gt_valid, None, priorities)
+        return self._losses_from_features(features, image_hw, gt_boxes,
+                                          gt_classes, gt_valid, None,
+                                          targets, (obj, reg))
 
     def _anchors(self, image_hw: Tuple[int, int],
                  feature_hw: Tuple[int, int]) -> torch.Tensor:

@@ -25,9 +25,8 @@ import torch.nn as nn
 from ...ops.lowp import log_softmax, softmax
 from ...ops.nms import nms_mask
 from ...ops.roi_align import pool_rois
-from ..resnet import Linear
+from ..resnet import Linear, lecun_normal_
 from . import boxes as B
-from .rpn import lecun_normal_
 from .sampling import (Priorities, SampleResult, beta_smooth_l1, gather_rows,
                        masked_mean, sample_fg_bg, select_fg_bg)
 

@@ -19,7 +19,6 @@ fg logit, ties to the lower index.
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -27,19 +26,10 @@ import torch.nn as nn
 
 from ...ops.lowp import log_softmax
 from ...ops.nms import nms_select_presorted
-from ..resnet import Conv2d
+from ..resnet import Conv2d, lecun_normal_
 from . import boxes as B
 from .sampling import (Priorities, SampleResult, beta_smooth_l1, gather_rows,
                        masked_mean, sample_fg_bg, select_fg_bg)
-
-
-def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
-    """flax's default kernel init: truncated normal (at 2 std) with variance
-    1/fan_in."""
-    fan_in = t[0].numel()
-    std = math.sqrt(1.0 / fan_in) / .87962566103423978
-    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
-                          generator=generator)
 
 
 class RPNHeads(nn.Module):

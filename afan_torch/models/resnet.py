@@ -29,6 +29,7 @@ image's float32, as in ``afan``.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Iterator, Optional, Sequence, Tuple, Type
 
 import torch
@@ -37,6 +38,15 @@ import torch.nn.functional as F
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default kernel init: truncated normal (at 2 std) with variance
+    1/fan_in."""
+    fan_in = t[0].numel()
+    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
 
 
 class Conv2d(nn.Conv2d):

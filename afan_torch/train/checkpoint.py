@@ -18,7 +18,7 @@ for classification (:func:`save_classify_checkpoint`,
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import torch
 import torch.nn as nn
@@ -47,6 +47,26 @@ def overlap_restore(module: nn.Module,
                if k in own and tuple(own[k].shape) == tuple(v.shape)}
     module.load_state_dict(matched, strict=False)
     return len(matched) / max(len(own), 1)
+
+
+def restore_pretrained_backbone(backbone: nn.Module, path: str
+                                ) -> Tuple[float, float]:
+    """Overlap-load a torchvision-keyed state dict (``module.`` stripped)
+    into ``backbone``, as ``afan``'s ``--pretrained_backbone`` does with
+    ``load_torchvision_backbone`` and ``overlap_restore``: an entry loads
+    where the key and the shape match. Returns the matched fractions of the
+    backbone's parameters and of its running statistics (means and
+    variances), ``afan``'s two logged fractions."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    saved = {k.replace("module.", ""): v for k, v in obj.items()}
+    own = backbone.state_dict()
+    params = {k for k, _ in backbone.named_parameters()}
+    stats = {k for k in own if k.endswith(("running_mean", "running_var"))}
+    matched = {k: v for k, v in saved.items()
+               if k in own and tuple(own[k].shape) == tuple(v.shape)}
+    backbone.load_state_dict(matched, strict=False)
+    return (len(params & set(matched)) / max(len(params), 1),
+            len(stats & set(matched)) / max(len(stats), 1))
 
 
 def save_checkpoint(path: str, model: nn.Module,

@@ -1,9 +1,9 @@
 """Detection train steps — the PyTorch counterpart of
 ``afan/train/detect_loop.py``: the baseline step (`train_baseline.py`), the
 input-adversarial step (`train_baseline_advtrain.py`), the A-FAN family
-(`train_aug_final.py`: SE backbone tap, SD tap on the pooled ROI vector,
-spectrum, AFN; and its SAT, multi-layer and single-point variants) and the
-eval forward.
+(`train_aug_final.py`: SE backbone tap, SD tap on the pooled ROI vector or
+on the RPN trunk feature, spectrum, AFN; and its SAT, multi-layer and
+single-point variants) and the eval forward.
 
 Every forward that samples anchors and proposals runs the proposal NMS,
 which on the card is the hand-written kernel
@@ -127,7 +127,7 @@ class DetAfanConfig:
     gammas_se: Sequence[float] = (0.9 / 255,)
     spectrum: int = 5
     mix_mask: Sequence[int] = (0, 0, 0, 0, 0)  # AFN per spectrum point
-    sd: Optional[str] = "roi"                  # 'roi' | None
+    sd: Optional[str] = "roi"                  # 'roi' | 'rpn' | None
     gamma_sd: float = 0.1 / 255
     only_roi_sd: bool = True
     mix_sd: bool = False
@@ -174,8 +174,8 @@ def loss_weights(cfg: DetAfanConfig) -> Tuple[float, float, float]:
 
 
 def _refuse_unported(cfg: DetAfanConfig) -> None:
-    if cfg.sd not in ("roi", None):
-        raise NotImplementedError(f"sd={cfg.sd!r} is {UNPORTED}")
+    if cfg.sd not in ("roi", "rpn", None):
+        raise ValueError(f"unknown sd tap {cfg.sd!r}")
     if cfg.remat_tails:
         raise NotImplementedError(f"remat_tails is {UNPORTED}")
     if cfg.taps_se and len(cfg.mix_mask) != cfg.spectrum:
@@ -192,9 +192,11 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
        image; only the clean loss term sees the result;
     1. the SE features at each tap, detached;
     2. the SD pass: a clean forward to the pooled ROI vector, detached,
-       with its sample;
+       with its sample (``sd="roi"``), or to the RPN trunk feature
+       (``sd="rpn"``), detached;
     3. PGD on each SE feature through the four losses, and on the ROI
-       vector through the ROI losses (``only_roi_sd``) or all four;
+       vector through the ROI losses (``only_roi_sd``) or all four, or on
+       the trunk feature through the RPN tail's four losses;
     4. AFN and uniform noise on the SD point (``mix_sd``, ``noise_sd``);
     5. the spectrum on the first SE tap, AFN per ``mix_mask``;
     6. loss = the weight mode's mix (:func:`loss_weights`; ``final``:
@@ -204,12 +206,16 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
 
     With ``share_proposals`` one clean forward samples the targets that
     the ascents (the input ascent too) and the loss forwards reuse;
-    otherwise each forward samples its own. The SD pass samples once: the
-    loss's SD term reuses that sample (``afan`` draws it twice from one
+    otherwise each forward samples its own. The ROI SD pass samples once:
+    the loss's SD term reuses that sample (``afan`` draws it twice from one
     key, which gives the same sample), on the RPN outputs of the clean
     image: the clean term's forward's, or under ``input_adv`` a forward of
-    its own. So a step runs 2 proposal NMS with ``share_proposals`` and an
-    SD tap, 1 without the tap (one per sampling forward without
+    its own. The RPN SD tail makes its proposals from its own (adversarial)
+    predictions in every forward, whatever ``share_proposals`` says, each
+    time from the same priorities (``afan``'s one key); its loss term pools
+    from the clean term's features (without ``input_adv``). So a step runs
+    2 proposal NMS with ``share_proposals`` and the ROI tap, 2 + ``steps``
+    with the RPN tap, 1 without a tap (one per sampling forward without
     ``share_proposals``), and one PGD update per ascent step and tap.
 
     Each loss term is backpropagated as soon as it is formed (the terms
@@ -222,7 +228,9 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
     the input ascent's random start, ``randinit``, ``random_steps`` and
     ``noise_sd``; ``targets`` may hold ``"clean"`` (the sample ``afan``
     draws from its ``r_clean`` key: the shared one, or the clean forward's)
-    and ``"sd"`` (the SD pass's), which then are not drawn.
+    and ``"sd"`` (the ROI SD pass's) or ``"sd_priorities"`` (the RPN SD
+    tail's uniforms, :meth:`FasterRCNN.draw_priorities`), which then are
+    not drawn.
     """
     _refuse_unported(cfg)
     c_clean, c_se, c_sd = loss_weights(cfg)
@@ -267,8 +275,8 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
                    for tap, feat, g in zip(cfg.taps_se, se_feats,
                                            cfg.gammas_se)]
 
-        adv_sd = sd_targets = None
-        if cfg.sd is not None:
+        adv_sd = sd_targets = sd_priorities = None
+        if cfg.sd == "roi":
             with torch.no_grad():
                 rd = model.roi_head_forward(images, *gt, generator,
                                             targets.get("sd"))
@@ -280,7 +288,19 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
                     return mean(L.proposal_class) + \
                         mean(L.proposal_transformer)
                 return L.total()
+        elif cfg.sd == "rpn":
+            with torch.no_grad():
+                rd = model.rpn_head_forward(images)
+            sd_clean = rd["rpn_feature"]
+            sd_priorities = targets.get("sd_priorities")
+            if sd_priorities is None:
+                sd_priorities = model.draw_priorities(rd["features"], hw,
+                                                      generator)
 
+            def sd_loss(rf):
+                return model.rpn_tail_losses(rd, hw, *gt, sd_priorities,
+                                             rf).total()
+        if cfg.sd is not None:
             adv_sd = attack(sd_loss, sd_clean, cfg.gamma_sd, generator)
             if cfg.mix_sd:
                 adv_sd = mix_feature(sd_clean, adv_sd)
@@ -299,7 +319,13 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
                               for i in range(1, cfg.spectrum)]
             del spec
 
-        def sd_term(rpn_out):
+        def sd_term(features, rpn_out):
+            """The SD loss on the clean image's ``features`` (the RPN tail)
+            or RPN outputs (the ROI tail)."""
+            if cfg.sd == "rpn":
+                return model.rpn_tail_losses({"features": features}, hw,
+                                             *gt, sd_priorities,
+                                             adv_sd).total()
             return model.roi_tail_losses(
                 model.roi_dict(*rpn_out, sd_targets), adv_sd).total()
 
@@ -315,15 +341,16 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
         l_sd = torch.zeros_like(l0)
         if cfg.sd is not None and not cfg.input_adv:
             with torch.set_grad_enabled(c_sd > 0):
-                l_sd = sd_term(rpn_out)
+                l_sd = sd_term(features, rpn_out)
             if c_sd:
                 first = first + c_sd * l_sd
         first.backward()
         del features, rpn_out, first
         if cfg.sd is not None and cfg.input_adv:
             with torch.set_grad_enabled(c_sd > 0):
-                l_sd = sd_term(model.rpn(model.features_clean(
-                    images.permute(0, 3, 1, 2))))
+                feats = model.features_clean(images.permute(0, 3, 1, 2))
+                l_sd = sd_term(feats, model.rpn(feats)
+                               if cfg.sd == "roi" else None)
             if c_sd:
                 (c_sd * l_sd).backward()
 

@@ -13,7 +13,8 @@ trainer); ``--only seg`` phases 1, 2 and
 1, 2 and 15-17; ``--only scan`` phases 1, 2 and 18-21; ``--only variants``
 phases 1, 2 and 22-26; ``--only bf16`` phases 1, 2 and 27-29; ``--only
 detbf16`` phases 1, 2 and 30-32; ``--only clsbf16`` phases 1, 2 and 33-35;
-``--only eval`` phases 1, 2 and 36-39.
+``--only eval`` phases 1, 2 and 36-39; ``--only mobilenet`` phases 1, 2
+and 40-42; ``--only coco`` phases 1, 2 and 43-46.
 The kernels
 line then lists the kernels of the phases that ran; without phase 8 the
 upsample + CE kernels have no launch count (null), and under ``--only
@@ -236,7 +237,39 @@ Phases (any failure exits non-zero):
      1-step mIoU equal, attacked images compared entry by entry;
  39. ms per image of each eval task (CUDA events, data loading left out),
      the ms per surface grid point, and each kernel at the new shapes with
-     its plain version, bound and (upsample + CE) library composition.
+     its plain version, bound and (upsample + CE) library composition;
+ 40. the DeepLab MobileNetV2 through ``train_segment.main`` at full width,
+     2 iterations and a validation each, launch counts per step:
+     ``recipes/seg_city_final.sh`` (crop 768, batch 4, ``--bf16``) and
+     ``recipes/seg_voc07_final1.sh`` (crop 513, ``--separable_conv``) as
+     written with ``--model deeplabv3plus_mobilenet``,
+     ``deeplabv3_mobilenet --pertub_idx_sd aspp`` in f32, and
+     ``--pretrained_backbone`` from a seeded torchvision-keyed ResNet-50
+     ``.pth`` on ResNet-50 (100% of parameters and statistics logged) and
+     on MobileNetV2 (0%, as ``afan``);
+ 41. one MobileNet A-FAN step with the kernels against one with the plain
+     op (cuDNN deterministic, no TF32): losses and the logits-conv gradient
+     within 1e-4; the upsample + CE at the MobileNet sites' shapes, f32 and
+     bf16; the PGD update at every shape, step size and dtype of phase 40,
+     bit for bit;
+ 42. the MobileNet A-FAN step in f32 and bf16 in turns (median, p90, peak
+     memory, launches, profile), and the kernels at its shapes;
+ 43. ``recipes/detect_coco_final_setting.sh`` 1-6 as written through
+     ``train_detect.main`` (``--bf16``, 800x1333, anchors [64, 128, 256,
+     512], batch 8, synthetic COCO, 92 classes; phase 15's torso): 2 steps
+     and the COCO-protocol score of the 16 test images each, launch counts
+     per step and in the eval;
+ 44. ``recipes/detect_voc07_final_setting1.sh`` with ``--pertub_idx_sd
+     rpn``, f32 and as written (``--bf16``), the same way;
+ 45. one sd=rpn A-FAN step with the NMS and PGD-update kernels against one
+     with the plain versions (losses and updated parameters within 1e-4);
+     the NMS kernel on that step's proposals and on the COCO runs' calls
+     (the eval's per-class G=91, N=300 among them), keep masks equal; the
+     PGD update at every shape of phases 43-44 and at the RPN tap on
+     COCO's canvas, bit for bit;
+ 46. the COCO bf16 A-FAN step and the sd=rpn A-FAN step (median, p90, peak
+     memory, launches, profile), the NMS kernel at the new shapes and the
+     PGD update at the new ascent shapes, with plain versions and bounds.
 
 The line before the last lists each kernel with its launches on its main
 paths (the bf16 paths of phases 27-29 as entries of their own, ``_bf16``,
@@ -249,7 +282,9 @@ runs of phases 22 and 23 and the bf16 runs of phases 30 and 33 (NMS in
 ``nms``, the bf16 updates in ``pgd_update_bf16``, whose times are phase
 29's where it ran, else the bf16 detection or ALFA step's) and the eval runs
 of phases 36 and 37 (under ``--only eval`` the times are per ``rob`` image
-for NMS and the PGD update, per VOC ``pgd`` image for the upsample + CE).
+for NMS and the PGD update, per VOC ``pgd`` image for the upsample + CE)
+and the runs of phases 40, 43 and 44 (under ``--only mobilenet`` or
+``--only coco`` the times are phase 42's or 46's).
 Launches are the wrappers' counts: a graph replay runs kernels that no
 wrapper call counts, so phase 18 prints the PGD-update kernels its replays
 ran (the profiled kernels per replay times the replays) beside the
@@ -283,14 +318,17 @@ from afan_torch.cli.infer_detect import build_state, preprocess_frame
 from afan_torch.cli.serve_websocket import FrameBatcher
 from afan_torch.core import attack
 from afan_torch.data import cifar, seg_data
+from afan_torch.data.registry import detection_loaders
 from afan_torch.data.voc_det import voc_detection_loaders
 from afan_torch.eval import feature_vis, robustness
 from afan_torch.eval.robustness import make_robust_eval_step
 from afan_torch.models.deeplab import build_model
+from afan_torch.models.deeplab.heads import AtrousSeparableConv
 from afan_torch.models.deeplab.modeling import segmentation_param_groups
 from afan_torch.models.frcnn import FasterRCNN, FRCNNConfig, roi_head
 from afan_torch.models.frcnn.rpn import generate_proposals
-from afan_torch.models.resnet import FrozenBatchNorm, frozen_bn_stats
+from afan_torch.models.resnet import (FrozenBatchNorm, from_name,
+                                      frozen_bn_stats)
 from afan_torch.models.resnet_s import LEARNABLE_TAPS, resnet56
 from afan_torch.ops import nms as tnms
 from afan_torch.ops import pgd_step as tpgd
@@ -1813,10 +1851,11 @@ def det_launches_per_step(cfg, advtrain_steps=None):
     """(proposal NMS, PGD-update) launches per detection step of ``cfg`` (an
     A-FAN family config; None for the baseline; ``advtrain_steps`` for the
     input-adversarial step). NMS runs once per forward that samples: with
-    ``share_proposals`` the shared sample and the SD pass; without it every
-    ascent step, the SD pass, the clean forward and each tail. Each sign
-    step launches one update: the input ascent's under ``input_adv``, each
-    tap's and SD's."""
+    ``share_proposals`` the shared sample and the SD pass (the ROI tap), or
+    each SD ascent step and the SD loss term (the RPN tap, which makes its
+    proposals in every forward); without it also every SE and input ascent
+    step, the clean forward and each tail. Each sign step launches one
+    update: the input ascent's under ``input_adv``, each tap's and SD's."""
     if advtrain_steps is not None:
         return advtrain_steps + 1, advtrain_steps
     if cfg is None:
@@ -1825,8 +1864,9 @@ def det_launches_per_step(cfg, advtrain_steps=None):
     inp = cfg.input_adv * cfg.input_adv_steps
     ascents = inp + (taps + sd) * cfg.steps
     tails = (cfg.spectrum - 1 if taps else 0) + max(taps - 1, 0)
-    nms = 1 + sd if cfg.share_proposals else ascents - sd * cfg.steps + (
-        sd + 1 + tails)
+    sd_nms = {"roi": 1, "rpn": cfg.steps + 1, None: 0}[cfg.sd]
+    nms = 1 + sd_nms if cfg.share_proposals else (
+        ascents - sd * cfg.steps + sd_nms + 1 + tails)
     return nms, ascents * (cfg.step_mode == "sign")
 
 
@@ -2419,7 +2459,8 @@ def variant_phases(card, own_pgd_check):
 BF16_RECIPES = (("seg_voc07_final1.sh", {"MIX": "01"}),
                 ("seg_city_final.sh", {"N": "1", "GAMMASE": "0.02",
                                        "MIX": "01"}))
-BF16_STEPS = 2
+# iterations (steps) of each recipe run through a CLI
+RECIPE_STEPS = 2
 # (name, B, (h, w), (H, W), C): the bf16 logits of the VOC recipe's sites
 # (crop 513), the Cityscapes recipe's (crop 768) and its B=8 spectrum site
 BF16_CE_CASES = [("voc513", 4, (129, 129), (513, 513), 21),
@@ -2448,85 +2489,104 @@ def recipe_flags(name, env, cli="train_segment"):
     return argv[argv.index(f"afan.cli.{cli}") + 1:]
 
 
-def run_bf16_recipe(name, env, updates):
-    """Phase 27, one run: ``train_segment.main`` with ``recipes/<name>``'s
-    flags as written, ``BF16_STEPS`` iterations and one validation. Each
-    PGD update's (shape, clip, gamma, dtype, share of entries it changed)
-    goes to ``updates``. Returns the bf16 (forward, backward, PGD-update)
-    launches of the run."""
-    tag = "chip_bf16_" + os.path.splitext(name)[0]
-    argv = recipe_flags(name, env) + [
-        "--limit_itrs", str(BF16_STEPS), "--val_interval", str(BF16_STEPS),
-        "--print_interval", "1", "--exp", tag]
+def seg_counts():
+    return (krce.fwd_launches, krce.bwd_launches, kpgd.launches,
+            krce.bf16_fwd_launches, krce.bf16_bwd_launches,
+            kpgd.bf16_launches)
+
+
+def run_seg_recipe(tag, flags, dtype, updates, fractions=None):
+    """One run of ``train_segment.main`` with ``flags`` (phases 27 and 40):
+    ``RECIPE_STEPS`` iterations and one validation, every kernel count read
+    around each step against ``seg_launches_per_step``, the model's compute
+    dtype ``dtype``; each PGD update's (shape, clip, gamma, dtype, share of
+    entries changed) goes to ``updates``; with ``fractions``, the line
+    ``--pretrained_backbone`` logs must hold it. Returns the run's
+    (forward, backward, PGD-update, and their bf16) launches."""
+    argv = flags + ["--limit_itrs", str(RECIPE_STEPS), "--val_interval",
+                    str(RECIPE_STEPS), "--print_interval", "1", "--exp",
+                    "chip_" + tag]
     args = train_segment.get_parser().parse_args(argv)
-    require(args.bf16, f"{name} does not pass --bf16")
-    prefix = f"{args.dataset}_{tag}_"
+    prefix = f"{args.dataset}_chip_{tag}_"
     for d in os.listdir("checkpoints") if os.path.isdir("checkpoints") else ():
         if d.startswith(prefix):
             shutil.rmtree(os.path.join("checkpoints", d))
-    per_step, losses, expected, dtypes = [], [], [], []
+    per_step, losses, expected, built = [], [], [], []
     real = train_segment.build_step
 
-    def counts():
-        return (krce.bf16_fwd_launches, krce.bf16_bwd_launches,
-                kpgd.bf16_launches, krce.fwd_launches, krce.bwd_launches,
-                kpgd.launches)
-
     def recording(args_, model, *a):
-        dtypes.append((model.dtype, next(model.parameters()).dtype))
+        built.append((model.dtype, next(model.parameters()).dtype,
+                      type(model.backbone).__name__,
+                      sum(isinstance(m, AtrousSeparableConv)
+                          for m in model.modules())))
         step = real(args_, model, *a)
         expected.append(seg_expected(args_))
 
         def run(images, labels, generator=None):
-            before = counts()
+            before = seg_counts()
             out = step(images, labels, generator)
-            per_step.append(tuple(x - y for x, y in zip(counts(), before)))
+            per_step.append(tuple(x - y for x, y in
+                                  zip(seg_counts(), before)))
             losses.append({k: float(v) for k, v in out.items()})
             return out
         return run
 
     train_segment.build_step = recording
+    start = seg_counts()
     t0 = time.time()
-    krce.bf16_fwd_launches = krce.bf16_bwd_launches = kpgd.bf16_launches = 0
     try:
         with patched_update(share_recording_update(updates)):
             score = train_segment.main(argv)
         torch.cuda.synchronize()
     finally:
         train_segment.build_step = real
-    totals = (krce.bf16_fwd_launches, krce.bf16_bwd_launches,
-              kpgd.bf16_launches)
     secs = time.time() - t0
+    total = tuple(x - y for x, y in zip(seg_counts(), start))
     (sites, pgd), = expected
-    require(dtypes == [(torch.bfloat16, torch.float32)],
-            f"{name}: model compute and parameter dtypes {dtypes}")
-    require(len(losses) == BF16_STEPS, f"{name}: {len(losses)} steps ran")
-    require(all(np.isfinite(v) for rec in losses for v in rec.values()),
-            f"{name}: non-finite loss in {losses}")
-    require(per_step == [(sites, sites, pgd) * 2] * BF16_STEPS
-            and totals == (BF16_STEPS * sites, BF16_STEPS * sites,
-                           BF16_STEPS * pgd),
-            f"{name}: bf16 and all (forward, backward, PGD-update) launches "
-            f"per step {per_step}, run {totals}; expected "
-            f"{(sites, sites, pgd)} per step, all bf16")
+    bf16 = dtype == torch.bfloat16
+    want = (sites, sites, pgd) + ((sites, sites, pgd) if bf16 else (0,) * 3)
+    (model_dtype, param_dtype, backbone, separable), = built
+    require((model_dtype, param_dtype, args.bf16) == (dtype, torch.float32,
+                                                      bf16),
+            f"{tag}: model compute and parameter dtypes {model_dtype}, "
+            f"{param_dtype}; expected {dtype}, float32")
+    require((backbone == "MobileNetV2Backbone") == ("mobilenet" in args.model)
+            and bool(separable) == args.separable_conv,
+            f"{tag}: built {backbone} with {separable} separable convs")
+    require(len(losses) == RECIPE_STEPS
+            and all(np.isfinite(v) for r in losses for v in r.values()),
+            f"{tag}: losses {losses}")
+    require(per_step == [want] * RECIPE_STEPS and total == tuple(
+        RECIPE_STEPS * w for w in want),
+            f"{tag}: (forward, backward, PGD-update; bf16 forward, backward, "
+            f"PGD-update) launches per step {per_step}, run {total}; "
+            f"expected {want} per step")
     dirs = [d for d in os.listdir("checkpoints") if d.startswith(prefix)]
     path = os.path.join("checkpoints", dirs[0] if dirs else "",
                         f"latest_{args.model}_{args.dataset}.pt")
     require(len(dirs) == 1 and os.path.isfile(path),
-            f"{name}: no checkpoint written")
+            f"{tag}: no checkpoint written")
     saved = torch.load(path, map_location="cpu", weights_only=True)
-    require(saved["cur_itrs"] == BF16_STEPS
-            and all(v.dtype != torch.bfloat16 and bool(torch.isfinite(v).all())
+    require(saved["cur_itrs"] == RECIPE_STEPS
+            and all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
                     for v in saved["model_state"].values()
                     if v.is_floating_point()),
-            f"{name}: the checkpoint is not the finished run's f32 state")
-    print(f"    {name} ({args.dataset}, crop {args.crop_size}, batch "
-          f"{args.batch_size}, --bf16): {BF16_STEPS} steps + 1 validation in "
-          f"{secs:.1f} s; losses {[round(r['loss'], 4) for r in losses]}; "
-          f"mIoU {score:.4f}; per step {sites} bf16 upsample + CE launches "
-          f"each way and {pgd} bf16 PGD updates, as expected; checkpoint "
-          f"{path}")
-    return totals
+            f"{tag}: the checkpoint is not the finished run's f32 state")
+    note = ""
+    if fractions is not None:
+        with open(os.path.join("checkpoints", dirs[0], "train.log")) as f:
+            lines = [ln for ln in f if "ImageNet backbone loaded" in ln]
+        require(len(lines) == 1 and fractions in lines[0],
+                f"{tag}: logged {lines}, expected {fractions}")
+        note = f"; logged: ImageNet backbone loaded {fractions}"
+    print(f"    {tag} ({args.model}{' --separable_conv' * bool(separable)}"
+          f", {args.dataset}, crop {args.crop_size}, batch "
+          f"{args.batch_size}, {str(dtype)[6:]}): {RECIPE_STEPS} steps + 1 "
+          f"validation in {secs:.1f} s; losses "
+          f"{[round(r['loss'], 4) for r in losses]}; mIoU {score:.4f}; per "
+          f"step {sites} upsample + CE launches each way and {pgd} PGD "
+          f"updates, as expected{note}; checkpoint {path}")
+    return total
 
 
 def bf16_recipes(updates):
@@ -2536,8 +2596,10 @@ def bf16_recipes(updates):
           "width: " + ", ".join(n for n, _ in BF16_RECIPES))
     totals = [0, 0, 0]
     for name, env in BF16_RECIPES:
-        run = run_bf16_recipe(name, env, updates.setdefault(name, []))
-        totals = [t + r for t, r in zip(totals, run)]
+        run = run_seg_recipe("bf16_" + os.path.splitext(name)[0],
+                             recipe_flags(name, env), torch.bfloat16,
+                             updates.setdefault(name, []))
+        totals = [t + r for t, r in zip(totals, run[3:])]
         gc.collect()
         torch.cuda.empty_cache()
     print_update_shares(sum(updates.values(), []))
@@ -2688,43 +2750,65 @@ def bf16_phases(card):
 
 # recipes/detect_voc07_{baseline,final_setting1,2,3}.sh as written, --bf16
 # included, with no data flag (the synthetic VOC), from the calibrated torso
-# of phase 15, 2 steps and the final mAP each: phases 30-32. The COCO recipe
-# waits on COCO data.
+# of phase 15, 2 steps and the final mAP each: phases 30-32.
 DET_BF16_RECIPES = ("detect_voc07_baseline.sh",
                     "detect_voc07_final_setting1.sh",
                     "detect_voc07_final_setting2.sh",
                     "detect_voc07_final_setting3.sh")
-DET_BF16_STEPS = 2
 
 
-def run_det_bf16_recipe(name, updates):
-    """Phase 30, one run: ``train_detect.main`` with ``recipes/<name>``'s
-    flags as written, ``DET_BF16_STEPS`` steps and the final mAP. Each PGD
-    update's (shape, clip, gamma, dtype, share of entries it changed) goes
-    to ``updates``. Returns the run's NMS and bf16 PGD-update launches."""
-    tag = "bf16_" + os.path.splitext(name)[0]
-    out = os.path.join(DET_OUT, tag)
-    shutil.rmtree(out, ignore_errors=True)
-    argv = recipe_flags(name, {"OUT": out}, "train_detect") + [
-        "--num_steps_to_finish", str(DET_BF16_STEPS),
-        "--num_steps_to_snapshot", str(DET_BF16_STEPS),
+def nms_shape_recorder(calls, dtypes):
+    """NMS keep-mask function: the kernel wrapper, with the boxes' dtype
+    added to ``dtypes`` and the first call of each (G, N, thr) kept in
+    ``calls``."""
+    def run(boxes, valid, thr, plus_one=True):
+        keep = knms.nms_sorted_mask(boxes, valid, thr, plus_one)
+        dtypes.add(boxes.dtype)
+        key = (tuple(valid.shape), thr)
+        if key not in calls:
+            calls[key] = (boxes.clone(), valid.clone(), thr, plus_one)
+        return keep
+    return run
+
+
+def det_recipe_flags(name, tag, env=None):
+    """``recipes/<name>``'s flags as written, its output under
+    ``DET_OUT/tag``, for ``RECIPE_STEPS`` steps from phase 15's calibrated
+    torso."""
+    return recipe_flags(name, dict(env or {}, OUT=os.path.join(DET_OUT, tag)),
+                        "train_detect") + [
+        "--num_steps_to_finish", str(RECIPE_STEPS),
+        "--num_steps_to_snapshot", str(RECIPE_STEPS),
         "--num_steps_to_display", "1", "--pretrained_backbone",
         DET_BACKBONE]
+
+
+def run_det_recipe(tag, argv, dtype, updates, nms_calls=None):
+    """One run of ``train_detect.main(argv)`` on synthetic data (phases 30,
+    43 and 44): ``RECIPE_STEPS`` steps and the final score, every kernel
+    count read around each step against ``det_launches_per_step`` and
+    around the whole run, the NMS on float32 boxes; the first NMS call of
+    each shape goes to ``nms_calls`` and each PGD update's (shape, clip,
+    gamma, dtype, share) to ``updates``. Returns the run's NMS, PGD-update
+    and bf16 PGD-update launches."""
     args = train_detect.get_parser().parse_args(argv)
-    require(args.bf16 and not any(a.startswith("--data") for a in argv),
-            f"{name}: not a --bf16 recipe on the synthetic VOC: {argv}")
+    require((args.bf16, any(a.startswith("--data") for a in argv))
+            == (dtype == torch.bfloat16, False),
+            f"{tag}: {argv} is not the synthetic {dtype} run")
+    shutil.rmtree(args.outputs_dir, ignore_errors=True)
     factory = ("make_baseline_det_step" if args.variant == "baseline"
                else "make_afan_det_step")
-    built, per_step, losses, expected, boxes = [], [], [], [], []
-    real_model, real_step = train_detect.FasterRCNN, getattr(train_detect,
-                                                             factory)
+    per_step, losses, expected, built, boxes = [], [], [], [], set()
+    real_model, real_step = (train_detect.FasterRCNN,
+                             getattr(train_detect, factory))
 
     def counts():
-        return knms.launches, kpgd.bf16_launches, kpgd.launches
+        return knms.launches, kpgd.launches, kpgd.bf16_launches
 
     def model_recording(*a):
         model = real_model(*a)
-        built.append((model.dtype, {p.dtype for p in model.parameters()}))
+        built.append((model.dtype, {p.dtype for p in model.parameters()},
+                      model.cfg))
         return model
 
     def step_recording(*a, **kw):
@@ -2739,18 +2823,15 @@ def run_det_bf16_recipe(name, updates):
             return res
         return run
 
-    def nms(b, *a):
-        boxes.append(b.dtype)
-        return knms.nms_sorted_mask(b, *a)
-
     train_detect.FasterRCNN = model_recording
     setattr(train_detect, factory, step_recording)
     start = counts()
     t0 = time.time()
     try:
         with patched_update(share_recording_update(updates)), \
-                patched_nms(nms):
-            mean_ap = train_detect.main(argv)
+                patched_nms(nms_shape_recorder(
+                    {} if nms_calls is None else nms_calls, boxes)):
+            score = train_detect.main(argv)
         torch.cuda.synchronize()
     finally:
         train_detect.FasterRCNN = real_model
@@ -2758,35 +2839,42 @@ def run_det_bf16_recipe(name, updates):
     secs = time.time() - t0
     total = tuple(x - y for x, y in zip(counts(), start))
     (n_nms, n_pgd), = expected
+    (model_dtype, param_dtypes, cfg), = built
     eval_nms = total[0] - sum(n for n, _, _ in per_step)
-    require(built == [(torch.bfloat16, {torch.float32})],
-            f"{name}: model compute and parameter dtypes {built}")
-    require(len(losses) == DET_BF16_STEPS
+    bf16 = dtype == torch.bfloat16
+    want = (n_nms, n_pgd, n_pgd * bf16)
+    require((model_dtype, param_dtypes) == (dtype, {torch.float32}),
+            f"{tag}: model compute and parameter dtypes {model_dtype}, "
+            f"{param_dtypes}")
+    require(len(losses) == RECIPE_STEPS
             and all(np.isfinite(v) for r in losses for v in r.values()),
-            f"{name}: losses {losses}")
-    require(per_step == [(n_nms, n_pgd, n_pgd)] * DET_BF16_STEPS,
-            f"{name}: (NMS, bf16 PGD-update, all PGD-update) launches per "
-            f"step {per_step}, expected {(n_nms, n_pgd, n_pgd)}")
+            f"{tag}: losses {losses}")
+    require(per_step == [want] * RECIPE_STEPS,
+            f"{tag}: (NMS, PGD-update, bf16 PGD-update) launches per step "
+            f"{per_step}, expected {want}")
     require(eval_nms == 2 * DET_EVAL_IMAGES,
-            f"{name}: {eval_nms} NMS launches in the final eval")
-    require(set(boxes) == {torch.float32}, f"{name}: NMS took {set(boxes)}")
-    saved = torch.load(os.path.join(out, f"model-{DET_BF16_STEPS}.pt"),
+            f"{tag}: {eval_nms} NMS launches in the final eval")
+    require(boxes == {torch.float32}, f"{tag}: NMS took {boxes}")
+    saved = torch.load(os.path.join(args.outputs_dir,
+                                    f"model-{RECIPE_STEPS}.pt"),
                        map_location="cpu", weights_only=True)
-    require(saved["step"] == DET_BF16_STEPS
+    require(saved["step"] == RECIPE_STEPS
             and all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
                     for v in saved["state_dict"].values()
                     if v.is_floating_point()),
-            f"{name}: model-{DET_BF16_STEPS}.pt is not the finished run's "
-            f"float32 state")
-    require(0.0 <= mean_ap <= 1.0, f"{name}: mAP {mean_ap}")
-    print(f"    {name} ({args.variant}, batch {args.batch_size}, --bf16): "
-          f"{DET_BF16_STEPS} steps + the final mAP of {DET_EVAL_IMAGES} "
-          f"images in {secs:.1f} s; losses "
+            f"{tag}: model-{RECIPE_STEPS}.pt is not the finished run's f32 "
+            f"state")
+    require(0.0 <= score <= 1.0, f"{tag}: score {score}")
+    print(f"    {tag} ({args.variant}, {args.dataset}, {cfg.num_classes} "
+          f"classes, anchors {tuple(cfg.anchor_sizes)}, batch "
+          f"{args.batch_size}, {str(dtype)[6:]}): {RECIPE_STEPS} steps + the "
+          f"final score of {DET_EVAL_IMAGES} images in {secs:.1f} s; losses "
           f"{[round(r['loss'], 4) for r in losses]}; per step {n_nms} NMS "
-          f"launches on float32 boxes and {n_pgd} bf16 PGD updates, as "
-          f"expected; NMS in the eval {eval_nms}; mAP {mean_ap:.4f}; "
-          f"float32 model-{DET_BF16_STEPS}.pt")
-    return total[0], total[1]
+          f"launches on float32 boxes and {n_pgd} PGD updates, as expected; "
+          f"NMS in the eval {eval_nms}; score {score:.4f} (COCO's "
+          f"AP@[.5:.95] for the COCO names, else the VOC mAP); "
+          f"model-{RECIPE_STEPS}.pt float32")
+    return total
 
 
 def det_bf16_recipes(updates):
@@ -2798,7 +2886,9 @@ def det_bf16_recipes(updates):
         print(f"    backbone: {calibrated_backbone()}")
     nms = pgd = 0
     for name in DET_BF16_RECIPES:
-        n, p = run_det_bf16_recipe(name, updates)
+        tag = "bf16_" + os.path.splitext(name)[0]
+        n, _, p = run_det_recipe(tag, det_recipe_flags(name, tag),
+                                 torch.bfloat16, updates)
         nms, pgd = nms + n, pgd + p
         gc.collect()
         torch.cuda.empty_cache()
@@ -3181,20 +3271,29 @@ def pgd_per_replay(scan, clip, bf16=False):
     trace of
     ``SCAN_BATCHES`` more replays of ``scan``'s own graph, its step index
     reset to row 0 first. The replays train the model on: run it after the
-    run's checkpoint is written."""
+    run's checkpoint is written. The profiler has lost records on the card
+    (a trace short of a few kernels, in the same runs as a trace with no
+    device time at all, phase 17), so a trace whose count is not
+    ``ALFA_STEPS`` per replay is taken once more, and the second count
+    stands."""
     from torch.profiler import ProfilerActivity, profile
-    scan.scan._static["i"].zero_()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(SCAN_BATCHES):
-            scan.graph.replay()
-        torch.cuda.synchronize()
     want = (f"pgd_step_{'bf16_vec8' if bf16 else 'vec4'}"
             f"<{'true' if clip else 'false'}>")
-    found = {e.key: e.count for e in prof.key_averages()
-             if "pgd_step" in e.key}
-    other = [k for k in found if want not in k]
-    require(not other, f"PGD kernels {found} in {SCAN_BATCHES} replays")
-    return sum(found.values()) / SCAN_BATCHES
+    for attempt in (1, 2):
+        scan.scan._static["i"].zero_()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SCAN_BATCHES):
+                scan.graph.replay()
+            torch.cuda.synchronize()
+        found = {e.key: e.count for e in prof.key_averages()
+                 if "pgd_step" in e.key}
+        other = [k for k in found if want not in k]
+        require(not other, f"PGD kernels {found} in {SCAN_BATCHES} replays")
+        per = sum(found.values()) / SCAN_BATCHES
+        if per == ALFA_STEPS or attempt == 2:
+            return per
+        print(f"    trace {attempt} held {sum(found.values())} PGD-update "
+              f"kernels in {SCAN_BATCHES} replays; tracing them again")
 
 
 def run_scan_cli(flags, epochs, tag, resume=False, batches=SCAN_BATCHES):
@@ -4093,6 +4192,447 @@ def eval_phases(card):
     return {k: (launches[k], max(errs[k]), times[k]) for k in launches}
 
 
+# The remaining model configurations at full width (phases 40-46): afan's
+# DeepLab MobileNetV2 (40-42) and the COCO detection recipes with the RPN SD
+# tap (43-46).
+MB_MODEL = "deeplabv3plus_mobilenet"
+MB_OUT = os.path.join("checkpoints", "chip_smoke_mobilenet")
+MB_BACKBONE = os.path.join(MB_OUT, "resnet50_torchvision.pth")
+CITY_ENV = {"N": "1", "GAMMASE": "0.02", "MIX": "01"}
+# (tag, flags, compute dtype, the fractions --pretrained_backbone logs)
+MB_RUNS = (
+    ("city_final_mobilenet",
+     lambda: recipe_flags("seg_city_final.sh", CITY_ENV)
+     + ["--model", MB_MODEL], torch.bfloat16, None),
+    ("voc07_final1_mobilenet_separable",
+     lambda: recipe_flags("seg_voc07_final1.sh", {"MIX": "01"})
+     + ["--model", MB_MODEL, "--separable_conv"], torch.bfloat16, None),
+    ("v3_mobilenet_aspp",
+     lambda: SEG_FLAGS + ["--model", "deeplabv3_mobilenet",
+                          "--pertub_idx_sd", "aspp"], torch.float32, None),
+    ("resnet50_pretrained",
+     lambda: SEG_FLAGS + ["--pretrained_backbone", MB_BACKBONE],
+     torch.float32, "(params 100.0%, stats 100.0%)"),
+    ("mobilenet_pretrained",
+     lambda: SEG_FLAGS + ["--model", MB_MODEL, "--pretrained_backbone",
+                          MB_BACKBONE], torch.float32,
+     "(params 0.0%, stats 0.0%)"),
+)
+
+
+def torchvision_resnet50():
+    """A seeded ResNet-50 in torchvision's keys (``fc`` included, every key
+    under ``module.`` as a DataParallel checkpoint has it) at
+    ``MB_BACKBONE``, for ``--pretrained_backbone``."""
+    torso = from_name("resnet50")
+    torso.reset_parameters(torch.Generator().manual_seed(7))
+    sd = dict(torso.state_dict(), **{"fc.weight": torch.zeros(1000, 2048),
+                                     "fc.bias": torch.zeros(1000)})
+    os.makedirs(MB_OUT, exist_ok=True)
+    torch.save({f"module.{k}": v for k, v in sd.items()}, MB_BACKBONE)
+    return MB_BACKBONE
+
+
+def mobilenet_runs(updates):
+    """Phase 40: every run of ``MB_RUNS``; returns their launches summed."""
+    print(f"[40] train the DeepLab MobileNetV2 at full width through "
+          f"train_segment.main: {', '.join(r[0] for r in MB_RUNS)}")
+    print(f"    --pretrained_backbone: {torchvision_resnet50()}")
+    total = [0] * 6
+    for tag, flags, dtype, fractions in MB_RUNS:
+        run = run_seg_recipe("mb_" + tag, flags(), dtype, updates, fractions)
+        total = [t + r for t, r in zip(total, run)]
+        gc.collect()
+        torch.cuda.empty_cache()
+    print_update_shares([u for u in updates if u[3] == torch.bfloat16])
+    return total
+
+
+MB_CE_CASES = [("mb_city768", 4, (192, 192), (768, 768), 19, None),
+               ("mb_voc513", 4, (129, 129), (513, 513), 21, None)]
+
+
+def mobilenet_kernels_vs_plain(updates, errs):
+    """Phase 41: one MobileNet A-FAN step (the Cityscapes recipe's flags,
+    f32) with the kernels against one with the plain op, from the same
+    weights, batch and dropout masks (cuDNN deterministic, no TF32); then
+    the upsample + CE kernels at the MobileNet steps' site shapes, f32 and
+    bf16, and the PGD update at every shape, step size and dtype of phase
+    40's updates, clipped and not, bit for bit."""
+    model = build_model(MB_MODEL, 19, 16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.cuda()
+    imgs, labs = seg_batch()
+    step_kernel_vs_plain(model, imgs, labs, label="[41] MobileNet A-FAN step "
+                         "with the kernels vs with the plain op")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for case in MB_CE_CASES:
+        ce_case(*case, errs)
+        name, B, hw, HW, C, _ = case
+        lo, lab, g = ce_inputs(B, hw, HW, C)
+        lo = lo.bfloat16()
+        sums, dlo = (krce.resize_ce_forward(lo, lab),
+                     krce.resize_ce_backward(lo, lab, g))
+        want_s = trce.fused_resize_nll_sums_plain(lo, lab, HW)
+        want_d = trce.resize_ce_grad_plain(lo, lab, g)
+        torch.cuda.synchronize()
+        es, eg = rel_err(sums, want_s), rel_err(dlo.float(), want_d.float())
+        errs["fwd_bf16"].append(float((sums - want_s).abs().max()))
+        errs["bwd_bf16"].append(float((dlo.float() - want_d.float())
+                                      .abs().max()))
+        print(f"  {name} bf16 logits: sums rel {es:.3e}, gradient rel "
+              f"{eg:.3e}")
+        require(es <= CE_SUM_TOL and eg <= BF16_GRAD_TOL,
+                f"{name} bf16: sums rel {es}, gradient rel {eg}")
+    cases = sorted({(shape, gamma, dtype)
+                    for shape, _, gamma, dtype, _ in updates},
+                   key=lambda c: (c[0], c[1], str(c[2])))
+    for i, (shape, gamma, dtype) in enumerate(cases):
+        x, g, c = (t.to(dtype) for t in pgd_inputs(shape, 600 + i))
+        key = "pgd_bf16" if dtype == torch.bfloat16 else "pgd"
+        for clip in (False, True):
+            pgd_case(f"MobileNet ascent {i}", x, g, c, clip, errs[key],
+                     gamma, 2.0 / 255)
+
+
+def time_step(card, label, step, batch, n=5, warmup=2, profile=True):
+    """A step's device time (median and p90 of ``n`` calls after
+    ``warmup``, CUDA events), images per second, peak memory, kernel
+    launches per step by wrapper and, profiled, the device's busy share and
+    device kernels per step. Returns the median ms."""
+    t = cuda_samples(step, n, warmup=warmup)
+    before = (knms.launches, krce.fwd_launches, krce.bwd_launches,
+              kpgd.launches)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(zip(("nms", "resize_ce_forward", "resize_ce_backward",
+                         "pgd_update"),
+                        (a - b for a, b in zip(
+                            (knms.launches, krce.fwd_launches,
+                             krce.bwd_launches, kpgd.launches), before))))
+    med = float(np.median(t))
+    print(f"    {label}: median {med:.3f} ms, p90 "
+          f"{np.percentile(t, 90):.3f} ms over {len(t)} steps after "
+          f"{warmup}, {batch * 1e3 / med:.2f} imgs/s, peak memory "
+          f"{peak:.2f} GiB, kernel launches per step "
+          f"{ {k: v for k, v in launches.items() if v} } ({card})")
+    if profile:
+        profile_step(step, n=2, label=label)
+    return med
+
+
+def pgd_times(card, shapes):
+    """The PGD update, unclipped, at each (shape, dtype, gamma) of
+    ``shapes``, summed: kernel, plain and bound ms."""
+    k_ms = p_ms = byte_ms = op_ms = 0.0
+    for shape, dtype, gamma in shapes:
+        k, p, b, o = time_pgd_update(card, shape, dtype, gamma,
+                                     2.0 / 255)[False]
+        k_ms, p_ms, byte_ms, op_ms = k_ms + k, p_ms + p, byte_ms + b, op_ms + o
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def time_mobilenet(card, updates, ce_times):
+    """Phase 42: the MobileNet A-FAN step of the Cityscapes recipe (crop
+    768, batch 4) in f32 and in bf16, in turns (f32, bf16, bf16, f32; 5
+    steps each after 2), each one's launches and profile; then, with
+    ``ce_times``, the upsample + CE kernels at the step's shapes (the
+    ResNet-50 step's, which phases 10 and 29 time otherwise), and the PGD
+    update at the MobileNet ascents' shapes, with their bounds. Returns the
+    kernels' times."""
+    print(f"[42] timing on {card}: the MobileNet A-FAN step (Cityscapes "
+          f"recipe, crop {SEG_CROP}, batch {SEG_BATCH}), f32 and bf16 in "
+          f"turns")
+    imgs, labs = seg_batch()
+    models = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        models[name] = build_model(MB_MODEL, 19, 16, dtype)
+        models[name].reset_parameters(torch.Generator().manual_seed(0))
+        models[name].cuda()
+    steps = {k: (lambda s=seg_step(m): s(imgs, labs))
+             for k, m in models.items()}
+    samples = time_in_turns(steps, ("f32", "bf16", "bf16", "f32"), 5,
+                            warmup=2)
+    med = report_turns(card, samples, steps, SEG_BATCH,
+                       "MobileNet A-FAN step")
+    for k in ("f32", "bf16"):
+        time_step(card, f"{k} MobileNet A-FAN step", steps[k], SEG_BATCH,
+                  n=5, warmup=1)
+    print(f"    bf16 step {med['f32'] / med['bf16']:.2f}x the f32 step's "
+          f"speed (medians in turns, {card})")
+    del steps, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = seg_launches_per_step(seg_recipe())[0]
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16) if ce_times else ():
+        for e in time_ce_kernels(card, labs, per_step, dtype):
+            times[e["name"]] = {k: e[k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by",
+                                                  "library_ms")}
+    shapes = sorted({(shape, dtype, gamma)
+                     for shape, clip, gamma, dtype, _ in updates if not clip},
+                    key=lambda c: (c[0], str(c[1]), c[2]))
+    for dtype, name in ((torch.float32, "pgd_update"),
+                        (torch.bfloat16, "pgd_update_bf16")):
+        mine = [s for s in shapes if s[1] == dtype]
+        times[name] = pgd_times(card, mine)
+        print(f"    {name} at the MobileNet ascents {[s[0] for s in mine]}: "
+              f"kernel {times[name]['ms']:.5f} ms, plain "
+              f"{times[name]['plain_ms']:.5f}, bound "
+              f"{times[name]['bound_ms']:.5f} ms ({card})")
+    return times
+
+
+def mobilenet_phases(card, ce_times=True):
+    """Phases 40-42; returns (launches, error, times) of each kernel on the
+    MobileNet paths (the upsample + CE times only with ``ce_times``)."""
+    updates = []
+    launches = mobilenet_runs(updates)
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = {"fwd": [], "bwd": [], "fwd_bf16": [], "bwd_bf16": [], "pgd": [],
+            "pgd_bf16": []}
+    mobilenet_kernels_vs_plain(updates, errs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = time_mobilenet(card, updates, ce_times)
+    fwd, bwd, pgd, fwd16, bwd16, pgd16 = launches
+    return {"resize_ce_forward": (fwd - fwd16, max(errs["fwd"]),
+                                  times.get("resize_ce_forward")),
+            "resize_ce_backward": (bwd - bwd16, max(errs["bwd"]),
+                                   times.get("resize_ce_backward")),
+            "resize_ce_forward_bf16": (fwd16, max(errs["fwd_bf16"]),
+                                       times.get("resize_ce_forward_bf16")),
+            "resize_ce_backward_bf16": (bwd16, max(errs["bwd_bf16"]),
+                                        times.get(
+                                            "resize_ce_backward_bf16")),
+            "pgd_update": (pgd - pgd16, max(errs["pgd"]),
+                           times["pgd_update"]),
+            "pgd_update_bf16": (pgd16, max(errs["pgd_bf16"]),
+                                times["pgd_update_bf16"])}
+
+
+COCO_RECIPE = "detect_coco_final_setting.sh"
+COCO_SETTINGS = (1, 2, 3, 4, 5, 6)
+COCO_CLASSES = 92
+# the eval's NMS: the proposals (G=1, N=6000 of 50400 anchors at 800x1344)
+# and the per-class NMS over classes 1..91 (G=91, N=300)
+COCO_EVAL_NMS = ((1, 6000), (COCO_CLASSES - 1, 300))
+# the PGD update at this slice's shapes not met on the runs (the RPN tap
+# at COCO's canvas); the runs' own shapes are recorded
+RPN_COCO_SHAPE = ((8, 512, 50, 84), torch.bfloat16, 0.1 / 255)
+
+
+def coco_knobs(n):
+    """``recipes/detect_coco_final_setting.sh``'s KNOBS for setting ``n``."""
+    with open(os.path.join(ROOT, "recipes", COCO_RECIPE)) as f:
+        line = next(ln for ln in f if ln.strip().startswith(f"{n})"))
+    return line.split('KNOBS="', 1)[1].split('"', 1)[0]
+
+
+def det_runs(eval_calls, updates):
+    """Phases 43 (the six COCO settings as written, --bf16) and 44 (VOC
+    final setting 1 with --pertub_idx_sd rpn, f32 and bf16), each from
+    phase 15's calibrated torso. Returns their launches summed."""
+    print(f"[43] train {COCO_RECIPE} 1-6 as written (--bf16, 800x1333, "
+          f"anchors [64, 128, 256, 512], batch 8, synthetic COCO, "
+          f"{COCO_CLASSES} classes): {RECIPE_STEPS} steps and the COCO AP "
+          f"each")
+    if not os.path.isfile(DET_BACKBONE):
+        print(f"    backbone: {calibrated_backbone()}")
+    runs = [(f"coco_final{n}", det_recipe_flags(
+        COCO_RECIPE, f"coco_final{n}", {"KNOBS": coco_knobs(n)}),
+        torch.bfloat16) for n in COCO_SETTINGS]
+    voc = det_recipe_flags("detect_voc07_final_setting1.sh",
+                           "voc07_final1_rpn_bf16") + ["--pertub_idx_sd",
+                                                       "rpn"]
+    runs += [("voc07_final1_rpn_f32", [a for a in voc if a != "--bf16"]
+              + ["-o", os.path.join(DET_OUT, "voc07_final1_rpn_f32")],
+              torch.float32),
+             ("voc07_final1_rpn_bf16", voc, torch.bfloat16)]
+    total = [0, 0, 0]
+    for i, (tag, argv, dtype) in enumerate(runs):
+        if i == len(COCO_SETTINGS):
+            print("[44] train recipes/detect_voc07_final_setting1.sh with "
+                  "--pertub_idx_sd rpn, f32 and as written (--bf16)")
+        run = run_det_recipe(tag, argv, dtype, updates, eval_calls)
+        total = [t + r for t, r in zip(total, run)]
+        gc.collect()
+        torch.cuda.empty_cache()
+    print_update_shares([u for u in updates if u[3] == torch.bfloat16])
+    return total
+
+
+def rpn_recipe():
+    return train_detect.afan_config_for(train_detect.get_parser().parse_args(
+        DET_FLAGS + ["--pertub_idx_sd", "rpn"]))
+
+
+def coco_kernels_vs_plain(eval_calls, updates, errs):
+    """Phase 45: one ``sd=rpn`` A-FAN step (VOC final setting 1, f32) with
+    the NMS and PGD-update kernels against one with their plain versions;
+    the NMS kernel on that step's proposals (the shared sample, each SD
+    ascent step's and the SD loss term's) and on phase 43's COCO eval
+    calls (G=91, N=300 among them), keep masks equal; the PGD update at
+    every shape, step size and dtype of phases 43-44 and at the RPN tap on
+    COCO's canvas, bit for bit. Returns the step's NMS calls."""
+    model, batch = det_model(), det_batch()
+    calls, _ = det_step_kernel_vs_plain(model, batch, cfg=rpn_recipe(),
+                                        label="[45] sd=rpn A-FAN")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, (boxes, valid, thr, plus_one, _) in enumerate(calls):
+        kernel_vs_plain(f"sd=rpn step call {i}", boxes, valid, thr,
+                        plus_one, errs["nms"])
+    for (shape, thr), (boxes, valid, _, plus_one) in sorted(
+            eval_calls.items()):
+        kernel_vs_plain(f"COCO run call {shape}", boxes, valid, thr,
+                        plus_one, errs["nms"])
+    got = {k[0] for k in eval_calls}
+    require(all(s in got for s in COCO_EVAL_NMS)
+            and (DET_BATCH, 12000) in got,
+            f"the COCO runs' NMS shapes {sorted(got)} lack {COCO_EVAL_NMS} "
+            f"or the training proposals (8, 12000)")
+    cases = sorted({(shape, gamma, dtype)
+                    for shape, _, gamma, dtype, _ in updates}
+                   | {(RPN_COCO_SHAPE[0], RPN_COCO_SHAPE[2],
+                       RPN_COCO_SHAPE[1])},
+                   key=lambda c: (c[0], c[1], str(c[2])))
+    for i, (shape, gamma, dtype) in enumerate(cases):
+        x, g, c = (t.to(dtype) for t in pgd_inputs(shape, 700 + i))
+        key = "pgd_bf16" if dtype == torch.bfloat16 else "pgd"
+        for clip in (False, True):
+            pgd_case(f"detection ascent {i}", x, g, c, clip, errs[key],
+                     gamma, 2.0 / 255)
+    return calls
+
+
+def coco_batch(seed=0):
+    loader, _, _ = detection_loaders("coco2017", None, DET_BATCH, 800, 1333,
+                                     seed)
+    b = next(iter(loader))
+    return (cuda(b.images), cuda(b.boxes), cuda(b.labels.astype(np.int64)),
+            cuda(b.valid))
+
+
+def coco_step():
+    """The COCO recipe's setting-1 bf16 A-FAN step (its model, optimizer
+    and flags), the torso from ``DET_BACKBONE``, on a synthetic COCO batch.
+    Returns (step(), recorded NMS calls, the A-FAN config)."""
+    argv = recipe_flags(COCO_RECIPE, {"OUT": "unused",
+                                      "KNOBS": coco_knobs(1)},
+                        "train_detect")
+    args = train_detect.get_parser().parse_args(argv)
+    model = FasterRCNN(train_detect.frcnn_config(args, COCO_CLASSES),
+                       torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    overlap_restore(model.features, load_checkpoint(DET_BACKBONE))
+    model.cuda()
+    opt, sched = sgd(detect_loop.detection_param_groups(model),
+                     warmup_multistep_schedule(0.01, [120000, 160000]), 0.01,
+                     0.9, 1e-4)
+    cfg = train_detect.afan_config_for(args)
+    step = detect_loop.make_afan_det_step(model, opt, sched, cfg)
+    batch, gen = coco_batch(), torch.Generator("cuda").manual_seed(1)
+    return (lambda: step(*batch, gen)), cfg
+
+
+def time_coco(card, rpn_calls, eval_calls, updates):
+    """Phase 46: the COCO bf16 A-FAN step (setting 1, batch 8, 800x1344)
+    and the sd=rpn A-FAN step (VOC setting 1, f32): median and p90 of 5
+    steps after 2, peak memory, launches and profile each; the NMS kernel
+    on the COCO step's proposals (G=8, N=12000 of 50400 anchors), at the
+    COCO eval's per-class NMS (G=91, N=300) and on the sd=rpn step's
+    proposals; the PGD update at the slice's new shapes. Returns the
+    kernels' times."""
+    print(f"[46] timing on {card}: the COCO bf16 A-FAN step and the sd=rpn "
+          f"A-FAN step")
+    step, _ = coco_step()
+    coco_calls = {}
+    with patched_nms(nms_shape_recorder(coco_calls, set())):
+        step()
+    coco_ms = time_step(card, "COCO setting-1 bf16 A-FAN step, batch 8, "
+                        "800x1344", step, DET_BATCH)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, batch = det_model(), det_batch()
+    rpn = det_step(model, cfg=rpn_recipe())
+    gen = torch.Generator("cuda").manual_seed(1)
+    rpn_ms = time_step(card, "sd=rpn A-FAN step (VOC setting 1, f32), "
+                       "batch 8, 608x1008", lambda: rpn(*batch, gen),
+                       DET_BATCH)
+    del rpn, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    nms = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    parts = []
+    n_rpn = det_launches_per_step(rpn_recipe())[0]
+    (key, (boxes, valid, thr, plus_one)), = [
+        kv for kv in coco_calls.items() if kv[0][0] == (DET_BATCH, 12000)]
+    cases = [("COCO training proposals (per step x2)", boxes, valid, thr,
+              plus_one, 2),
+             ("COCO eval per-class", *eval_calls[(COCO_EVAL_NMS[1], 0.3)],
+              1)]
+    # the step's launches share their shape and all but a few boxes: the
+    # first stands for each
+    b, v, t, p, _ = rpn_calls[0]
+    cases.append((f"sd=rpn step's first call (x{n_rpn} per step)", b, v, t,
+                  p, n_rpn))
+    for label, b, v, t, p, n in cases:
+        k, pl, byte, op = time_nms_shape(card, label, b, v, t, p)
+        nms["ms"] += n * k
+        nms["plain_ms"] += n * pl
+        nms["bound_ms"] += n * max(byte, op)
+        parts.append("bytes" if byte >= op else "operations")
+    nms["bound_by"] = max(set(parts), key=parts.count)
+    print(f"    nms at the new shapes: per COCO step 2 launches, per sd=rpn "
+          f"step {n_rpn}; the sum above: kernel {nms['ms']:.4f} ms, plain "
+          f"{nms['plain_ms']:.3f}, bound {nms['bound_ms']:.6f} ms; the "
+          f"COCO step {coco_ms:.3f} ms, the sd=rpn step {rpn_ms:.3f} ms "
+          f"({card})")
+    shapes = sorted({(shape, dtype, gamma)
+                     for shape, clip, gamma, dtype, _ in updates if not clip}
+                    | {RPN_COCO_SHAPE},
+                    key=lambda c: (c[0], str(c[1]), c[2]))
+    times = {"nms": nms}
+    for dtype, name in ((torch.float32, "pgd_update"),
+                        (torch.bfloat16, "pgd_update_bf16")):
+        mine = [s for s in shapes if s[1] == dtype]
+        times[name] = pgd_times(card, mine)
+        print(f"    {name} at the detection ascents {[s[0] for s in mine]}: "
+              f"kernel {times[name]['ms']:.5f} ms, plain "
+              f"{times[name]['plain_ms']:.5f}, bound "
+              f"{times[name]['bound_ms']:.5f} ms ({card})")
+    return times
+
+
+def coco_phases(card):
+    """Phases 43-46; returns (launches, error, times) of each kernel on the
+    COCO and sd=rpn paths."""
+    eval_calls, updates = {}, []
+    nms, pgd, pgd16 = det_runs(eval_calls, updates)
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = {"nms": [0.0], "pgd": [], "pgd_bf16": []}
+    rpn_calls = coco_kernels_vs_plain(eval_calls, updates, errs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = time_coco(card, rpn_calls, eval_calls, updates)
+    return {"nms": (nms, max(errs["nms"]), times["nms"]),
+            "pgd_update": (pgd - pgd16, max(errs["pgd"]),
+                           times["pgd_update"]),
+            "pgd_update_bf16": (pgd16, max(errs["pgd_bf16"]),
+                                times["pgd_update_bf16"])}
+
+
 def merge_entry(entries, extra):
     """Add the detection training path's part to a kernel's entry: the
     launches, times and bounds of both paths summed, the larger error."""
@@ -4109,8 +4649,16 @@ def merge_entry(entries, extra):
     entries.append(extra)
 
 
+@contextlib.contextmanager
+def group_time(seconds, name):
+    """The block's wall seconds go to ``seconds[name]``."""
+    t0 = time.time()
+    yield
+    seconds[name] = round(time.time() - t0, 1)
+
+
 GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain", "scan", "variants",
-          "bf16", "detbf16", "clsbf16", "eval")
+          "bf16", "detbf16", "clsbf16", "eval", "mobilenet", "coco")
 
 
 def main(argv=None):
@@ -4149,52 +4697,74 @@ def main(argv=None):
           f" (one nvcc each, together {time.time() - t0:.1f} s) into "
           f"{os.path.relpath(kbuild.BUILD_DIR, ROOT)}")
 
-    entries, seg_updates, variant = [], [], None
+    entries, seg_updates, variant, seconds = [], [], None, {}
     if only in (None, "det", "nms"):
-        entries.append(detection_phases(card, only == "nms"))
-        gc.collect()
-        torch.cuda.empty_cache()
+        with group_time(seconds, "det"):
+            entries.append(detection_phases(card, only == "nms"))
+            gc.collect()
+            torch.cuda.empty_cache()
     if only in (None, "seg", "ce"):
-        seg_entries, seg_updates = segmentation_phases(card, only == "ce")
-        entries += seg_entries
-        gc.collect()
-        torch.cuda.empty_cache()
+        with group_time(seconds, "seg"):
+            seg_entries, seg_updates = segmentation_phases(card, only == "ce")
+            entries += seg_entries
+            gc.collect()
+            torch.cuda.empty_cache()
     if only in (None, "bf16"):
-        entries += bf16_phases(card)
-        gc.collect()
-        torch.cuda.empty_cache()
+        with group_time(seconds, "bf16"):
+            entries += bf16_phases(card)
+            gc.collect()
+            torch.cuda.empty_cache()
     if only in (None, "variants"):
-        variant = variant_phases(card, own_pgd_check=only == "variants")
-        gc.collect()
-        torch.cuda.empty_cache()
+        with group_time(seconds, "variants"):
+            variant = variant_phases(card, own_pgd_check=only == "variants")
+            gc.collect()
+            torch.cuda.empty_cache()
     if only in (None, "cls"):
-        entries.append(classification_phases(
-            card, seg_updates + (variant["updates"] if variant else [])))
-        gc.collect()
-        torch.cuda.empty_cache()
+        with group_time(seconds, "cls"):
+            entries.append(classification_phases(
+                card, seg_updates + (variant["updates"] if variant else [])))
+            gc.collect()
+            torch.cuda.empty_cache()
     if only in (None, "dettrain"):
-        for extra in detection_training_phases(card):
-            merge_entry(entries, extra)
-        gc.collect()
-        torch.cuda.empty_cache()
+        with group_time(seconds, "dettrain"):
+            for extra in detection_training_phases(card):
+                merge_entry(entries, extra)
+            gc.collect()
+            torch.cuda.empty_cache()
     if only in (None, "scan"):
-        merge_entry(entries, epoch_scan_phases(card))
-        gc.collect()
-        torch.cuda.empty_cache()
+        with group_time(seconds, "scan"):
+            merge_entry(entries, epoch_scan_phases(card))
+            gc.collect()
+            torch.cuda.empty_cache()
     if variant:
         merge_variant_launches(entries, variant)
     if only in (None, "detbf16"):
-        merge_launches(entries, det_bf16_phases(card))
-        gc.collect()
-        torch.cuda.empty_cache()
+        with group_time(seconds, "detbf16"):
+            merge_launches(entries, det_bf16_phases(card))
+            gc.collect()
+            torch.cuda.empty_cache()
     if only in (None, "clsbf16"):
-        merge_launches(entries, cls_bf16_phases(card))
-        gc.collect()
-        torch.cuda.empty_cache()
+        with group_time(seconds, "clsbf16"):
+            merge_launches(entries, cls_bf16_phases(card))
+            gc.collect()
+            torch.cuda.empty_cache()
     if only in (None, "eval"):
-        merge_launches(entries, eval_phases(card))
+        with group_time(seconds, "eval"):
+            merge_launches(entries, eval_phases(card))
+            gc.collect()
+            torch.cuda.empty_cache()
+    if only in (None, "mobilenet"):
+        with group_time(seconds, "mobilenet"):
+            merge_launches(entries, mobilenet_phases(
+                card, ce_times=only == "mobilenet"))
+            gc.collect()
+            torch.cuda.empty_cache()
+    if only in (None, "coco"):
+        with group_time(seconds, "coco"):
+            merge_launches(entries, coco_phases(card))
 
-    print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
+    print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "
+          f"(seconds by group: {seconds})")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -609,3 +609,49 @@ def test_nms_kernel_on_nan_boxes(card, name):
     want = tnms.nms_sorted_mask_plain(b, v, thr)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# This slice's shapes: the MobileNetV2 SE tap (tap 2, stride 8) at the
+# Cityscapes (crop 768) and VOC (crop 513) recipes' batch of 4, f32 and bf16;
+# COCO's bf16 SE tap at 800x1344 and the RPN trunk feature at COCO's and
+# VOC's canvases (stride 16), batch 8.
+SLICE_PGD_SHAPES = [((4, 32, 96, 96), torch.float32),
+                    ((4, 32, 96, 96), torch.bfloat16),
+                    ((4, 32, 65, 65), torch.bfloat16),
+                    ((8, 512, 100, 168), torch.bfloat16),
+                    ((8, 512, 50, 84), torch.bfloat16),
+                    ((8, 512, 38, 63), torch.float32),
+                    ((8, 512, 38, 63), torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [False, True], ids=["step", "clip"])
+@pytest.mark.parametrize("shape,dtype", SLICE_PGD_SHAPES)
+def test_pgd_step_kernel_at_the_mobilenet_and_coco_shapes(card, shape, dtype,
+                                                          clip):
+    n = int(np.prod(shape))
+    x, g, c = (t.reshape(shape).to(dtype)
+               for t in _pgd_inputs(card, n, len(shape) + n % 7))
+    kw = dict(gamma=0.1 / 255, eps=2.0 / 255 if clip else None, clip=clip)
+    got = kpgd.pgd_update(x, g, c if clip else None, **kw)
+    want = tpgd.pgd_update_plain(x, g, c if clip else None, **kw)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert got.dtype == dtype
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,n,thr", [(91, 300, 0.3), (8, 12000, 0.7)],
+                         ids=["coco_per_class", "coco_proposals"])
+def test_nms_kernel_at_the_coco_shapes(card, groups, n, thr):
+    """COCO's eval per-class NMS (91 classes x 300 detections) and its
+    training proposal NMS (12000 of 50400 anchors per image, batch 8)."""
+    b = torch.from_numpy(np.stack([_sorted_boxes(n, 100 + i, i % 2 == 0)
+                                   for i in range(groups)])).to(card)
+    v = torch.rand(b.shape[:2], generator=torch.Generator().manual_seed(1)
+                   ).to(card) < 0.95
+    got = knms.nms_sorted_mask(b, v, thr)
+    want = tnms.nms_sorted_mask_plain(b, v, thr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

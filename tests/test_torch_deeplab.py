@@ -260,7 +260,7 @@ def test_dropout_is_active_in_train_mode_only():
 def test_build_model_names():
     m = build_model("deeplabv3_resnet50", 19, 8)
     assert m.backbone.layer4[0].conv2.dilation == (2, 2)
-    with pytest.raises(NotImplementedError):
-        build_model("deeplabv3plus_mobilenet", 19)
+    m = build_model("deeplabv3plus_mobilenet", 19, 8)
+    assert m.backbone.b6_0.depthwise.dilation == (4, 4)
     with pytest.raises(ValueError):
         build_model("nope", 19)

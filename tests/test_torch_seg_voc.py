@@ -111,7 +111,7 @@ def test_crop_val_resizes_are_opencvs(size, out):
 
 def test_a_voc_tree_on_disk_is_not_read(tmp_path):
     os.makedirs(tmp_path / "VOC2012" / "SegmentationClass")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         seg_data.voc_seg_loaders(str(tmp_path), 2, 32)
 
 

@@ -252,20 +252,24 @@ def test_metrics_match_afan(case):
 
 
 def test_cli_on_cpu_with_checkpoint_and_resume(tmp_path, monkeypatch):
+    """Two iterations, a validation and a checkpoint, then a resume to four
+    with the optimizer and schedule restored; on the cheapest model, as
+    afan's own CLI tests and ``recipes/_common.sh``'s SMOKE_TINY run it."""
     monkeypatch.chdir(tmp_path)
     argv = ["--device", "cpu", "--dataset", "synthetic", "--crop_size", "32",
             "--batch_size", "2", "--lr", "0.1", "--total_itrs", "10",
-            "--val_interval", "2", "--print_interval", "1", "--mix_sd"]
+            "--val_interval", "2", "--print_interval", "1", "--mix_sd",
+            "--model", "deeplabv3plus_mobilenet"]
     score = train_segment.main(argv + ["--limit_itrs", "2"])
     assert np.isfinite(score)
     exp = os.listdir("checkpoints")[0]
     latest = os.path.join("checkpoints", exp,
-                          "latest_deeplabv3plus_resnet50_synthetic.pt")
+                          "latest_deeplabv3plus_mobilenet_synthetic.pt")
     saved = load_training_state(latest)
     assert saved["cur_itrs"] == 2 and saved["scheduler_state"][
         "last_epoch"] == 2
     # --dataset synthetic is afan's synthetic VOC: 21 classes
-    fresh = build_model("deeplabv3plus_resnet50", 21)
+    fresh = build_model("deeplabv3plus_mobilenet", 21)
     assert overlap_restore(fresh, load_checkpoint(latest)) == 1.0
     assert all(torch.equal(v, saved["model_state"][k])
                for k, v in fresh.state_dict().items())

@@ -285,18 +285,19 @@ def test_step_lr_policy_matches_afan(tmp_path, monkeypatch):
 def test_cli_runs_a_variant_on_cpu(tmp_path, monkeypatch):
     """``--variant multi --mix_all --loss_settings 2`` with the step lr
     policy and grad-mode PGD: two iterations, a validation and a
-    checkpoint."""
+    checkpoint, on the cheapest model (SMOKE_TINY's)."""
     monkeypatch.chdir(tmp_path)
     score = train_segment.main(
         ["--device", "cpu", "--dataset", "synthetic", "--crop_size", "32",
          "--batch_size", "2", "--lr", "0.1", "--limit_itrs", "2",
          "--val_interval", "2", "--print_interval", "1", "--variant",
          "multi", "--mix_all", "--loss_settings", "2", "--lr_policy",
-         "step", "--step_size", "1", "--pgd_step_mode", "grad"])
+         "step", "--step_size", "1", "--pgd_step_mode", "grad",
+         "--model", "deeplabv3plus_mobilenet"])
     assert np.isfinite(score)
     exp = os.listdir("checkpoints")[0]
     saved = load_training_state(os.path.join(
-        "checkpoints", exp, "latest_deeplabv3plus_resnet50_synthetic.pt"))
+        "checkpoints", exp, "latest_deeplabv3plus_mobilenet_synthetic.pt"))
     assert saved["cur_itrs"] == 2
     assert saved["optimizer_state"]["param_groups"][1]["lr"] == \
         pytest.approx(1e-3)
