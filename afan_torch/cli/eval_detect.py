@@ -10,8 +10,10 @@ and ``input_surface`` (the ALP input-space loss surface, pickled).
 `eval_rob.py` calls an ``untarget_PGD`` that is commented out.
 
 The parser is ``afan``'s, flag aliases included, plus ``--device``. The
-data are ``afan``'s synthetic VOC test images at batch 1 (reading VOC from
-disk is not ported yet); the weights start from a seeded random init, then
+data are the test split of ``--dataset`` under ``--data_dir`` at batch 1
+(VOC 2007's test with its difficult objects neutral in the VOC07 mAP, or
+COCO's val2017), or ``afan``'s synthetic stand-in where the dataset is
+absent; the weights start from a seeded random init, then
 ``--checkpoint`` (a port checkpoint) and ``--torch_checkpoint`` (a
 reference ``.pth``; the port keeps the reference's key names) are
 overlap-restored. Every attack step runs the PGD-update kernel at the

@@ -13,10 +13,13 @@ palette or Cityscapes' train-id colours), written by
 :mod:`afan_torch.utils.png`.
 
 The flags, aliases and defaults are ``afan``'s, plus ``--device``. The data
-are ``afan``'s synthetic VOC or Cityscapes stand-ins (reading the datasets
-from disk is not ported yet); the weights start from a seeded random init,
-then ``--ckpt`` (a port checkpoint) and ``--torch_ckpt`` (a reference
-``.pth``: the port keeps the reference's key names) are overlap-restored.
+are the VOC or Cityscapes validation split under ``--data_root``, each image
+on the dataset's eval canvas (VOC 512x512, Cityscapes 1024x2048; with
+``--crop_val``, resized and centre-cropped to the crop), or ``afan``'s
+synthetic stand-ins where the dataset is absent; the weights start from a
+seeded random init, then ``--ckpt`` (a port checkpoint) and ``--torch_ckpt``
+(a reference ``.pth``: the port keeps the reference's key names) are
+overlap-restored.
 
 ``--fused_ce`` picks the attack loss: ``auto`` and ``on`` end each forward
 in :func:`afan_torch.ops.resize_ce.fused_resize_nll_sums`, which on the

@@ -30,10 +30,15 @@ stay float32. ``recipes/detect_coco_final_setting.sh`` N (1-6) runs as
 written too: ``-s coco2017`` at 800x1333, four anchor sizes, 92 classes.
 ``--pertub_idx_sd rpn`` puts the SD attack on the RPN trunk feature.
 
-Data is ``afan``'s synthetic stand-in of each dataset (reading VOC or COCO
-images from disk is not ported yet); weights start from a seeded random
-init, the torso from ``--pretrained_backbone`` where given. The loop writes
-``model-{step}.pt`` (model, optimizer, schedule and step) every
+Data is read from ``--data_dir``: VOC 2007 (``VOC2007/`` or
+``VOCdevkit/VOC2007/``; ``-s voc20072012`` adds VOC 2012's trainval,
+``voc2007-cat-dog`` keeps the cats and dogs) or COCO 2017
+(``COCO/annotations/instances_{train,val}2017.json`` with
+``COCO/{train,val}2017/``), the images decoded by
+:mod:`afan_torch.utils.imread` in the prefetch thread; where the dataset is
+absent, ``afan``'s synthetic stand-in of it. Weights start from a seeded
+random init, the torso from ``--pretrained_backbone`` where given. The loop
+writes ``model-{step}.pt`` (model, optimizer, schedule and step) every
 ``--num_steps_to_snapshot`` steps and at the end, and ends with the test
 split's mAP: VOC's protocol, or COCO's (AP@[.5:.95]) for the COCO names.
 """

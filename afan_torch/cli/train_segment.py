@@ -34,11 +34,16 @@ a torchvision ResNet ``.pth`` into the backbone, logging ``afan``'s two
 matched fractions (a MobileNetV2 backbone matches none of its keys, as in
 ``afan``).
 
-Data is ``afan``'s deterministic synthetic VOC or Cityscapes stand-in
-(``--dataset synthetic`` is VOC's, as in ``afan``; reading the datasets from
-disk is not ported yet); weights start from a seeded random init. The
-loop validates with mIoU every ``--val_interval`` iterations and at the
-end, and writes ``latest_*.pt`` / ``best_*.pt`` under ``checkpoints/<exp>/``;
+Data is read from ``--data_root``: VOC 2012 segmentation (``VOC2012/``,
+``VOCdevkit/VOC2012/`` or the root itself, with ``SegmentationClass/``;
+SBD's ``train_aug.txt`` and ``SegmentationClassAug/`` when there) or
+Cityscapes (``leftImg8bit/`` and ``gtFine/``), decoded by
+:mod:`afan_torch.utils.imread` in the loop, as ``afan`` reads them (no
+prefetch thread). Without the dataset there, the data is ``afan``'s
+deterministic synthetic stand-in (``--dataset synthetic`` is VOC's, as in
+``afan``). Weights start from a seeded random init. The loop validates
+with mIoU every ``--val_interval`` iterations and at the end, and writes
+``latest_*.pt`` / ``best_*.pt`` under ``checkpoints/<exp>/``;
 ``--enable_vis`` adds input | target | prediction PNG panels of the first
 ``--vis_num_samples`` validation images under ``runs/<exp>/vis/``.
 ``--test_only CKPT`` restores a checkpoint, validates, prints the metrics

@@ -1,0 +1,883 @@
+// Host image decoding for the port's data pipeline: PNG unfiltering and
+// baseline / extended-sequential Huffman JPEG, giving the bytes that Pillow
+// gives (`Image.open(p).convert("RGB")`, Pillow's JPEG codec being
+// libjpeg-turbo with its default settings).
+//
+// The JPEG path follows libjpeg-turbo's choices one by one:
+//   - the integer "islow" inverse DCT (jidctint.c: 13-bit constants, 2 pass
+//     bits, the post-IDCT range-limit table, indexed modulo 1024);
+//   - "fancy" upsampling (jdsample.c: the triangle filter, h2v1 with biases
+//     1 and 2, h2v2 with biases 8 and 7, the chroma's first and last real
+//     row and column repeated past the image); a chroma plane of at most two
+//     columns is replicated instead, as libjpeg-turbo does;
+//   - the table-driven YCbCr -> RGB conversion (jdcolor.c, 16 scale bits);
+//   - the colour space: JFIF is YCbCr, Adobe APP14 with transform 0 is RGB,
+//     1 is YCbCr, and without either, component ids 'R' 'G' 'B' mean RGB.
+// No EXIF orientation is applied (Image.open applies none).
+//
+// What it does not decode it refuses with a message: progressive,
+// arithmetic, lossless and hierarchical JPEG, 12-bit samples, 4 components,
+// sampling other than luma 1x1 / 2x1 / 2x2 over chroma 1x1, a DNL marker,
+// corrupt entropy data and truncated files. The PNG side unfilters 8-bit
+// rows only; the chunk parse and the inflate are the caller's.
+//
+// No global state: every call works on its own buffers, so threads may
+// call it at once.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+struct DecodeError {
+  std::string what;
+};
+
+[[noreturn]] void fail(const std::string& what) { throw DecodeError{what}; }
+
+int report(const DecodeError& e, char* err, int32_t err_len) {
+  if (err && err_len > 0) {
+    std::snprintf(err, static_cast<size_t>(err_len), "%s", e.what.c_str());
+  }
+  return -1;
+}
+
+// ---------------------------------------------------------------- PNG
+
+inline int paeth(int a, int b, int c) {
+  int p = a + b - c;
+  int pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+  if (pa <= pb && pa <= pc) return a;
+  if (pb <= pc) return b;
+  return c;
+}
+
+void png_unfilter(const uint8_t* raw, int64_t raw_len, int32_t width,
+                  int32_t height, int32_t bpp, uint8_t* out) {
+  const int64_t stride = static_cast<int64_t>(width) * bpp;
+  if (raw_len < (stride + 1) * height) {
+    fail("truncated image data: " + std::to_string(raw_len) +
+         " bytes inflated, " + std::to_string((stride + 1) * height) +
+         " needed");
+  }
+  for (int32_t y = 0; y < height; ++y) {
+    const uint8_t* src = raw + y * (stride + 1);
+    const int filter = src[0];
+    ++src;
+    uint8_t* dst = out + y * stride;
+    const uint8_t* up = y > 0 ? dst - stride : nullptr;
+    switch (filter) {
+      case 0:
+        std::memcpy(dst, src, static_cast<size_t>(stride));
+        break;
+      case 1:
+        for (int64_t i = 0; i < stride; ++i) {
+          int a = i >= bpp ? dst[i - bpp] : 0;
+          dst[i] = static_cast<uint8_t>(src[i] + a);
+        }
+        break;
+      case 2:
+        for (int64_t i = 0; i < stride; ++i) {
+          dst[i] = static_cast<uint8_t>(src[i] + (up ? up[i] : 0));
+        }
+        break;
+      case 3:
+        for (int64_t i = 0; i < stride; ++i) {
+          int a = i >= bpp ? dst[i - bpp] : 0;
+          int b = up ? up[i] : 0;
+          dst[i] = static_cast<uint8_t>(src[i] + ((a + b) >> 1));
+        }
+        break;
+      case 4:
+        for (int64_t i = 0; i < stride; ++i) {
+          int a = i >= bpp ? dst[i - bpp] : 0;
+          int b = up ? up[i] : 0;
+          int c = (up && i >= bpp) ? up[i - bpp] : 0;
+          dst[i] = static_cast<uint8_t>(src[i] + paeth(a, b, c));
+        }
+        break;
+      default:
+        fail("unknown PNG filter type " + std::to_string(filter) +
+             " on row " + std::to_string(y));
+    }
+  }
+}
+
+// ---------------------------------------------------------------- JPEG
+
+// Zigzag position -> natural position, with 16 extra entries so that a run
+// past the block's end writes coefficient 63, as jpeg_natural_order does.
+const int kNatural[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+struct Huffman {
+  bool defined = false;
+  // jdhuff.c's derived table: maxcode per length, offsets into vals.
+  int32_t maxcode[18];
+  int32_t valoffset[18];
+  uint8_t vals[256];
+  // 9-bit lookahead: (length << 8) | value, 0 when the code is longer.
+  uint16_t look[512];
+};
+
+void build_huffman(Huffman& h, const uint8_t bits[17], const uint8_t* vals,
+                   int nvals) {
+  int huffsize[257];
+  uint32_t huffcode[257];
+  int p = 0;
+  for (int l = 1; l <= 16; ++l) {
+    for (int i = 0; i < bits[l]; ++i) huffsize[p++] = l;
+  }
+  huffsize[p] = 0;
+  uint32_t code = 0;
+  int si = huffsize[0];
+  p = 0;
+  while (huffsize[p]) {
+    while (huffsize[p] == si) {
+      huffcode[p++] = code;
+      ++code;
+    }
+    if (code >= (1u << si)) fail("bad Huffman table");
+    code <<= 1;
+    ++si;
+  }
+  p = 0;
+  for (int l = 1; l <= 16; ++l) {
+    if (bits[l]) {
+      h.valoffset[l] = p - static_cast<int32_t>(huffcode[p]);
+      p += bits[l];
+      h.maxcode[l] = static_cast<int32_t>(huffcode[p - 1]);
+    } else {
+      h.maxcode[l] = -1;
+    }
+  }
+  h.valoffset[17] = 0;
+  h.maxcode[17] = 0x7FFFFFFF;
+  std::memcpy(h.vals, vals, static_cast<size_t>(nvals));
+  std::memset(h.look, 0, sizeof(h.look));
+  p = 0;
+  for (int l = 1; l <= 9; ++l) {
+    for (int i = 0; i < bits[l]; ++i, ++p) {
+      uint32_t lookbits = huffcode[p] << (9 - l);
+      for (int ctr = 1 << (9 - l); ctr > 0; --ctr) {
+        h.look[lookbits++] = static_cast<uint16_t>((l << 8) | vals[p]);
+      }
+    }
+  }
+  h.defined = true;
+}
+
+struct BitReader {
+  const uint8_t* data;
+  int64_t len;
+  int64_t pos;
+  uint64_t acc = 0;
+  int bits = 0;   // valid bits in acc (real and inserted zeros)
+  int fake = 0;   // of those, zero bits inserted past a marker or the end
+
+  void fill() {
+    while (bits <= 56) {
+      uint8_t byte = 0;
+      if (pos >= len) {
+        fake += 8;
+      } else if (data[pos] == 0xFF) {
+        int64_t q = pos + 1;
+        while (q < len && data[q] == 0xFF) ++q;   // fill bytes
+        if (q < len && data[q] == 0x00) {
+          byte = 0xFF;
+          pos = q + 1;
+        } else {
+          pos = q - 1;   // stay on the marker (or the end)
+          if (q >= len) pos = len;
+          fake += 8;
+        }
+      } else {
+        byte = data[pos++];
+      }
+      acc |= static_cast<uint64_t>(byte) << (56 - bits);
+      bits += 8;
+    }
+  }
+
+  inline uint32_t peek(int n) {
+    if (bits < n) fill();
+    return static_cast<uint32_t>(acc >> (64 - n));
+  }
+
+  inline void skip(int n) {
+    acc <<= n;
+    bits -= n;
+    if (bits < fake) fail("truncated or corrupt entropy-coded data");
+  }
+
+  inline int get(int n) {
+    if (n == 0) return 0;
+    uint32_t v = peek(n);
+    skip(n);
+    return static_cast<int>(v);
+  }
+
+  int decode(const Huffman& h) {
+    uint32_t look = peek(16);
+    uint16_t e = h.look[look >> 7];
+    if (e) {
+      skip(e >> 8);
+      return e & 0xFF;
+    }
+    int l = 10;
+    int32_t code = static_cast<int32_t>(look >> 6);
+    while (l <= 16 && code > h.maxcode[l]) {
+      ++l;
+      code = static_cast<int32_t>(look >> (16 - l));
+    }
+    if (l > 16) fail("corrupt JPEG data: bad Huffman code");
+    skip(l);
+    return h.vals[(code + h.valoffset[l]) & 0xFF];
+  }
+
+  // Discard what is buffered and move to the next marker; returns it.
+  int next_marker() {
+    acc = 0;
+    bits = 0;
+    fake = 0;
+    while (pos < len && data[pos] != 0xFF) ++pos;
+    while (pos < len && data[pos] == 0xFF) ++pos;
+    if (pos >= len) fail("truncated file: no marker after the scan data");
+    return data[pos++];
+  }
+};
+
+inline int extend(int v, int s) {
+  return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
+}
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int td = 0, ta = 0;
+  int dc_pred = 0;
+  int plane_w = 0, plane_h = 0;   // samples, MCU-padded
+  int down_w = 0, down_h = 0;     // samples that belong to the image
+  int blocks_w = 0, blocks_h = 0; // blocks of a non-interleaved scan
+  bool decoded = false;
+  int16_t quant[64];              // natural order
+  std::vector<uint8_t> plane;
+};
+
+// jidctint.c jpeg_idct_islow
+constexpr int CONST_BITS = 13;
+constexpr int PASS1_BITS = 2;
+constexpr int64_t FIX_0_298631336 = 2446;
+constexpr int64_t FIX_0_390180644 = 3196;
+constexpr int64_t FIX_0_541196100 = 4433;
+constexpr int64_t FIX_0_765366865 = 6270;
+constexpr int64_t FIX_0_899976223 = 7373;
+constexpr int64_t FIX_1_175875602 = 9633;
+constexpr int64_t FIX_1_501321110 = 12299;
+constexpr int64_t FIX_1_847759065 = 15137;
+constexpr int64_t FIX_1_961570560 = 16069;
+constexpr int64_t FIX_2_053119869 = 16819;
+constexpr int64_t FIX_2_562915447 = 20995;
+constexpr int64_t FIX_3_072711026 = 25172;
+
+inline int64_t descale(int64_t x, int n) {
+  return (x + (int64_t(1) << (n - 1))) >> n;
+}
+
+// libjpeg's post-IDCT range limit: the index is taken modulo 1024, values
+// -512..511 around the centre; below -128 gives 0, above 127 gives 255.
+inline uint8_t range_limit(int64_t x) {
+  int v = static_cast<int>(x & 1023);
+  if (v >= 512) v -= 1024;
+  v += 128;
+  return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+void idct_islow(const int16_t* coef, const int16_t* quant, uint8_t* out,
+                int stride) {
+  int64_t ws[64];
+  for (int c = 0; c < 8; ++c) {
+    const int16_t* in = coef + c;
+    const int16_t* q = quant + c;
+    int64_t* w = ws + c;
+    if (in[8] == 0 && in[16] == 0 && in[24] == 0 && in[32] == 0 &&
+        in[40] == 0 && in[48] == 0 && in[56] == 0) {
+      int64_t dc = static_cast<int64_t>(int(in[0]) * int(q[0])) << PASS1_BITS;
+      for (int r = 0; r < 8; ++r) w[8 * r] = static_cast<int>(dc);
+      continue;
+    }
+    int64_t z2 = int(in[16]) * int(q[16]);
+    int64_t z3 = int(in[48]) * int(q[48]);
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    z2 = int(in[0]) * int(q[0]);
+    z3 = int(in[32]) * int(q[32]);
+    int64_t tmp0 = (z2 + z3) << CONST_BITS;
+    int64_t tmp1 = (z2 - z3) << CONST_BITS;
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = int(in[56]) * int(q[56]);
+    tmp1 = int(in[40]) * int(q[40]);
+    tmp2 = int(in[24]) * int(q[24]);
+    tmp3 = int(in[8]) * int(q[8]);
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int n = CONST_BITS - PASS1_BITS;
+    // the work array is int in libjpeg
+    w[0] = static_cast<int>(descale(tmp10 + tmp3, n));
+    w[56] = static_cast<int>(descale(tmp10 - tmp3, n));
+    w[8] = static_cast<int>(descale(tmp11 + tmp2, n));
+    w[48] = static_cast<int>(descale(tmp11 - tmp2, n));
+    w[16] = static_cast<int>(descale(tmp12 + tmp1, n));
+    w[40] = static_cast<int>(descale(tmp12 - tmp1, n));
+    w[24] = static_cast<int>(descale(tmp13 + tmp0, n));
+    w[32] = static_cast<int>(descale(tmp13 - tmp0, n));
+  }
+  const int n = CONST_BITS + PASS1_BITS + 3;
+  for (int r = 0; r < 8; ++r) {
+    const int64_t* w = ws + 8 * r;
+    uint8_t* o = out + r * stride;
+    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 &&
+        w[6] == 0 && w[7] == 0) {
+      uint8_t dc = range_limit(descale(w[0], PASS1_BITS + 3));
+      for (int c = 0; c < 8; ++c) o[c] = dc;
+      continue;
+    }
+    int64_t z2 = w[2], z3 = w[6];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    int64_t tmp0 = (w[0] + w[4]) << CONST_BITS;
+    int64_t tmp1 = (w[0] - w[4]) << CONST_BITS;
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = w[7];
+    tmp1 = w[5];
+    tmp2 = w[3];
+    tmp3 = w[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    o[0] = range_limit(descale(tmp10 + tmp3, n));
+    o[7] = range_limit(descale(tmp10 - tmp3, n));
+    o[1] = range_limit(descale(tmp11 + tmp2, n));
+    o[6] = range_limit(descale(tmp11 - tmp2, n));
+    o[2] = range_limit(descale(tmp12 + tmp1, n));
+    o[5] = range_limit(descale(tmp12 - tmp1, n));
+    o[3] = range_limit(descale(tmp13 + tmp0, n));
+    o[4] = range_limit(descale(tmp13 - tmp0, n));
+  }
+}
+
+struct Jpeg {
+  const uint8_t* data;
+  int64_t len;
+  int64_t pos = 0;
+  int width = 0, height = 0, ncomp = 0;
+  int hmax = 1, vmax = 1;
+  bool have_frame = false;
+  bool saw_jfif = false, saw_adobe = false;
+  int adobe_transform = -1;
+  int restart_interval = 0;
+  bool have_quant[4] = {false, false, false, false};
+  uint16_t quant[4][64];   // natural order
+  Huffman dc[4], ac[4];
+  Component comp[3];
+
+  int u8() {
+    if (pos >= len) fail("truncated file");
+    return data[pos++];
+  }
+  int u16() {
+    int a = u8();
+    return (a << 8) | u8();
+  }
+
+  void read_dqt(int64_t end) {
+    while (pos < end) {
+      int pq_tq = u8();
+      int pq = pq_tq >> 4, tq = pq_tq & 15;
+      if (tq > 3) fail("bad quantization table id " + std::to_string(tq));
+      for (int k = 0; k < 64; ++k) {
+        quant[tq][kNatural[k]] = static_cast<uint16_t>(pq ? u16() : u8());
+      }
+      have_quant[tq] = true;
+    }
+  }
+
+  void read_dht(int64_t end) {
+    while (pos < end) {
+      int tc_th = u8();
+      int tc = tc_th >> 4, th = tc_th & 15;
+      if (tc > 1 || th > 3) fail("bad Huffman table id");
+      uint8_t bits[17] = {0};
+      int count = 0;
+      for (int l = 1; l <= 16; ++l) {
+        bits[l] = static_cast<uint8_t>(u8());
+        count += bits[l];
+      }
+      if (count > 256) fail("bad Huffman table");
+      uint8_t vals[256];
+      for (int i = 0; i < count; ++i) vals[i] = static_cast<uint8_t>(u8());
+      build_huffman(tc ? ac[th] : dc[th], bits, vals, count);
+    }
+  }
+
+  void read_sof(int marker) {
+    if (have_frame) fail("more than one frame");
+    (void)marker;
+    int precision = u8();
+    if (precision != 8) {
+      fail(std::to_string(precision) + "-bit samples are not decoded");
+    }
+    height = u16();
+    width = u16();
+    ncomp = u8();
+    if (height == 0) fail("a height of 0 (DNL marker) is not decoded");
+    if (width == 0) fail("a width of 0");
+    if (ncomp == 4) fail("a 4-component (CMYK or YCCK) JPEG is not decoded");
+    if (ncomp != 1 && ncomp != 3) {
+      fail(std::to_string(ncomp) + " components are not decoded");
+    }
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      c.id = u8();
+      int hv = u8();
+      c.h = hv >> 4;
+      c.v = hv & 15;
+      c.tq = u8();
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) {
+        fail("bad component sampling or table");
+      }
+      hmax = std::max(hmax, c.h);
+      vmax = std::max(vmax, c.v);
+    }
+    if (ncomp == 3) {
+      for (int i = 0; i < 3; ++i) {
+        int rh = hmax / comp[i].h, rv = vmax / comp[i].v;
+        bool exact = rh * comp[i].h == hmax && rv * comp[i].v == vmax;
+        bool ok = exact && ((rh == 1 && rv == 1) || (rh == 2 && rv == 1) ||
+                            (rh == 2 && rv == 2));
+        if (i == 0 && (rh != 1 || rv != 1)) ok = false;
+        if (!ok) {
+          fail("sampling " + std::to_string(comp[0].h) + "x" +
+               std::to_string(comp[0].v) + "," + std::to_string(comp[1].h) +
+               "x" + std::to_string(comp[1].v) + "," +
+               std::to_string(comp[2].h) + "x" + std::to_string(comp[2].v) +
+               " is not decoded");
+        }
+      }
+    }
+    const int mcux = (width + 8 * hmax - 1) / (8 * hmax);
+    const int mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      c.down_w = (width * c.h + hmax - 1) / hmax;
+      c.down_h = (height * c.v + vmax - 1) / vmax;
+      c.blocks_w = (c.down_w + 7) / 8;
+      c.blocks_h = (c.down_h + 7) / 8;
+      c.plane_w = std::max(mcux * c.h, c.blocks_w) * 8;
+      c.plane_h = std::max(mcuy * c.v, c.blocks_h) * 8;
+    }
+    have_frame = true;
+  }
+
+  void decode_block(BitReader& br, Component& c, int16_t* coef, int bx,
+                    int by) {
+    std::memset(coef, 0, 64 * sizeof(int16_t));
+    const Huffman& hd = dc[c.td];
+    const Huffman& ha = ac[c.ta];
+    int s = br.decode(hd);
+    if (s > 15) fail("corrupt JPEG data: DC category " + std::to_string(s));
+    int diff = s ? extend(br.get(s), s) : 0;
+    c.dc_pred += diff;
+    coef[0] = static_cast<int16_t>(c.dc_pred);
+    for (int k = 1; k < 64; ++k) {
+      int rs = br.decode(ha);
+      int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        k += r;
+        coef[kNatural[k]] = static_cast<int16_t>(extend(br.get(s), s));
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+    idct_islow(coef, c.quant,
+               c.plane.data() + static_cast<size_t>(by) * 8 * c.plane_w +
+                   bx * 8,
+               c.plane_w);
+  }
+
+  void read_sos() {
+    if (!have_frame) fail("scan before frame header");
+    int ns = u8();
+    if (ns < 1 || ns > ncomp) fail("bad scan header");
+    Component* sc[3];
+    for (int i = 0; i < ns; ++i) {
+      int cid = u8();
+      int t = u8();
+      Component* found = nullptr;
+      for (int j = 0; j < ncomp; ++j) {
+        if (comp[j].id == cid) found = &comp[j];
+      }
+      if (!found) fail("scan names an unknown component");
+      if (found->decoded) fail("a component is coded in two scans");
+      found->td = t >> 4;
+      found->ta = t & 15;
+      if (found->td > 3 || found->ta > 3 || !dc[found->td].defined ||
+          !ac[found->ta].defined) {
+        fail("scan uses an undefined Huffman table");
+      }
+      if (!have_quant[found->tq]) fail("component uses an undefined "
+                                       "quantization table");
+      for (int k = 0; k < 64; ++k) {
+        found->quant[k] = static_cast<int16_t>(quant[found->tq][k]);
+      }
+      found->dc_pred = 0;
+      if (found->plane.empty()) {
+        found->plane.assign(
+            static_cast<size_t>(found->plane_w) * found->plane_h, 0);
+      }
+      sc[i] = found;
+    }
+    int ss = u8(), se = u8(), ahl = u8();
+    if (ss != 0 || se != 63 || ahl != 0) fail("bad sequential scan header");
+
+    BitReader br{data, len, pos};
+    int16_t coef[64];
+    int mcus_w, mcus_h;
+    if (ns == 1) {
+      mcus_w = sc[0]->blocks_w;
+      mcus_h = sc[0]->blocks_h;
+    } else {
+      mcus_w = (width + 8 * hmax - 1) / (8 * hmax);
+      mcus_h = (height + 8 * vmax - 1) / (8 * vmax);
+    }
+    const int64_t total = static_cast<int64_t>(mcus_w) * mcus_h;
+    int next_rst = 0;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval && m > 0 && m % restart_interval == 0) {
+        int marker = br.next_marker();
+        if (marker != 0xD0 + next_rst) {
+          fail("corrupt JPEG data: expected RST" + std::to_string(next_rst));
+        }
+        next_rst = (next_rst + 1) & 7;
+        for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
+      }
+      const int mx = static_cast<int>(m % mcus_w);
+      const int my = static_cast<int>(m / mcus_w);
+      if (ns == 1) {
+        decode_block(br, *sc[0], coef, mx, my);
+      } else {
+        for (int i = 0; i < ns; ++i) {
+          Component& c = *sc[i];
+          for (int v = 0; v < c.v; ++v) {
+            for (int h = 0; h < c.h; ++h) {
+              decode_block(br, c, coef, mx * c.h + h, my * c.v + v);
+            }
+          }
+        }
+      }
+    }
+    for (int i = 0; i < ns; ++i) sc[i]->decoded = true;
+    // step back onto the marker that ends the scan
+    br.next_marker();
+    pos = br.pos - 2;
+  }
+
+  void parse(bool header_only) {
+    if (len < 2 || data[0] != 0xFF || data[1] != 0xD8) fail("not a JPEG");
+    pos = 2;
+    for (;;) {
+      if (pos >= len) fail("truncated file: no end-of-image marker");
+      if (data[pos] != 0xFF) {
+        // garbage between markers: libjpeg skips it with a warning
+        while (pos < len && data[pos] != 0xFF) ++pos;
+        continue;
+      }
+      while (pos < len && data[pos] == 0xFF) ++pos;
+      int marker = u8();
+      if (marker == 0xD9) break;                     // EOI
+      if (marker >= 0xD0 && marker <= 0xD7) continue; // stray RST
+      if (marker == 0x01) continue;                  // TEM
+      int64_t seg_len = u16();
+      if (seg_len < 2) fail("bad marker length");
+      int64_t end = pos + seg_len - 2;
+      if (end > len) fail("truncated file in a marker segment");
+      switch (marker) {
+        case 0xC0:
+        case 0xC1:
+          read_sof(marker);
+          if (header_only) return;
+          break;
+        case 0xC2:
+          fail("progressive JPEG is not decoded");
+        case 0xC3:
+          fail("lossless JPEG is not decoded");
+        case 0xC5:
+        case 0xC6:
+        case 0xC7:
+          fail("hierarchical JPEG is not decoded");
+        case 0xC9:
+        case 0xCA:
+        case 0xCB:
+        case 0xCD:
+        case 0xCE:
+        case 0xCF:
+        case 0xCC:
+          fail("arithmetic-coded JPEG is not decoded");
+        case 0xC4:
+          read_dht(end);
+          break;
+        case 0xDB:
+          read_dqt(end);
+          break;
+        case 0xDD:
+          restart_interval = u16();
+          break;
+        case 0xDC:
+          fail("a DNL marker is not decoded");
+        case 0xDA:
+          read_sos();
+          continue;   // pos is on the next marker
+        case 0xE0:
+          if (seg_len >= 16 && std::memcmp(data + pos, "JFIF\0", 5) == 0) {
+            saw_jfif = true;
+          }
+          break;
+        case 0xEE:
+          if (seg_len >= 14 && std::memcmp(data + pos, "Adobe", 5) == 0) {
+            saw_adobe = true;
+            adobe_transform = data[pos + 11];
+          }
+          break;
+        default:
+          break;   // APPn, COM and others: skipped
+      }
+      pos = end;
+    }
+    if (!have_frame) fail("no frame header");
+    for (int i = 0; i < ncomp; ++i) {
+      if (!comp[i].decoded) fail("a component has no scan");
+    }
+  }
+
+  bool is_rgb() const {
+    if (saw_jfif) return false;
+    if (saw_adobe) return adobe_transform == 0;
+    return comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
+  }
+
+  // jdsample.c: the chroma plane c upsampled to the image's size.
+  void upsample(const Component& c, uint8_t* out) const {
+    const int rh = hmax / c.h, rv = vmax / c.v;
+    const int dw = c.down_w, dh = c.down_h;
+    const uint8_t* p = c.plane.data();
+    const int pw = c.plane_w;
+    if (rh == 1 && rv == 1) {
+      for (int y = 0; y < height; ++y) {
+        std::memcpy(out + static_cast<size_t>(y) * width, p + y * pw,
+                    static_cast<size_t>(width));
+      }
+      return;
+    }
+    if (dw <= 2) {   // h2v1_upsample / h2v2_upsample: replicate
+      for (int y = 0; y < height; ++y) {
+        const uint8_t* row = p + (y / rv) * pw;
+        for (int x = 0; x < width; ++x) out[y * width + x] = row[x / 2];
+      }
+      return;
+    }
+    std::vector<int> colsum(static_cast<size_t>(dw));
+    for (int y = 0; y < height; ++y) {
+      uint8_t* o = out + static_cast<size_t>(y) * width;
+      if (rv == 1) {   // h2v1_fancy_upsample
+        const uint8_t* in = p + y * pw;
+        for (int x = 0; x < width; ++x) {
+          int i = x >> 1;
+          int near3 = in[i] * 3;
+          if (x & 1) {
+            int nb = in[i + 1 < dw ? i + 1 : dw - 1];
+            o[x] = static_cast<uint8_t>((near3 + nb + 2) >> 2);
+          } else {
+            int nb = in[i > 0 ? i - 1 : 0];
+            o[x] = static_cast<uint8_t>((near3 + nb + 1) >> 2);
+          }
+        }
+      } else {         // h2v2_fancy_upsample
+        int near_row = y >> 1;
+        int far_row = (y & 1) ? near_row + 1 : near_row - 1;
+        if (far_row < 0) far_row = 0;
+        if (far_row > dh - 1) far_row = dh - 1;
+        const uint8_t* in0 = p + near_row * pw;
+        const uint8_t* in1 = p + far_row * pw;
+        for (int i = 0; i < dw; ++i) colsum[i] = in0[i] * 3 + in1[i];
+        for (int x = 0; x < width; ++x) {
+          int i = x >> 1;
+          int this3 = colsum[i] * 3;
+          if (x & 1) {
+            int nb = colsum[i + 1 < dw ? i + 1 : dw - 1];
+            o[x] = static_cast<uint8_t>((this3 + nb + 7) >> 4);
+          } else {
+            int nb = colsum[i > 0 ? i - 1 : 0];
+            o[x] = static_cast<uint8_t>((this3 + nb + 8) >> 4);
+          }
+        }
+      }
+    }
+  }
+
+  void to_rgb(uint8_t* out) const {
+    const size_t n = static_cast<size_t>(width) * height;
+    if (ncomp == 1) {
+      const Component& c = comp[0];
+      for (int y = 0; y < height; ++y) {
+        const uint8_t* row =
+            c.plane.data() + static_cast<size_t>(y) * c.plane_w;
+        uint8_t* o = out + static_cast<size_t>(y) * width * 3;
+        for (int x = 0; x < width; ++x) {
+          o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = row[x];
+        }
+      }
+      return;
+    }
+    std::vector<uint8_t> full(3 * n);
+    for (int i = 0; i < 3; ++i) upsample(comp[i], full.data() + i * n);
+    const uint8_t* y0 = full.data();
+    const uint8_t* c1 = full.data() + n;
+    const uint8_t* c2 = full.data() + 2 * n;
+    if (is_rgb()) {
+      for (size_t k = 0; k < n; ++k) {
+        out[3 * k] = y0[k];
+        out[3 * k + 1] = c1[k];
+        out[3 * k + 2] = c2[k];
+      }
+      return;
+    }
+    // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
+    constexpr int SCALEBITS = 16;
+    constexpr int64_t ONE_HALF = int64_t(1) << (SCALEBITS - 1);
+    auto fix = [](double x) {
+      return static_cast<int64_t>(x * (int64_t(1) << SCALEBITS) + 0.5);
+    };
+    int cr_r[256], cb_b[256];
+    int64_t cr_g[256], cb_g[256];
+    for (int i = 0, x = -128; i < 256; ++i, ++x) {
+      cr_r[i] = static_cast<int>((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
+      cb_b[i] = static_cast<int>((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + ONE_HALF;
+    }
+    auto clamp = [](int v) {
+      return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+    };
+    for (size_t k = 0; k < n; ++k) {
+      int y = y0[k], cb = c1[k], cr = c2[k];
+      out[3 * k] = clamp(y + cr_r[cr]);
+      out[3 * k + 1] =
+          clamp(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
+      out[3 * k + 2] = clamp(y + cb_b[cb]);
+    }
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// Unfilter `height` rows of `width` pixels of `bpp` bytes from the inflated
+// PNG stream `raw` into `out` (height * width * bpp bytes). 0 or -1 (err).
+int afan_png_unfilter(const uint8_t* raw, int64_t raw_len, int32_t width,
+                      int32_t height, int32_t bpp, uint8_t* out, char* err,
+                      int32_t err_len) {
+  try {
+    png_unfilter(raw, raw_len, width, height, bpp, out);
+    return 0;
+  } catch (const DecodeError& e) {
+    return report(e, err, err_len);
+  }
+}
+
+// The frame header: info = {width, height, components}. 0 or -1 (err).
+int afan_jpeg_header(const uint8_t* data, int64_t len, int32_t* info,
+                     char* err, int32_t err_len) {
+  try {
+    Jpeg j;
+    j.data = data;
+    j.len = len;
+    j.parse(true);
+    if (!j.have_frame) fail("no frame header");
+    info[0] = j.width;
+    info[1] = j.height;
+    info[2] = j.ncomp;
+    return 0;
+  } catch (const DecodeError& e) {
+    return report(e, err, err_len);
+  }
+}
+
+// Decode to RGB into `out` (height * width * 3 bytes, out_len checked).
+int afan_jpeg_decode_rgb(const uint8_t* data, int64_t len, uint8_t* out,
+                         int64_t out_len, char* err, int32_t err_len) {
+  try {
+    Jpeg j;
+    j.data = data;
+    j.len = len;
+    j.parse(false);
+    if (out_len != static_cast<int64_t>(j.width) * j.height * 3) {
+      fail("output buffer of the wrong size");
+    }
+    j.to_rgb(out);
+    return 0;
+  } catch (const DecodeError& e) {
+    return report(e, err, err_len);
+  } catch (const std::bad_alloc&) {
+    return report(DecodeError{"out of memory"}, err, err_len);
+  }
+}
+
+}  // extern "C"

@@ -17,8 +17,8 @@ would import ``afan`` and JAX.
 Without ``<data_dir>/COCO/annotations/instances_train2017.json`` the
 loaders fall back to ``afan``'s synthetic samples (64 train, 16 test, at
 most 20 drawn classes) with the dataset's class count, byte for byte as
-``afan``'s. Decoding a COCO image from disk is not ported yet
-(:func:`afan_torch.data.voc_det.load_image` raises).
+``afan``'s. A sample's image is ``<image_dir>/<file_name>``, decoded by
+:func:`afan_torch.data.voc_det.load_image` as PIL decodes it.
 """
 from __future__ import annotations
 

@@ -1,7 +1,13 @@
 """PASCAL VOC detection data — the PyTorch counterpart of
-``afan/data/voc_det.py``: the class names, the resize rule and the resize
-that the detection server uses, and the training loader on ``afan``'s
-synthetic VOC stand-in (reading VOC from disk is not ported yet).
+``afan/data/voc_det.py``: the class names, the XML annotations of a VOC tree
+on disk (:func:`load_voc_samples`) or ``afan``'s synthetic VOC stand-in, the
+resize rule and the resize that the detection server uses, and the loader.
+
+A VOC sample keeps two sets of boxes, as ``afan``'s does: the training
+targets (0-based, difficult objects dropped, `voc2007.py:73-101`) and the
+raw 1-based XML boxes with their difficult flags, which the VOC07 mAP reads
+(`voc_eval.py:154-176`). Images are decoded by
+:func:`afan_torch.utils.imread.read_rgb` (PIL's bytes, without PIL).
 
 The loader (:class:`DetectionLoader`) is ``afan``'s, with the same
 ``RandomState`` calls in the same order, so one seed gives the same batches
@@ -22,21 +28,24 @@ from one half, shifted back and clipped to uint8 (Pillow's
 from __future__ import annotations
 
 import os
+import xml.etree.ElementTree as ET
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..utils.imread import read_rgb
+
 VOC_CLASSES = (
     "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
     "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
     "pottedplant", "sheep", "sofa", "train", "tvmonitor")   # labels 1..20
+VOC_LABELS = {name: i + 1 for i, name in enumerate(VOC_CLASSES)}
 
 PRECISION_BITS = 32 - 8 - 2     # Pillow's fixed point for 8-bit images
 
 MAX_GT_BOXES = 64  # static gt capacity (VOC images have <= ~42 objects)
-UNPORTED = "not ported yet (ROADMAP.md, queue 1, item 6: datasets from disk)"
 
 
 @dataclass
@@ -47,6 +56,11 @@ class DetSample:
     height: int
     boxes: np.ndarray             # (G, 4) float32, 0-based pixel coords
     labels: np.ndarray            # (G,) int64 (1-based classes)
+    # VOC: the raw 1-based XML boxes with the difficult objects and their
+    # flags, which the VOC07 mAP reads (None for synthetic and COCO samples)
+    eval_boxes: Optional[np.ndarray] = None
+    eval_labels: Optional[np.ndarray] = None
+    eval_difficult: Optional[np.ndarray] = None
     # COCO iscrowd gt: not a training target, an ignore region at eval
     crowd_boxes: Optional[np.ndarray] = None
     crowd_labels: Optional[np.ndarray] = None
@@ -145,6 +159,54 @@ def find_voc_root(data_dir: str, year: str = "2007") -> Optional[str]:
     return None
 
 
+def parse_voc_annotation(xml_path: str):
+    """(boxes (G, 4) float32 as written, 1-based; labels (G,) int64;
+    difficult (G,) bool) of one VOC XML, objects of unknown classes
+    skipped."""
+    root = ET.parse(xml_path).getroot()
+    boxes, labels, difficult = [], [], []
+    for obj in root.findall("object"):
+        name = obj.find("name").text.strip().lower()
+        if name not in VOC_LABELS:
+            continue
+        d = obj.find("difficult")
+        difficult.append(d is not None and d.text.strip() == "1")
+        bb = obj.find("bndbox")
+        boxes.append([float(bb.find(t).text) for t in
+                      ("xmin", "ymin", "xmax", "ymax")])
+        labels.append(VOC_LABELS[name])
+    if not boxes:
+        return (np.zeros((0, 4), np.float32), np.zeros((0,), np.int64),
+                np.zeros((0,), bool))
+    return (np.asarray(boxes, np.float32), np.asarray(labels, np.int64),
+            np.asarray(difficult, bool))
+
+
+def load_voc_samples(voc_root: str, split: str = "trainval"
+                     ) -> List[DetSample]:
+    """The samples of ``ImageSets/Main/<split>.txt``: training boxes 0-based
+    without the difficult objects, eval boxes raw with them."""
+    with open(os.path.join(voc_root, "ImageSets", "Main",
+                           f"{split}.txt")) as f:
+        ids = [line.strip().split()[0] for line in f if line.strip()]
+    samples = []
+    for image_id in ids:
+        xml_path = os.path.join(voc_root, "Annotations", f"{image_id}.xml")
+        size = ET.parse(xml_path).getroot().find("size")
+        boxes_raw, labels, difficult = parse_voc_annotation(xml_path)
+        keep = ~difficult
+        samples.append(DetSample(
+            image_id=image_id,
+            image_path=os.path.join(voc_root, "JPEGImages",
+                                    f"{image_id}.jpg"),
+            width=int(size.find("width").text),
+            height=int(size.find("height").text),
+            boxes=boxes_raw[keep] - 1.0, labels=labels[keep],
+            eval_boxes=boxes_raw, eval_labels=labels,
+            eval_difficult=difficult))
+    return samples
+
+
 def synthetic_det_samples(n: int = 64, num_classes: int = 20, seed: int = 0
                           ) -> List[DetSample]:
     """``afan``'s deterministic synthetic detection set: 1-4 class-colored
@@ -183,12 +245,11 @@ def render_synthetic(sample: DetSample) -> np.ndarray:
 
 
 def load_image(sample: DetSample) -> np.ndarray:
-    """float32 [0, 1] HWC image of a synthetic sample; an image on disk (a
-    VOC or COCO JPEG) raises."""
-    if sample.image_path is not None:
-        raise NotImplementedError(f"decoding {sample.image_path} is "
-                                  f"{UNPORTED}")
-    return render_synthetic(sample)
+    """float32 [0, 1] HWC image: the file decoded as PIL decodes it
+    (`voc_det.py:170-176`), or the synthetic sample drawn."""
+    if sample.image_path is None:
+        return render_synthetic(sample)
+    return read_rgb(sample.image_path).astype(np.float32) / 255.0
 
 
 @dataclass
@@ -289,15 +350,24 @@ class DetectionLoader:
 
 def voc_detection_loaders(data_dir: Optional[str], batch_size: int,
                           image_min_side: float = 600.0,
-                          image_max_side: float = 1000.0, seed: int = 0):
-    """(train_loader, eval_loader, num_classes) on the synthetic VOC stand-in
-    (64 train, 16 test images). A VOC tree under ``data_dir`` raises: reading
-    it is not ported yet."""
-    if data_dir and find_voc_root(data_dir, "2007") is not None:
-        raise NotImplementedError(f"reading VOC from {data_dir!r} is "
-                                  f"{UNPORTED}")
-    train = synthetic_det_samples(64, seed=seed)
-    test = synthetic_det_samples(16, seed=seed + 1000)
+                          image_max_side: float = 1000.0, seed: int = 0,
+                          dataset: str = "voc2007"):
+    """(train_loader, eval_loader, 21). With a VOC 2007 tree under
+    ``data_dir``: its trainval for training (``dataset="voc20072012"`` adds
+    VOC 2012's trainval when that tree is there,
+    `Detection/dataset/voc20072012.py`) and its test split for evaluation.
+    Without one, the synthetic VOC stand-in (64 train, 16 test images)."""
+    root07 = find_voc_root(data_dir, "2007") if data_dir else None
+    if root07 is None:
+        train = synthetic_det_samples(64, seed=seed)
+        test = synthetic_det_samples(16, seed=seed + 1000)
+    else:
+        train = load_voc_samples(root07, "trainval")
+        if dataset == "voc20072012":
+            root12 = find_voc_root(data_dir, "2012")
+            if root12:
+                train = train + load_voc_samples(root12, "trainval")
+        test = load_voc_samples(root07, "test")
     return (DetectionLoader(train, batch_size, image_min_side,
                             image_max_side, True, seed),
             DetectionLoader(test, 1, image_min_side, image_max_side, False),

@@ -133,9 +133,12 @@ def evaluate_detections(num_classes: int,
 
 def ground_truth(samples) -> Dict[str, Tuple[np.ndarray, np.ndarray,
                                               np.ndarray]]:
-    """image_id → (boxes, labels, difficult) of the loader's samples; they
-    are synthetic or COCO's, so no object is difficult."""
-    return {s.image_id: (s.boxes, s.labels, np.zeros(len(s.labels), bool))
+    """image_id → (boxes, labels, difficult) of the loader's samples: a VOC
+    sample's raw XML boxes with their difficult flags (neutral in the VOC07
+    mAP); a synthetic or COCO sample's boxes, none of them difficult."""
+    return {s.image_id: ((s.eval_boxes, s.eval_labels, s.eval_difficult)
+                         if s.eval_boxes is not None else
+                         (s.boxes, s.labels, np.zeros(len(s.labels), bool)))
             for s in samples}
 
 

@@ -7,6 +7,9 @@ unchanged one is not. :func:`build_all` starts one ``nvcc`` per source at
 once and waits for all of them, and keeps what ``ptxas -v`` said of each
 kernel (registers, shared memory, spills) beside the library
 (:func:`build_log`). The kernel modules load the result with ``ctypes``.
+
+:func:`build_host` does the same for a host C++ source (the image decoder,
+``csrc/imdecode.cpp``) with the system's ``c++`` into ``build/host/``.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Sequence
 
@@ -25,6 +29,8 @@ BUILD_DIR = os.path.abspath(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("nms.cu", "resize_ce.cu", "pgd_step.cu")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(BUILD_DIR), "host")
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -38,13 +44,24 @@ def _nvcc() -> str:
                        "with the CUDA toolkit at first use")
 
 
-def library_path(source: str) -> str:
+def _cxx() -> str:
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler (c++ or g++) found: the port's image "
+                       "decoder (csrc/imdecode.cpp) is built with one at "
+                       "first use")
+
+
+def library_path(source: str, flags: Sequence[str] = NVCC_FLAGS,
+                 build_dir: str = BUILD_DIR) -> str:
     """Where ``source`` (a file name under ``csrc/``) is built to."""
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(flags).encode())
     with open(os.path.join(CSRC, source), "rb") as f:
         h.update(f.read())
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"libafan_{stem}-{h.hexdigest()[:12]}.so")
+    return os.path.join(build_dir, f"libafan_{stem}-{h.hexdigest()[:12]}.so")
 
 
 def build_log(source: str) -> str:
@@ -93,3 +110,21 @@ def build(source: str) -> str:
     """Compile one source unless its library is there; return its path."""
     build_all((source,))
     return library_path(source)
+
+
+def build_host(source: str) -> str:
+    """Compile the host C++ ``source`` with ``c++`` unless its library is
+    there; return its path (raises with the compiler's output on failure)."""
+    out = library_path(source, CXX_FLAGS, HOST_BUILD_DIR)
+    if os.path.exists(out):
+        return out
+    os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    done = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp,
+                           os.path.join(CSRC, source)],
+                          capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"c++ {source} failed ({done.returncode}):\n"
+                           f"{done.stderr}")
+    os.replace(tmp, out)
+    return out

@@ -14,7 +14,8 @@ trainer); ``--only seg`` phases 1, 2 and
 phases 1, 2 and 22-26; ``--only bf16`` phases 1, 2 and 27-29; ``--only
 detbf16`` phases 1, 2 and 30-32; ``--only clsbf16`` phases 1, 2 and 33-35;
 ``--only eval`` phases 1, 2 and 36-39; ``--only mobilenet`` phases 1, 2
-and 40-42; ``--only coco`` phases 1, 2 and 43-46.
+and 40-42; ``--only coco`` phases 1, 2 and 43-46; ``--only data`` phases 1,
+2 and 47-50.
 The kernels
 line then lists the kernels of the phases that ran; without phase 8 the
 upsample + CE kernels have no launch count (null), and under ``--only
@@ -269,7 +270,41 @@ Phases (any failure exits non-zero):
      COCO's canvas, bit for bit;
  46. the COCO bf16 A-FAN step and the sd=rpn A-FAN step (median, p90, peak
      memory, launches, profile), the NMS kernel at the new shapes and the
-     PGD update at the new ascent shapes, with plain versions and bounds.
+     PGD update at the new ascent shapes, with plain versions and bounds;
+ 47. build the host image decoder (``csrc/imdecode.cpp``, ``c++``) and
+     decode each committed fixture of ``tests/fixtures/torch_images``: its
+     sha256 equals the manifest's (PIL's bytes);
+ 48. write dataset trees at the real sizes and layouts under
+     ``checkpoints/chip_smoke_data/DATA``: Cityscapes (8 train and 2 val
+     images at 1024x2048, RGB and ``_gtFine_labelIds`` PNGs, ids 0-33,
+     rows filtered by the five PNG filter types in turn), VOC 2012
+     segmentation (the fixture JPEGs, palette label PNGs with 255 borders),
+     VOC 2007 detection (16 trainval, 4 test, wide and tall fixture JPEGs,
+     one difficult object per test image) and COCO 2017 (8 train, 2 val,
+     one crowd annotation per split); the decode ms per image (median of
+     20) of a 500x375 JPEG and a 2048x1024 PNG on the host's CPU;
+ 49. ``recipes/seg_city_final.sh``, ``seg_voc07_final1.sh``,
+     ``detect_voc07_final_setting1.sh`` and ``detect_coco_final_setting.sh``
+     setting 1 as written with DATA pointing at the trees (2 steps each,
+     the Cityscapes one 4, two epochs of its images; a validation or the
+     final score each; launch counts per step as in phases 27 and 43),
+     each step's ms and the host's ms for its batch (the segmentation
+     loop reads it between steps, the detection loop waits on its
+     prefetch queue);
+     then ``eval_segment --task miou`` on the Cityscapes val canvas
+     (1024x2048), ``--task pgd`` (1 step) on the VOC val canvas (512x512)
+     and ``eval_detect --task map`` on the VOC 2007 test split (its
+     difficult objects in the evaluator's ground truth), with launch
+     counts;
+ 50. the kernels at the new shapes: the upsample + CE at the VOC eval
+     canvas (logits (1, 21, 128, 128)) within phase 7's tolerances; one
+     A-FAN step on a tall batch of decoded images (1008x608) with the NMS
+     and PGD-update kernels against one with their plain versions, and the
+     NMS kernel on its proposals; the PGD update at every shape of phase
+     49's runs, bit for bit; then the loaders' host ms per batch alone
+     (Cityscapes batch 4, VOC detection batch 8) beside the recipe steps'
+     ms and waits, and the kernels at the new shapes with plain versions,
+     bounds and (upsample + CE) the library.
 
 The line before the last lists each kernel with its launches on its main
 paths (the bf16 paths of phases 27-29 as entries of their own, ``_bf16``,
@@ -283,8 +318,8 @@ runs of phases 22 and 23 and the bf16 runs of phases 30 and 33 (NMS in
 29's where it ran, else the bf16 detection or ALFA step's) and the eval runs
 of phases 36 and 37 (under ``--only eval`` the times are per ``rob`` image
 for NMS and the PGD update, per VOC ``pgd`` image for the upsample + CE)
-and the runs of phases 40, 43 and 44 (under ``--only mobilenet`` or
-``--only coco`` the times are phase 42's or 46's).
+and the runs of phases 40, 43, 44 and 49 (under ``--only mobilenet``,
+``--only coco`` or ``--only data`` the times are phase 42's, 46's or 50's).
 Launches are the wrappers' counts: a graph replay runs kernels that no
 wrapper call counts, so phase 18 prints the PGD-update kernels its replays
 ran (the profiled kernels per replay times the replays) beside the
@@ -302,6 +337,7 @@ import itertools
 import json
 import os
 import pickle
+import platform
 import shlex
 import shutil
 import subprocess
@@ -2495,16 +2531,19 @@ def seg_counts():
             kpgd.bf16_launches)
 
 
-def run_seg_recipe(tag, flags, dtype, updates, fractions=None):
-    """One run of ``train_segment.main`` with ``flags`` (phases 27 and 40):
-    ``RECIPE_STEPS`` iterations and one validation, every kernel count read
+def run_seg_recipe(tag, flags, dtype, updates, fractions=None,
+                   step_times=None, steps=RECIPE_STEPS):
+    """One run of ``train_segment.main`` with ``flags`` (phases 27, 40 and
+    49): ``steps`` iterations and one validation, every kernel count read
     around each step against ``seg_launches_per_step``, the model's compute
     dtype ``dtype``; each PGD update's (shape, clip, gamma, dtype, share of
     entries changed) goes to ``updates``; with ``fractions``, the line
-    ``--pretrained_backbone`` logs must hold it. Returns the run's
-    (forward, backward, PGD-update, and their bf16) launches."""
-    argv = flags + ["--limit_itrs", str(RECIPE_STEPS), "--val_interval",
-                    str(RECIPE_STEPS), "--print_interval", "1", "--exp",
+    ``--pretrained_backbone`` logs must hold it; with ``step_times``, each
+    step's start and end (``perf_counter``, its losses read back) are
+    appended to it. Returns the run's (forward, backward, PGD-update, and
+    their bf16) launches."""
+    argv = flags + ["--limit_itrs", str(steps), "--val_interval",
+                    str(steps), "--print_interval", "1", "--exp",
                     "chip_" + tag]
     args = train_segment.get_parser().parse_args(argv)
     prefix = f"{args.dataset}_chip_{tag}_"
@@ -2524,10 +2563,13 @@ def run_seg_recipe(tag, flags, dtype, updates, fractions=None):
 
         def run(images, labels, generator=None):
             before = seg_counts()
+            t0 = time.perf_counter()
             out = step(images, labels, generator)
+            losses.append({k: float(v) for k, v in out.items()})
+            if step_times is not None:
+                step_times.append((t0, time.perf_counter()))
             per_step.append(tuple(x - y for x, y in
                                   zip(seg_counts(), before)))
-            losses.append({k: float(v) for k, v in out.items()})
             return out
         return run
 
@@ -2553,11 +2595,11 @@ def run_seg_recipe(tag, flags, dtype, updates, fractions=None):
     require((backbone == "MobileNetV2Backbone") == ("mobilenet" in args.model)
             and bool(separable) == args.separable_conv,
             f"{tag}: built {backbone} with {separable} separable convs")
-    require(len(losses) == RECIPE_STEPS
+    require(len(losses) == steps
             and all(np.isfinite(v) for r in losses for v in r.values()),
             f"{tag}: losses {losses}")
-    require(per_step == [want] * RECIPE_STEPS and total == tuple(
-        RECIPE_STEPS * w for w in want),
+    require(per_step == [want] * steps and total == tuple(
+        steps * w for w in want),
             f"{tag}: (forward, backward, PGD-update; bf16 forward, backward, "
             f"PGD-update) launches per step {per_step}, run {total}; "
             f"expected {want} per step")
@@ -2567,7 +2609,7 @@ def run_seg_recipe(tag, flags, dtype, updates, fractions=None):
     require(len(dirs) == 1 and os.path.isfile(path),
             f"{tag}: no checkpoint written")
     saved = torch.load(path, map_location="cpu", weights_only=True)
-    require(saved["cur_itrs"] == RECIPE_STEPS
+    require(saved["cur_itrs"] == steps
             and all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
                     for v in saved["model_state"].values()
                     if v.is_floating_point()),
@@ -2581,7 +2623,7 @@ def run_seg_recipe(tag, flags, dtype, updates, fractions=None):
         note = f"; logged: ImageNet backbone loaded {fractions}"
     print(f"    {tag} ({args.model}{' --separable_conv' * bool(separable)}"
           f", {args.dataset}, crop {args.crop_size}, batch "
-          f"{args.batch_size}, {str(dtype)[6:]}): {RECIPE_STEPS} steps + 1 "
+          f"{args.batch_size}, {str(dtype)[6:]}): {steps} steps + 1 "
           f"validation in {secs:.1f} s; losses "
           f"{[round(r['loss'], 4) for r in losses]}; mIoU {score:.4f}; per "
           f"step {sites} upsample + CE launches each way and {pgd} PGD "
@@ -2631,6 +2673,39 @@ def print_update_shares(updates):
               f"back to x, as in afan)")
 
 
+def bf16_ce_case(name, B, hw, HW, C, errs, seed=0):
+    """Both upsample + CE kernels on bf16 logits of one geometry against the
+    plain version: sums within ``CE_SUM_TOL`` and equal to the f32 kernel's
+    on the widened logits, the gradient the f32 kernel's rounded to bf16 bit
+    for bit and within ``BF16_GRAD_TOL``; the largest absolute errors go to
+    ``errs``."""
+    lo, lab, g = ce_inputs(B, hw, HW, C, seed=seed)
+    lo = lo.bfloat16()
+    sums = krce.resize_ce_forward(lo, lab)
+    dlo = krce.resize_ce_backward(lo, lab, g)
+    sums32 = krce.resize_ce_forward(lo.float(), lab)
+    dlo32 = krce.resize_ce_backward(lo.float(), lab, g)
+    want_s = trce.fused_resize_nll_sums_plain(lo, lab, HW)
+    want_d = trce.resize_ce_grad_plain(lo, lab, g)
+    torch.cuda.synchronize()
+    es = rel_err(sums, want_s)
+    eg = rel_err(dlo.float(), want_d.float())
+    diff = (dlo.float() - want_d.float()).abs()
+    errs["fwd"].append(float((sums - want_s).abs().max()))
+    errs["bwd"].append(float(diff.max()))
+    same = torch.equal(sums, sums32) and torch.equal(dlo, dlo32.bfloat16())
+    print(f"  {name}: B={B} {hw}->{HW} C={C} bf16 logits: sums rel "
+          f"{es:.3e}; gradient {dlo.dtype}, the f32 kernel's on the "
+          f"widened logits rounded to bf16 bit for bit: {same}; against "
+          f"the plain version rel {eg:.3e} ({int((diff > 0).sum())} of "
+          f"{diff.numel()} entries differ)")
+    require(es <= CE_SUM_TOL, f"{name}: bf16 sums rel err {es}")
+    require(same, f"{name}: the bf16 kernels differ from the f32 ones "
+                  f"on the widened logits")
+    require(dlo.dtype == torch.bfloat16 and eg <= BF16_GRAD_TOL,
+            f"{name}: bf16 gradient rel err {eg} > {BF16_GRAD_TOL}")
+
+
 def bf16_kernels_vs_plain(updates, errs):
     """Phase 28: the bf16 paths of the upsample + CE kernels at the
     recipes' shapes (sums within CE_SUM_TOL of the plain version and equal
@@ -2640,33 +2715,8 @@ def bf16_kernels_vs_plain(updates, errs):
     updates, clipped and not, bit-equal to its plain version."""
     print("[28] bf16 upsample + CE and PGD-update kernels vs their plain "
           "versions")
-    for name, B, hw, HW, C in BF16_CE_CASES:
-        lo, lab, g = ce_inputs(B, hw, HW, C)
-        lo = lo.bfloat16()
-        sums = krce.resize_ce_forward(lo, lab)
-        dlo = krce.resize_ce_backward(lo, lab, g)
-        sums32 = krce.resize_ce_forward(lo.float(), lab)
-        dlo32 = krce.resize_ce_backward(lo.float(), lab, g)
-        want_s = trce.fused_resize_nll_sums_plain(lo, lab, HW)
-        want_d = trce.resize_ce_grad_plain(lo, lab, g)
-        torch.cuda.synchronize()
-        es = rel_err(sums, want_s)
-        eg = rel_err(dlo.float(), want_d.float())
-        diff = (dlo.float() - want_d.float()).abs()
-        errs["fwd"].append(float((sums - want_s).abs().max()))
-        errs["bwd"].append(float(diff.max()))
-        same = torch.equal(sums, sums32) and torch.equal(dlo,
-                                                         dlo32.bfloat16())
-        print(f"  {name}: B={B} {hw}->{HW} C={C} bf16 logits: sums rel "
-              f"{es:.3e}; gradient {dlo.dtype}, the f32 kernel's on the "
-              f"widened logits rounded to bf16 bit for bit: {same}; against "
-              f"the plain version rel {eg:.3e} ({int((diff > 0).sum())} of "
-              f"{diff.numel()} entries differ)")
-        require(es <= CE_SUM_TOL, f"{name}: bf16 sums rel err {es}")
-        require(same, f"{name}: the bf16 kernels differ from the f32 ones "
-                      f"on the widened logits")
-        require(dlo.dtype == torch.bfloat16 and eg <= BF16_GRAD_TOL,
-                f"{name}: bf16 gradient rel err {eg} > {BF16_GRAD_TOL}")
+    for case in BF16_CE_CASES:
+        bf16_ce_case(*case, errs)
     lo, lab, g = ce_inputs(4, (129, 129), (513, 513), 21, seed=1)
     x = lo.bfloat16().requires_grad_(True)
     before = (krce.bf16_fwd_launches, krce.bf16_bwd_launches)
@@ -2783,18 +2833,26 @@ def det_recipe_flags(name, tag, env=None):
         DET_BACKBONE]
 
 
-def run_det_recipe(tag, argv, dtype, updates, nms_calls=None):
-    """One run of ``train_detect.main(argv)`` on synthetic data (phases 30,
-    43 and 44): ``RECIPE_STEPS`` steps and the final score, every kernel
-    count read around each step against ``det_launches_per_step`` and
-    around the whole run, the NMS on float32 boxes; the first NMS call of
-    each shape goes to ``nms_calls`` and each PGD update's (shape, clip,
-    gamma, dtype, share) to ``updates``. Returns the run's NMS, PGD-update
-    and bf16 PGD-update launches."""
+def run_det_recipe(tag, argv, dtype, updates, nms_calls=None,
+                   eval_images=None, step_times=None):
+    """One run of ``train_detect.main(argv)`` (phases 30, 43, 44 and 49):
+    ``RECIPE_STEPS`` steps and the final score, every kernel count read
+    around each step against ``det_launches_per_step`` and around the whole
+    run, the NMS on float32 boxes; the first NMS call of each shape goes to
+    ``nms_calls`` and each PGD update's (shape, clip, gamma, dtype, share)
+    to ``updates``; with ``step_times``, each step's start and end
+    (``perf_counter``, its losses read back) are appended to it. The data
+    is synthetic (``DET_EVAL_IMAGES``
+    test images) unless ``argv`` names a data directory whose test split
+    has ``eval_images``. Returns the run's NMS, PGD-update and bf16
+    PGD-update launches."""
     args = train_detect.get_parser().parse_args(argv)
+    on_disk = eval_images is not None
+    eval_images = eval_images or DET_EVAL_IMAGES
     require((args.bf16, any(a.startswith("--data") for a in argv))
-            == (dtype == torch.bfloat16, False),
-            f"{tag}: {argv} is not the synthetic {dtype} run")
+            == (dtype == torch.bfloat16, on_disk),
+            f"{tag}: {argv} is not the {'on-disk' if on_disk else 'synthetic'}"
+            f" {dtype} run")
     shutil.rmtree(args.outputs_dir, ignore_errors=True)
     factory = ("make_baseline_det_step" if args.variant == "baseline"
                else "make_afan_det_step")
@@ -2817,9 +2875,12 @@ def run_det_recipe(tag, argv, dtype, updates, nms_calls=None):
 
         def run(*args_):
             before = counts()
+            t0 = time.perf_counter()
             res = step(*args_)
-            per_step.append(tuple(x - y for x, y in zip(counts(), before)))
             losses.append({k: float(v) for k, v in res.items()})
+            if step_times is not None:
+                step_times.append((t0, time.perf_counter()))
+            per_step.append(tuple(x - y for x, y in zip(counts(), before)))
             return res
         return run
 
@@ -2852,7 +2913,7 @@ def run_det_recipe(tag, argv, dtype, updates, nms_calls=None):
     require(per_step == [want] * RECIPE_STEPS,
             f"{tag}: (NMS, PGD-update, bf16 PGD-update) launches per step "
             f"{per_step}, expected {want}")
-    require(eval_nms == 2 * DET_EVAL_IMAGES,
+    require(eval_nms == 2 * eval_images,
             f"{tag}: {eval_nms} NMS launches in the final eval")
     require(boxes == {torch.float32}, f"{tag}: NMS took {boxes}")
     saved = torch.load(os.path.join(args.outputs_dir,
@@ -2868,7 +2929,7 @@ def run_det_recipe(tag, argv, dtype, updates, nms_calls=None):
     print(f"    {tag} ({args.variant}, {args.dataset}, {cfg.num_classes} "
           f"classes, anchors {tuple(cfg.anchor_sizes)}, batch "
           f"{args.batch_size}, {str(dtype)[6:]}): {RECIPE_STEPS} steps + the "
-          f"final score of {DET_EVAL_IMAGES} images in {secs:.1f} s; losses "
+          f"final score of {eval_images} images in {secs:.1f} s; losses "
           f"{[round(r['loss'], 4) for r in losses]}; per step {n_nms} NMS "
           f"launches on float32 boxes and {n_pgd} PGD updates, as expected; "
           f"NMS in the eval {eval_nms}; score {score:.4f} (COCO's "
@@ -4027,6 +4088,14 @@ def eval_paths_vs_plain(det_ckpt, seg_ckpt):
             f"versions (tolerances {MIOU_TOL}, {MIOU_TOL_3})")
 
 
+def kernel_times(ms, plain_ms, byte_ms, op_ms, library_ms=None):
+    """A kernel's times for the kernels line: its bound the larger of the
+    byte and operation bounds, named by which one it is."""
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": library_ms}
+
+
 def eval_timings(card, det_ckpt, seg_ckpt, nms_calls):
     """Phase 39: ms per image of each eval task (CUDA events around the
     task's device work for one image, data loading left out), and each
@@ -4136,12 +4205,6 @@ def eval_timings(card, det_ckpt, seg_ckpt, nms_calls):
               f"{parts['bwd_bytes_ms']:.5f}, operations "
               f"{parts['bwd_ops_ms']:.5f}) ({card})")
 
-    def entry(ms, plain_ms, byte_ms, op_ms, library_ms=None):
-        return {"ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(byte_ms, op_ms),
-                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-                "library_ms": library_ms}
-
     # per rob image: the attack's losses, then the detect call
     rob_nms = [nms["attack losses"]] * EVAL_PGD_STEPS + [
         nms["detect proposals"], nms["detect per-class"]]
@@ -4150,12 +4213,13 @@ def eval_timings(card, det_ckpt, seg_ckpt, nms_calls):
     voc = ce["voc513_b1"]
     n = EVAL_PGD_STEPS
     times = {
-        "nms": entry(k, p, b, o),
-        "pgd_update": entry(n * k_pgd, n * p_pgd, n * b_pgd, n * o_pgd),
-        "resize_ce_forward": entry(
+        "nms": kernel_times(k, p, b, o),
+        "pgd_update": kernel_times(n * k_pgd, n * p_pgd, n * b_pgd,
+                                   n * o_pgd),
+        "resize_ce_forward": kernel_times(
             n * voc["fwd"], n * voc["plain_fwd"], n * voc["fwd_bytes_ms"],
             n * voc["fwd_ops_ms"], n * voc["lib_fwd"]),
-        "resize_ce_backward": entry(
+        "resize_ce_backward": kernel_times(
             n * voc["bwd"], n * voc["plain_bwd"], n * voc["bwd_bytes_ms"],
             n * voc["bwd_ops_ms"], n * voc["lib_bwd"]),
     }
@@ -4633,6 +4697,546 @@ def coco_phases(card):
                                 times["pgd_update_bf16"])}
 
 
+# Datasets from disk (phases 47-50): trees at the datasets' real sizes and
+# layouts under a temporary DATA, the four recipes as written on them, the
+# eval CLIs, the kernels at the new shapes and the host's data timings.
+DATA_FIXTURES = os.path.join(FIXTURES, "torch_images")
+DATA_OUT = os.path.join("checkpoints", "chip_smoke_data")
+CITY_SPLITS = {"train": (8, ("aachen", "bochum")), "val": (2, ("frankfurt",))}
+VOC_SEG_SPLITS = {"train": 8, "val": 2}
+VOC_DET_SPLITS = {"trainval": 16, "test": 4}
+COCO_SPLITS = {"train2017": 8, "val2017": 2}
+CITY_HW = (1024, 2048)
+# (recipe, its variables, steps): the Cityscapes run takes two epochs of
+# its 8 images, so that its fourth step shows the wait of a batch made
+# while one step ran
+DATA_SEG_RECIPES = (("seg_city_final.sh", {"N": "1", "GAMMASE": "0.02",
+                                           "MIX": "01"}, 4),
+                    ("seg_voc07_final1.sh", {"MIX": "01"}, RECIPE_STEPS))
+DATA_DET_RECIPES = (("detect_voc07_final_setting1.sh", None),
+                    (COCO_RECIPE, 1))
+# the VOC eval canvas's logits: DeepLabv3+ at stride 4 of 512x512
+VOC_CANVAS_CE = ("voc_canvas512_b1", 1, (128, 128), (512, 512), 21, None)
+
+
+def png_filtered_rows(raw, bpp, filters):
+    """PNG's filtered scanlines of the rows ``raw`` (H, stride) uint8, row y
+    filtered by type ``filters[y % len(filters)]`` (0 none, 1 sub, 2 up, 3
+    average, 4 Paeth): (H, 1 + stride) uint8, the type byte first."""
+    x = raw.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    predictors = (np.zeros_like(x), a, b, (a + b) >> 1, paeth)
+    types = np.asarray(filters, np.uint8)[np.arange(len(raw)) % len(filters)]
+    out = np.empty((len(raw), raw.shape[1] + 1), np.uint8)
+    out[:, 0] = types
+    for t, pred in enumerate(predictors):
+        rows = types == t
+        out[rows, 1:] = (x[rows] - pred[rows]).astype(np.uint8)
+    return out
+
+
+def write_png(path, img, palette=None, filters=(0, 1, 2, 3, 4), level=1):
+    """An 8-bit PNG of ``img``: (H, W) gray, or palette indices with
+    ``palette`` (256, 3); (H, W, 2) gray+alpha, (H, W, 3) RGB, (H, W, 4)
+    RGBA; its rows filtered in turn by the types ``filters``."""
+    import struct
+    import zlib
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else img.shape[2]
+    ctype = 3 if palette is not None else {1: 0, 2: 4, 3: 2, 4: 6}[bpp]
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    rows = png_filtered_rows(img.reshape(h, w * bpp), bpp, filters)
+    data = [b"\x89PNG\r\n\x1a\n",
+            chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))]
+    if palette is not None:
+        data.append(chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    data += [chunk(b"IDAT", zlib.compress(rows.tobytes(), level)),
+             chunk(b"IEND", b"")]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"".join(data))
+
+
+def city_pair(i):
+    """A Cityscapes-sized street stand-in: smooth RGB with noise, and label
+    ids 0-33 in blocks (ids outside the 19 train ids included)."""
+    rng = np.random.RandomState(i)
+    h, w = CITY_HW
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([128 + 100 * np.sin(x / 97 + i) * np.cos(y / 71),
+                    128 + 110 * np.sin((x + 2 * y) / 131 + i),
+                    128 + 90 * np.cos((x - y) / 113)], -1)
+    img = np.clip(img + rng.randn(h, w, 3) * 4, 0, 255).astype(np.uint8)
+    ids = ((y.astype(np.int64) // 64) * 7 + (x.astype(np.int64) // 128) * 3
+           + i) % 34
+    return img, ids.astype(np.uint8)
+
+
+def voc_xml(path, image_id, w, h, objects):
+    """A VOC annotation: (name, difficult, (xmin, ymin, xmax, ymax))."""
+    objs = "".join(
+        f"<object><name>{n}</name><difficult>{int(d)}</difficult><bndbox>"
+        f"<xmin>{b[0]}</xmin><ymin>{b[1]}</ymin><xmax>{b[2]}</xmax>"
+        f"<ymax>{b[3]}</ymax></bndbox></object>" for n, d, b in objects)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(f"<annotation><filename>{image_id}.jpg</filename><size>"
+                f"<width>{w}</width><height>{h}</height><depth>3</depth>"
+                f"</size>{objs}</annotation>")
+
+
+def copy_fixture(name, path):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    shutil.copyfile(os.path.join(DATA_FIXTURES, name), path)
+
+
+def write_data_tree(root):
+    """Phase 48: Cityscapes (1024x2048 PNGs, ids 0-33), VOC 2012
+    segmentation (the fixture JPEGs, palette labels with 255 borders), VOC
+    2007 detection (wide and tall fixture JPEGs; one difficult object per
+    test image) and COCO 2017 (the fixture JPEG; one crowd annotation per
+    split) under ``root``. Returns the seconds each took."""
+    from afan_torch.utils.imread import read_label
+    from afan_torch.utils.png import voc_color_map
+    secs = {}
+    t0 = time.time()
+    for split, (n, cities) in CITY_SPLITS.items():
+        for i in range(n):
+            city = cities[i % len(cities)]
+            stem = f"{city}_{i:06d}_000019"
+            img, ids = city_pair(i + (100 if split == "val" else 0))
+            write_png(os.path.join(root, "leftImg8bit", split, city,
+                                   f"{stem}_leftImg8bit.png"), img)
+            write_png(os.path.join(root, "gtFine", split, city,
+                                   f"{stem}_gtFine_labelIds.png"), ids)
+    secs["cityscapes"] = time.time() - t0
+    t0 = time.time()
+    voc12 = os.path.join(root, "VOCdevkit", "VOC2012")
+    wide_lab = read_label(os.path.join(DATA_FIXTURES, "label_500x375.png"))
+    k = 0
+    for split, n in VOC_SEG_SPLITS.items():
+        ids = []
+        for _ in range(n):
+            image_id = f"2008_{k:06d}"
+            tall = k % 2 == 1
+            copy_fixture("voc_375x500.jpg" if tall else "voc_500x375.jpg",
+                         os.path.join(voc12, "JPEGImages", f"{image_id}.jpg"))
+            write_png(os.path.join(voc12, "SegmentationClass",
+                                   f"{image_id}.png"),
+                      wide_lab.T if tall else wide_lab,
+                      palette=voc_color_map())
+            ids.append(image_id)
+            k += 1
+        os.makedirs(os.path.join(voc12, "ImageSets", "Segmentation"),
+                    exist_ok=True)
+        with open(os.path.join(voc12, "ImageSets", "Segmentation",
+                               f"{split}.txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+    voc07 = os.path.join(root, "VOCdevkit", "VOC2007")
+    names = ("person", "car", "dog", "cat", "bicycle", "chair")
+    k = 0
+    for split, n in VOC_DET_SPLITS.items():
+        ids = []
+        for j in range(n):
+            image_id = f"{k:06d}"
+            tall = j % 2 == 1
+            w, h = (375, 500) if tall else (500, 375)
+            copy_fixture("voc_375x500.jpg" if tall else "voc_500x375.jpg",
+                         os.path.join(voc07, "JPEGImages", f"{image_id}.jpg"))
+            objects = [(names[(k + m) % len(names)], False,
+                        (20 + 40 * m, 30 + 25 * m, 180 + 40 * m,
+                         200 + 30 * m)) for m in range(2)]
+            if split == "test":
+                objects.append((names[k % len(names)], True,
+                                (w - 120, h - 110, w - 10, h - 5)))
+            voc_xml(os.path.join(voc07, "Annotations", f"{image_id}.xml"),
+                    image_id, w, h, objects)
+            ids.append(image_id)
+            k += 1
+        os.makedirs(os.path.join(voc07, "ImageSets", "Main"), exist_ok=True)
+        with open(os.path.join(voc07, "ImageSets", "Main", f"{split}.txt"),
+                  "w") as f:
+            f.write("\n".join(ids) + "\n")
+    secs["voc"] = time.time() - t0
+    t0 = time.time()
+    coco = os.path.join(root, "COCO")
+    ann_id = 1
+    for split, n in COCO_SPLITS.items():
+        images, anns = [], []
+        for i in range(n):
+            image_id = 1000 * (split == "val2017") + i + 1
+            name = f"{image_id:012d}.jpg"
+            copy_fixture("coco_640x480.jpg", os.path.join(coco, split, name))
+            images.append({"id": image_id, "file_name": name, "width": 640,
+                           "height": 480})
+            for m, crowd in enumerate((0, 0, int(i == 0))):
+                anns.append({"id": ann_id, "image_id": image_id,
+                             "category_id": (1, 3, 18)[m],
+                             "bbox": [40.0 + 90 * m, 60.0 + 40 * m, 150.0,
+                                      120.0], "area": 18000.0,
+                             "iscrowd": crowd})
+                ann_id += 1
+        os.makedirs(os.path.join(coco, "annotations"), exist_ok=True)
+        with open(os.path.join(coco, "annotations",
+                               f"instances_{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": [{"id": c} for c in range(1, 91)]}, f)
+    secs["coco"] = time.time() - t0
+    return secs
+
+
+def decoder_on_the_card(card):
+    """Phase 47: build the host decoder, decode each committed fixture and
+    hold its sha256 to the manifest."""
+    import hashlib
+    from afan_torch.utils import imread
+    t0 = time.time()
+    path = kbuild.build_host("imdecode.cpp")
+    imread.load_library()
+    print(f"[47] built the image decoder with c++ in {time.time() - t0:.1f} "
+          f"s into {os.path.relpath(path, ROOT)}")
+    with open(os.path.join(DATA_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, want in sorted(manifest.items()):
+        p = os.path.join(DATA_FIXTURES, name)
+        a = imread.read_label(p) if name.endswith(".png") else \
+            imread.read_rgb(p)
+        got = hashlib.sha256(a.tobytes()).hexdigest()
+        require(list(a.shape) == want["shape"] and got == want["sha256"],
+                f"{name}: decoded {a.shape} sha256 {got}, manifest {want}")
+        print(f"    {name}: {a.shape} sha256 {got[:16]}... equals the "
+              f"manifest (PIL's bytes)")
+
+
+def cpu_model():
+    """The host CPU's model name: ``/proc/cpuinfo``'s, else ``lscpu``'s."""
+    with open("/proc/cpuinfo") as f:
+        name = next((ln.split(":", 1)[1].strip() for ln in f
+                     if ln.lower().startswith("model name")), None)
+    if name is None and shutil.which("lscpu"):
+        said = subprocess.run(["lscpu"], capture_output=True, text=True,
+                              timeout=60).stdout
+        name = next((ln.split(":", 1)[1].strip()
+                     for ln in said.splitlines()
+                     if ln.lower().startswith("model name")), None)
+    return name or f"unknown ({platform.machine()})"
+
+
+def decode_timings(root):
+    """Phase 48's decode times: ms per image, median of 20, of a 500x375
+    JPEG and a 2048x1024 PNG on this host."""
+    from afan_torch.utils import imread
+    jpg = os.path.join(DATA_FIXTURES, "voc_500x375.jpg")
+    png = next(os.path.join(dp, f) for dp, _, fs in sorted(os.walk(
+        os.path.join(root, "leftImg8bit", "train"))) for f in sorted(fs))
+    times = {"jpeg_500x375": host_ms(lambda: imread.read_rgb(jpg)),
+             "png_2048x1024": host_ms(lambda: imread.read_rgb(png))}
+    print(f"    decode, median of 20 on {cpu_model()} ({os.cpu_count()} "
+          f"cores): 500x375 JPEG {times['jpeg_500x375']:.3f} ms, 2048x1024 "
+          f"RGB PNG {times['png_2048x1024']:.3f} ms per image")
+    return times
+
+
+@contextlib.contextmanager
+def recording_prefetchers(out):
+    """``train_detect``'s ``Prefetcher`` records its instances in
+    ``out``."""
+    saved = train_detect.Prefetcher
+
+    class Recording(saved):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            out.append(self)
+
+    train_detect.Prefetcher = Recording
+    try:
+        yield
+    finally:
+        train_detect.Prefetcher = saved
+
+
+def step_ms(stamps):
+    """Each step's ms from its (start, end) stamps."""
+    return [(t1 - t0) * 1e3 for t0, t1 in stamps]
+
+
+def data_recipe_runs(root, updates, host):
+    """Phase 49: the four recipes as written with DATA at ``root``, 2 steps
+    each (Cityscapes 4); per run the steps' ms and the host's ms before
+    each step for its batch go to ``host``: the segmentation loop reads its
+    batch between steps, as ``afan``'s does, and the detection loop waits
+    on its prefetch queue. Returns the launches of the runs by kernel and
+    the runs' checkpoints."""
+    print(f"[49] the recipes as written with DATA={root}: "
+          f"{', '.join(r[0] for r in DATA_SEG_RECIPES + DATA_DET_RECIPES)} "
+          f"({RECIPE_STEPS} steps each, the Cityscapes one "
+          f"{DATA_SEG_RECIPES[0][2]})")
+    if not os.path.isfile(DET_BACKBONE):
+        print(f"    backbone: {calibrated_backbone()}")
+    launches = dict.fromkeys(("resize_ce_forward", "resize_ce_backward",
+                              "pgd_update", "resize_ce_forward_bf16",
+                              "resize_ce_backward_bf16", "pgd_update_bf16",
+                              "nms"), 0)
+    ckpts = {}
+    for name, env, steps in DATA_SEG_RECIPES:
+        tag = "data_" + os.path.splitext(name)[0]
+        stamps = []
+        run = run_seg_recipe(tag, recipe_flags(name, env)
+                             + ["--data_root", root], torch.bfloat16,
+                             updates, step_times=stamps, steps=steps)
+        # the f32 counts include the bf16 launches, which go to their own
+        # entries
+        for i, k in enumerate(("resize_ce_forward", "resize_ce_backward",
+                               "pgd_update")):
+            launches[k] += run[i] - run[3 + i]
+            launches[k + "_bf16"] += run[3 + i]
+        args = train_segment.get_parser().parse_args(recipe_flags(name, env))
+        (d,) = [d for d in os.listdir("checkpoints")
+                if d.startswith(f"{args.dataset}_chip_{tag}_")]
+        ckpts[args.dataset] = os.path.join(
+            "checkpoints", d, f"latest_{args.model}_{args.dataset}.pt")
+        gaps = [(b[0] - a[1]) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        host[tag] = (step_ms(stamps), gaps,
+                     "host ms between steps, reading the next batch "
+                     "(from the second step)")
+    for name, setting in DATA_DET_RECIPES:
+        tag = "data_" + os.path.splitext(name)[0]
+        env = {"KNOBS": coco_knobs(setting)} if setting else None
+        argv = det_recipe_flags(name, tag, env) + ["--data_dir", root]
+        prefetchers, stamps = [], []
+        eval_images = (COCO_SPLITS["val2017"] if setting
+                       else VOC_DET_SPLITS["test"])
+        with recording_prefetchers(prefetchers):
+            nms, pgd, pgd16 = run_det_recipe(tag, argv, torch.bfloat16,
+                                             updates, None, eval_images,
+                                             stamps)
+        launches["nms"] += nms
+        launches["pgd_update"] += pgd - pgd16
+        launches["pgd_update_bf16"] += pgd16
+        ckpts[tag] = os.path.join(DET_OUT, tag, f"model-{RECIPE_STEPS}.pt")
+        host[tag] = (step_ms(stamps),
+                     [w * 1e3 for p in prefetchers for w in p.wait_seconds],
+                     "wait on the prefetch queue before each step (an "
+                     "epoch's first batch waits whole)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, ckpts
+
+
+def data_eval_runs(root, ckpts, updates):
+    """Phase 49, the eval CLIs on the trees: ``eval_segment --task miou`` on
+    the Cityscapes val canvas (1024x2048), ``--task pgd`` (1 step) on the
+    VOC val canvas (512x512), ``eval_detect --task map`` on the VOC 2007
+    test split (difficult objects neutral). Returns their launches."""
+    from afan_torch.eval.det_map import ground_truth
+    seg = ["--model", SEG_MODEL, "--output_stride", "16", "--data_root",
+           root]
+    n_city, n_voc = CITY_SPLITS["val"][0], VOC_SEG_SPLITS["val"]
+    n_det = VOC_DET_SPLITS["test"]
+    runs = [
+        (eval_segment.main, seg + ["--dataset", "cityscapes", "--crop_size",
+                                   "768", "--task", "miou", "--ckpt",
+                                   ckpts["cityscapes"]],
+         "eval_segment miou, Cityscapes val canvas 1024x2048", n_city, {}),
+        (eval_segment.main, seg + ["--dataset", "voc", "--task", "pgd",
+                                   "--pgd_steps", "1", "--ckpt",
+                                   ckpts["voc"]],
+         "eval_segment pgd (1 step), VOC val canvas 512x512", n_voc,
+         {"resize_ce_forward": 1, "resize_ce_backward": 1,
+          "pgd_update": 1}),
+        (eval_detect.main, ["-s", "voc2007", "-b", "resnet50", "--data_dir",
+                            root, "--task", "map", "--checkpoint",
+                            ckpts["data_detect_voc07_final_setting1"]],
+         "eval_detect map, VOC 2007 test", n_det, {"nms": 2}),
+    ]
+    total = dict.fromkeys(eval_counts(), 0)
+    for main, argv, tag, images, expected in runs:
+        with patched_update(share_recording_update(updates)):
+            out, counts = run_eval_cli(main, argv, tag, images, expected)
+        require(np.isfinite(out) and 0.0 <= out <= 1.0, f"{tag}: {out}")
+        print(f"    {tag}: {out:.4f}")
+        for k in total:
+            total[k] += counts[k]
+    _, test, _ = detection_loaders("voc2007", root, 1, MIN_SIDE, MAX_SIDE)
+    difficult = sum(int(d.sum()) for _, _, d in
+                    ground_truth(test.samples).values())
+    require(difficult == n_det, f"{difficult} difficult objects in the "
+            f"evaluator's ground truth, expected {n_det}")
+    print(f"    the VOC07 mAP's ground truth holds the {difficult} difficult "
+          f"objects (neutral)")
+    return total
+
+
+def tall_batch(root):
+    """A batch of 8 tall VOC images from ``root`` on the tall canvas
+    (1008x608), on the card."""
+    loader, _, _ = detection_loaders("voc2007", root, DET_BATCH, MIN_SIDE,
+                                     MAX_SIDE)
+    b = next(b for b in loader if b.images.shape[1] > b.images.shape[2])
+    return (cuda(b.images), cuda(b.boxes), cuda(b.labels.astype(np.int64)),
+            cuda(b.valid))
+
+
+def data_kernels_vs_plain(root, updates, errs):
+    """Phase 50, the checks: the upsample + CE at VOC's eval canvas, and on
+    bf16 logits at the bf16 recipes' crops; one A-FAN step on a tall batch
+    of decoded images with the NMS and PGD-update kernels against one with
+    their plain versions, and the NMS kernel on its proposals; the PGD
+    update at every shape of phases 49's runs, bit for bit. Returns the
+    tall step's NMS calls and batch."""
+    print("[50] kernels vs plain versions at the new shapes")
+    ce_case(*VOC_CANVAS_CE, {"fwd": errs["resize_ce_forward"],
+                             "bwd": errs["resize_ce_backward"]})
+    # the shapes the bf16 recipes give it in phase 49: VOC's crop 513 and
+    # Cityscapes' crop 768
+    for case in BF16_CE_CASES[:2]:
+        bf16_ce_case(*case, {"fwd": errs["resize_ce_forward_bf16"],
+                             "bwd": errs["resize_ce_backward_bf16"]}, seed=5)
+    batch = tall_batch(root)
+    model = det_model()
+    calls, _ = det_step_kernel_vs_plain(model, batch,
+                                        label="[50] tall-canvas A-FAN")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, (boxes, valid, thr, plus_one, _) in enumerate(calls):
+        kernel_vs_plain(f"tall canvas call {i}", boxes, valid, thr,
+                        plus_one, errs["nms"])
+    cases = sorted({(shape, gamma, dtype)
+                    for shape, _, gamma, dtype, _ in updates},
+                   key=lambda c: (c[0], c[1], str(c[2])))
+    for i, (shape, gamma, dtype) in enumerate(cases):
+        x, g, c = (t.to(dtype) for t in pgd_inputs(shape, 800 + i))
+        key = "pgd_update_bf16" if dtype == torch.bfloat16 else "pgd_update"
+        for clip in (False, True):
+            pgd_case(f"on-disk run ascent {i}", x, g, c, clip, errs[key],
+                     gamma, 2.0 / 255)
+    return calls, batch
+
+
+def loader_host_ms(root):
+    """The loaders' host ms per batch alone (median over two epochs):
+    Cityscapes train at batch 4, crop 768, and VOC 2007 detection train at
+    batch 8 on the 600/1000 canvases."""
+    out = {}
+    for tag, loader in (
+            ("cityscapes batch 4", seg_data.cityscapes_loaders(
+                root, SEG_BATCH, SEG_CROP)[0]),
+            ("voc detection batch 8", detection_loaders(
+                "voc2007", root, DET_BATCH, MIN_SIDE, MAX_SIDE)[0])):
+        t = []
+        for _ in range(2):
+            it = iter(loader)
+            while True:
+                t0 = time.perf_counter()
+                if next(it, None) is None:
+                    break
+                t.append((time.perf_counter() - t0) * 1e3)
+        out[tag] = float(np.median(t))
+    return out
+
+
+def data_timings(card, root, calls, batch, updates, host):
+    """Phase 50, the times: the loaders' host ms per batch beside the
+    recipe steps' ms and the host's ms for each batch; the upsample +
+    CE at the VOC canvas, the NMS kernel on the tall canvas's proposals and
+    the PGD update at the tall canvas's SE tap and the eval's VOC canvas,
+    with plain versions, bounds and the library. Returns the kernels'
+    times."""
+    print(f"[50] data and kernel timings on {card}")
+    for tag, ms in loader_host_ms(root).items():
+        print(f"    loader {tag}: {ms:.1f} ms of host time per batch "
+              f"(median, two epochs, no card work beside it; {cpu_model()})")
+    for tag, (ms, waits, what) in host.items():
+        print(f"    {tag}: step wall ms {[round(t, 1) for t in ms]}; {what}: "
+              f"{[round(w, 1) for w in waits]} ms")
+    lo, lab, g = ce_inputs(*VOC_CANVAS_CE[1:5], seed=3)
+    ce = ce_parts(lo, lab, g)
+    print(f"    resize+CE {VOC_CANVAS_CE[0]}: forward kernel {ce['fwd']:.4f} "
+          f"ms, plain {ce['plain_fwd']:.4f}, library {ce['lib_fwd']:.4f}, "
+          f"bound max(bytes {ce['fwd_bytes_ms']:.5f}, operations "
+          f"{ce['fwd_ops_ms']:.5f}); backward kernel {ce['bwd']:.4f} ms, "
+          f"plain {ce['plain_bwd']:.4f}, library {ce['lib_bwd']:.4f}, bound "
+          f"max(bytes {ce['bwd_bytes_ms']:.5f}, operations "
+          f"{ce['bwd_ops_ms']:.5f}) ({card})")
+    # the bf16 recipes' sites, at the Cityscapes crop
+    lo16 = ce_inputs(*BF16_CE_CASES[1][1:5], seed=4)
+    ce16 = ce_parts(lo16[0].to(torch.bfloat16), *lo16[1:])
+    boxes, valid, thr, plus_one, _ = calls[0]
+    k, p, b, o = time_nms_shape(card, "tall canvas proposals", boxes, valid,
+                                thr, plus_one)
+    tall_se = tuple(batch[0].shape[:1]) + (512, batch[0].shape[1] // 8,
+                                           batch[0].shape[2] // 8)
+    shapes = sorted({(shape, dtype, gamma)
+                     for shape, clip, gamma, dtype, _ in updates
+                     if not clip and shape[1:] == tall_se[1:]},
+                    key=lambda c: (c[0], str(c[1]), c[2]))
+    require(shapes, f"no PGD update at the tall SE tap {tall_se} in the "
+            f"on-disk runs")
+
+    times = {"nms": kernel_times(k, p, b, o)}
+    for half in ("fwd", "bwd"):
+        name = "resize_ce_forward" if half == "fwd" else "resize_ce_backward"
+        for suffix, parts in (("", ce), ("_bf16", ce16)):
+            times[name + suffix] = kernel_times(
+                parts[half], parts[f"plain_{half}"],
+                parts[f"{half}_bytes_ms"], parts[f"{half}_ops_ms"],
+                parts[f"lib_{half}"])
+    times["pgd_update_bf16"] = pgd_times(card, shapes)
+    times["pgd_update"] = pgd_times(card, [((1, 512, 512, 3),
+                                            torch.float32, 2.0 / 255)])
+    for name, t in times.items():
+        print(f"    {name} at its new shape: kernel {t['ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.5f}, bound {t['bound_ms']:.6f} "
+              f"({t['bound_by']}), library {t.get('library_ms')} ({card})")
+    return times
+
+
+def data_phases(card):
+    """Phases 47-50; returns (launches, error, times) of each kernel on the
+    on-disk paths."""
+    decoder_on_the_card(card)
+    root = os.path.join(DATA_OUT, "DATA")
+    shutil.rmtree(DATA_OUT, ignore_errors=True)
+    secs = write_data_tree(root)
+    print(f"[48] wrote the trees under {root} at the datasets' sizes and "
+          f"layouts in {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}"
+          f": Cityscapes {CITY_SPLITS['train'][0]} train and "
+          f"{CITY_SPLITS['val'][0]} val at {CITY_HW[1]}x{CITY_HW[0]}; VOC "
+          f"2012 segmentation {VOC_SEG_SPLITS}; VOC 2007 detection "
+          f"{VOC_DET_SPLITS}; COCO {COCO_SPLITS}")
+    decode_timings(root)
+    updates, host = [], {}
+    launches, ckpts = data_recipe_runs(root, updates, host)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, n in data_eval_runs(root, ckpts, updates).items():
+        launches[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = {k: [] for k in launches}
+    calls, batch = data_kernels_vs_plain(root, updates, errs)
+    require(all(errs.values()), f"phase 50 held no kernel of "
+            f"{[k for k, e in errs.items() if not e]} against its plain "
+            f"version")
+    times = data_timings(card, root, calls, batch, updates, host)
+    print(f"    on-disk launches (phases 49 and 50's runs): {launches}")
+    return {k: (launches[k], max(errs[k]), times[k]) for k in launches}
+
+
 def merge_entry(entries, extra):
     """Add the detection training path's part to a kernel's entry: the
     launches, times and bounds of both paths summed, the larger error."""
@@ -4658,7 +5262,7 @@ def group_time(seconds, name):
 
 
 GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain", "scan", "variants",
-          "bf16", "detbf16", "clsbf16", "eval", "mobilenet", "coco")
+          "bf16", "detbf16", "clsbf16", "eval", "mobilenet", "coco", "data")
 
 
 def main(argv=None):
@@ -4762,6 +5366,11 @@ def main(argv=None):
     if only in (None, "coco"):
         with group_time(seconds, "coco"):
             merge_launches(entries, coco_phases(card))
+            gc.collect()
+            torch.cuda.empty_cache()
+    if only in (None, "data"):
+        with group_time(seconds, "data"):
+            merge_launches(entries, data_phases(card))
 
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "
           f"(seconds by group: {seconds})")

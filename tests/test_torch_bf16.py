@@ -58,6 +58,7 @@ from afan_torch.ops import pgd_step
 from afan_torch.ops import resize_ce as rce
 from afan_torch.train import segment_loop
 from afan_torch.train.optim import poly_schedule, sgd
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16 = torch.bfloat16

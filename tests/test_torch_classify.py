@@ -44,22 +44,12 @@ from afan_torch.models.resnet_s import ResNetS
 from afan_torch.train import loop, optim
 from afan_torch.train.checkpoint import (load_training_state,
                                          save_classify_checkpoint)
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCKS, NC, B = (1, 1, 1), 4, 8
 LR, MILESTONE, WD, MOMENTUM, W_LR = 0.1, 1, 5e-4, 0.9, 0.01
 REL = 1e-4
 FLIP_FRACTION = 1e-3
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port: its small ops run no slower on one,
-    and the suite's parallel workers would otherwise oversubscribe the cores
-    (the CLI test's full-width ResNet-56 slowed fifty-fold)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def batch(seed):

@@ -59,6 +59,7 @@ from test_torch_detect_train import (B, LR, TINY, batched_priorities,
                                      compare_states, counting, j_targets,
                                      port_model, setup,  # noqa: F401
                                      smoke_tiny_flags, t, to_torch)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RPN = dict(taps_se=(2,), gammas_se=(1.0 / 255,), spectrum=2,
@@ -139,15 +140,30 @@ def test_each_package_reads_only_its_own_cache(tmp_path):
 
 
 def test_a_coco_image_on_disk_is_not_decoded(tmp_path):
+    """A sample whose image file is absent is not decoded: it raises, naming
+    the file, as ``afan``'s PIL does; once the JPEG is there the batch is
+    ``afan``'s byte for byte."""
+    from PIL import Image
     os.makedirs(tmp_path / "COCO" / "annotations")
     for split in ("train", "val"):
         write_coco_json(str(tmp_path / "COCO" / "annotations"
                             / f"instances_{split}2017.json"))
     train, _, nc = registry.detection_loaders("coco2017-person",
                                               str(tmp_path), 1, 64, 96)
+    j_train, _, _ = j_registry.detection_loaders("coco2017-person",
+                                                 str(tmp_path), 1, 64, 96)
     assert nc == 2 and len(train.samples) == 1
-    with pytest.raises(NotImplementedError, match="item 6"):
-        next(iter(train))
+    (sample,) = train.samples
+    for loader in (train, j_train):
+        with pytest.raises(FileNotFoundError, match="000000000001.jpg"):
+            next(iter(loader))
+    rng = np.random.RandomState(0)
+    os.makedirs(os.path.dirname(sample.image_path))
+    Image.fromarray(rng.randint(0, 256, (sample.height, sample.width, 3))
+                    .astype(np.uint8)).save(sample.image_path, quality=90)
+    got, want = next(iter(train)), next(iter(j_train))
+    for f in ("images", "scales", "boxes", "labels", "valid"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
 
 
 NAMES = registry.DETECTION_DATASETS + ("voc2007-cat-dog", "coco2017-person",

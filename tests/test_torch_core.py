@@ -20,6 +20,7 @@ from afan.core import attack as jattack
 from afan.core import project as jproject
 from afan.core import spectrum as jspectrum
 from afan_torch.core import afn, attack, project, spectrum
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-6
 

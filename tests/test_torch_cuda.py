@@ -655,3 +655,45 @@ def test_nms_kernel_at_the_coco_shapes(card, groups, n, thr):
     want = tnms.nms_sorted_mask_plain(b, v, thr)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_image_decoder_on_the_card_machine_matches_the_manifest(card):
+    """The host decoder built where the card is: each committed fixture
+    decodes to the bytes whose sha256 the manifest holds (PIL's)."""
+    import hashlib
+    import json
+    import os
+
+    from afan_torch.utils import imread
+    from chip_smoke import DATA_FIXTURES
+    with open(os.path.join(DATA_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, want in manifest.items():
+        path = os.path.join(DATA_FIXTURES, name)
+        a = (imread.read_label(path) if name.endswith(".png")
+             else imread.read_rgb(path))
+        assert list(a.shape) == want["shape"], name
+        assert hashlib.sha256(a.tobytes()).hexdigest() == want["sha256"], name
+
+
+@pytest.mark.cuda
+def test_a_batch_read_from_disk_moves_to_the_card(card, tmp_path):
+    """A VOC 2007 detection tree of two fixture JPEGs: the loader's batch
+    on the card equals it on the host."""
+    from afan_torch.data.registry import detection_loaders
+    from chip_smoke import copy_fixture, voc_xml
+    voc = tmp_path / "VOC2007"
+    for i in range(2):
+        copy_fixture("voc_500x375.jpg", str(voc / "JPEGImages" / f"{i}.jpg"))
+        voc_xml(str(voc / "Annotations" / f"{i}.xml"), str(i), 500, 375,
+                [("dog", False, (10, 20, 200, 300))])
+    (voc / "ImageSets" / "Main").mkdir(parents=True)
+    for split in ("trainval", "test"):
+        (voc / "ImageSets" / "Main" / f"{split}.txt").write_text("0\n1\n")
+    train, _, _ = detection_loaders("voc2007", str(tmp_path), 2, 600, 1000)
+    batch = next(iter(train))
+    images = torch.from_numpy(batch.images).to(card)
+    assert tuple(images.shape) == (2, 608, 1008, 3)
+    assert torch.equal(images.cpu(), torch.from_numpy(batch.images))
+    assert float(images[:, :600, :800].amax()) > 0.5

@@ -28,6 +28,7 @@ from afan.models.resnet import from_name as j_resnet
 from afan_torch.interop.from_jax import deeplab_variables_to_state_dict
 from afan_torch.models.deeplab import DeepLab, build_model
 from afan_torch.models.resnet import from_name, frozen_bn_stats, BatchNorm
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW = 33
 NC = 4

@@ -55,6 +55,7 @@ from afan_torch.train.optim import sgd, warmup_multistep_schedule
 # ``setup`` is that file's module-scoped fixture, shared here
 from test_torch_detect_train import (AFAN, HW, LR, TINY, jax_state,
                                      j_targets, setup, t, to_torch)
+from torch_threads import one_torch_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 

@@ -50,6 +50,7 @@ from afan_torch.train.checkpoint import load_checkpoint, load_training_state
 from afan_torch.train.optim import sgd, warmup_multistep_schedule
 
 from voc_oracle import oracle_voc_map
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(backbone="resnet18", num_classes=4, train_pre_nms_top_n=128,
@@ -553,14 +554,16 @@ def test_loaders_are_byte_identical_to_afans(seed):
 
 
 def test_loader_refuses_what_is_not_ported(tmp_path):
-    """A VOC tree on disk raises, for VOC and its cat/dog subset (reading
-    it is not ported; COCO's json is, its images are not:
-    ``tests/test_torch_coco.py``)."""
+    """A VOC tree without its split lists raises, for VOC and its cat/dog
+    subset, as ``afan``'s loaders do (whole trees are read in
+    ``tests/test_torch_data_disk.py``)."""
     os.makedirs(tmp_path / "VOC2007" / "Annotations")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        voc_det.voc_detection_loaders(str(tmp_path), 2)
+    for loaders in (voc_det.voc_detection_loaders,
+                    j_voc_det.voc_detection_loaders):
+        with pytest.raises(FileNotFoundError, match="trainval.txt"):
+            loaders(str(tmp_path), 2)
     for name in ("voc2007", "voc2007-cat-dog"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(FileNotFoundError, match="trainval.txt"):
             registry.detection_loaders(name, str(tmp_path), 2, 600, 1000)
 
 

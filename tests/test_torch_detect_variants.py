@@ -49,6 +49,7 @@ from test_torch_detect_train import (LR, batched_priorities, close,
                                      compare_states, counting, j_targets,
                                      jax_state, port_model, smoke_tiny_flags,
                                      t, to_torch)
+from torch_threads import one_torch_thread  # noqa: F401
 
 INPUT_STEPS, ADVTRAIN_STEPS = 2, 1
 VARIANT_CONFIGS = {

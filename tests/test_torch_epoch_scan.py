@@ -35,20 +35,11 @@ from afan_torch.data import cifar
 from afan_torch.models.resnet_s import ResNetS
 from afan_torch.train import loop, optim
 from afan_torch.train.checkpoint import load_training_state
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCKS, NC, B, STEPS, N = (1, 1, 1), 4, 16, 4, 64
 LR, MOMENTUM, WD = 0.1, 0.9, 5e-4
 REL = 1e-6
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread, as tests/test_torch_classify.py: the suite's
-    parallel workers would otherwise oversubscribe the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def close(got, want, rel=REL, msg=""):

@@ -47,6 +47,7 @@ from test_torch_detect_train import setup  # noqa: F401 (the fixture)
 from test_torch_detect_train import (B, close, jax_state, port_model,
                                      batched_priorities, t)
 from test_torch_nms import iou_words, word_scan
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHARE = 1e-4        # entries allowed a sign flip after sign steps
 

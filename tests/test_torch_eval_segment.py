@@ -43,6 +43,7 @@ from afan_torch.utils.png import voc_color_map
 
 from test_torch_segment import setup  # noqa: F401 (the fixture)
 from test_torch_segment import port_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHARE = 1e-4
 

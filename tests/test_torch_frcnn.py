@@ -32,6 +32,7 @@ from afan_torch.models.frcnn.rpn import generate_proposals
 from afan_torch.ops.roi_align import (pool_rois, roi_align_einsum,
                                       roi_align_gather)
 from afan_torch.train.detect_loop import make_detect_fn
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(backbone="resnet18", num_classes=4, anchor_sizes=(32, 64),
             eval_pre_nms_top_n=64, eval_post_nms_top_n=8)

@@ -1,0 +1,265 @@
+"""afan_torch's image reader (``afan_torch/utils/imread.py`` over
+``afan_torch/csrc/imdecode.cpp``) against PIL, which ``afan`` decodes with.
+
+Every case must equal PIL bit for bit: ``read_rgb(p)`` against
+``np.asarray(Image.open(p).convert("RGB"))`` and ``read_label(p)`` against
+``np.asarray(Image.open(p), np.uint8)``.
+
+- JPEGs written by PIL (libjpeg-turbo) at 4:4:4, 4:2:2 and 4:2:0, qualities
+  10, 75 and 95, at sizes from 1x1 to 500x375 with odd sides (MCU padding
+  cropped); gray; optimised Huffman tables; restart intervals by blocks and
+  by rows; an RGB JPEG with Adobe's transform 0.
+- PNGs of every 8-bit colour type, rows filtered by each of the five
+  filter types and by all in turn (``chip_smoke.write_png``), a palette
+  shorter than its indices, a ``tRNS`` chunk; the label reader on gray and
+  palette PNGs.
+- The committed fixtures of ``tests/fixtures/torch_images`` against their
+  manifest, which is recomputed here with PIL so that it cannot go stale.
+- What the reader refuses raises a ``ValueError`` naming the file:
+  progressive and CMYK JPEG, interlaced, 16-bit and 1-bit PNG, truncated
+  files of both kinds, a broken checksum, other formats.
+"""
+import hashlib
+import json
+import os
+import struct
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from afan_torch.utils import imread
+from chip_smoke import DATA_FIXTURES, write_png
+
+SIZES = [(375, 500), (500, 375), (257, 333), (17, 9), (1, 1), (8, 16),
+         (3, 5), (16, 24), (2, 7)]
+
+
+def smooth(h, w, seed):
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([128 + 100 * np.sin(x / 17 + seed) * np.cos(y / 23),
+                    128 + 120 * np.sin((x + y) / 31),
+                    (x * 3 + y * 5) % 256], -1)
+    return np.clip(img + rng.randn(h, w, 3) * 20, 0, 255).astype(np.uint8)
+
+
+def pil_rgb(path):
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def pil_label(path):
+    with Image.open(path) as im:
+        return np.asarray(im, np.uint8)
+
+
+def same(got, want):
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("quality", [10, 75, 95])
+@pytest.mark.parametrize("subsampling", [0, 1, 2],
+                         ids=["444", "422", "420"])
+def test_jpeg_equals_pil(tmp_path, subsampling, quality):
+    for i, (h, w) in enumerate(SIZES):
+        path = str(tmp_path / f"{i}.jpg")
+        Image.fromarray(smooth(h, w, i)).save(path, quality=quality,
+                                              subsampling=subsampling)
+        same(imread.read_rgb(path), pil_rgb(path))
+
+
+@pytest.mark.parametrize("kw", [dict(optimize=True),
+                                dict(restart_marker_blocks=1),
+                                dict(restart_marker_blocks=5),
+                                dict(restart_marker_rows=1),
+                                dict(restart_marker_rows=2, optimize=True)],
+                         ids=["optimize", "restart1", "restart5",
+                              "restart_row", "restart_rows_optimize"])
+@pytest.mark.parametrize("subsampling", [0, 2], ids=["444", "420"])
+def test_jpeg_tables_and_restarts_equal_pil(tmp_path, kw, subsampling):
+    for i, (h, w) in enumerate([(375, 500), (257, 333), (9, 17)]):
+        path = str(tmp_path / f"{i}.jpg")
+        Image.fromarray(smooth(h, w, i)).save(path, quality=80,
+                                              subsampling=subsampling, **kw)
+        data = open(path, "rb").read()
+        if "restart_marker_blocks" in kw or "restart_marker_rows" in kw:
+            assert b"\xff\xdd" in data        # a DRI segment
+        same(imread.read_rgb(path), pil_rgb(path))
+
+
+@pytest.mark.parametrize("quality", [30, 90])
+def test_gray_jpeg_repeats_its_channel_as_pil(tmp_path, quality):
+    for i, (h, w) in enumerate(SIZES):
+        path = str(tmp_path / f"{i}.jpg")
+        Image.fromarray(smooth(h, w, i)[..., 0]).save(path, quality=quality)
+        with Image.open(path) as im:
+            assert im.mode == "L"
+        got = imread.read_rgb(path)
+        same(got, pil_rgb(path))
+        assert np.array_equal(got[..., 0], got[..., 2])
+
+
+def test_adobe_rgb_jpeg_is_not_converted(tmp_path):
+    """``keep_rgb`` writes RGB samples with Adobe's transform 0, which
+    libjpeg reads as RGB."""
+    path = str(tmp_path / "rgb.jpg")
+    Image.fromarray(smooth(60, 90, 3)).save(path, quality=90, keep_rgb=True)
+    assert b"Adobe" in open(path, "rb").read()
+    same(imread.read_rgb(path), pil_rgb(path))
+
+
+PNG_MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}
+
+
+@pytest.mark.parametrize("mode", sorted(PNG_MODES) + ["P"])
+def test_png_colour_types_equal_pil(tmp_path, mode):
+    rng = np.random.RandomState(len(mode))
+    path = str(tmp_path / "a.png")
+    if mode == "P":
+        im = Image.fromarray(rng.randint(0, 40, (37, 53)).astype(np.uint8),
+                             mode="P")
+        im.putpalette(rng.randint(0, 256, 40 * 3).astype(np.uint8).tobytes())
+    else:
+        shape = (37, 53) if mode == "L" else (37, 53, PNG_MODES[mode])
+        im = Image.fromarray(rng.randint(0, 256, shape).astype(np.uint8),
+                             mode=mode)
+    im.save(path)
+    same(imread.read_rgb(path), pil_rgb(path))
+    if mode in ("L", "P"):
+        same(imread.read_label(path), pil_label(path))
+
+
+@pytest.mark.parametrize("filters", [(0,), (1,), (2,), (3,), (4,),
+                                     (0, 1, 2, 3, 4)],
+                         ids=["none", "sub", "up", "average", "paeth",
+                              "all"])
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+def test_png_filter_types_equal_pil(tmp_path, filters, channels):
+    """Each filter type forced on every row, and all five in turn; smooth
+    and noisy content, so Paeth's ties and all three of its choices
+    occur."""
+    img = smooth(41, 67, channels)
+    img = np.concatenate([img, img[..., :1]], -1)[..., :channels]
+    img = img[..., 0] if channels == 1 else img
+    path = str(tmp_path / "f.png")
+    write_png(path, img, filters=filters)
+    same(imread.read_rgb(path), pil_rgb(path))
+    if channels == 1:
+        same(imread.read_label(path), pil_label(path))
+
+
+def test_palette_png_past_its_palette_and_with_trns(tmp_path):
+    """Indices past a 10-entry palette read as Pillow reads them (black);
+    ``read_label`` returns the indices and ignores ``tRNS``."""
+    rng = np.random.RandomState(0)
+    idx = rng.randint(0, 256, (20, 30)).astype(np.uint8)
+    pal = np.zeros((256, 3), np.uint8)
+    pal[:10] = rng.randint(0, 256, (10, 3))
+    path = str(tmp_path / "p.png")
+    write_png(path, idx, palette=pal[:10])
+    same(imread.read_rgb(path), pil_rgb(path))
+    same(imread.read_label(path), idx)
+    im = Image.fromarray(idx, mode="P")
+    im.putpalette(pal.tobytes())
+    im.info["transparency"] = 3
+    trns = str(tmp_path / "t.png")
+    im.save(trns, transparency=3)
+    assert b"tRNS" in open(trns, "rb").read()
+    same(imread.read_label(trns), pil_label(trns))
+    same(imread.read_rgb(trns), pil_rgb(trns))
+
+
+def manifest():
+    out = {}
+    for name in sorted(os.listdir(DATA_FIXTURES)):
+        path = os.path.join(DATA_FIXTURES, name)
+        if name.endswith(".png"):
+            a = pil_label(path)
+        elif name.endswith(".jpg"):
+            a = pil_rgb(path)
+        else:
+            continue
+        out[name] = {"shape": list(a.shape),
+                     "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+    return out
+
+
+def test_committed_fixtures_match_their_manifest_and_pil():
+    with open(os.path.join(DATA_FIXTURES, "manifest.json")) as f:
+        committed = json.load(f)
+    assert committed == manifest()
+    sizes = sum(os.path.getsize(os.path.join(DATA_FIXTURES, n))
+                for n in os.listdir(DATA_FIXTURES))
+    assert sizes < 400 * 1024
+    for name in committed:
+        path = os.path.join(DATA_FIXTURES, name)
+        if name.endswith(".png"):
+            same(imread.read_label(path), pil_label(path))
+        else:
+            same(imread.read_rgb(path), pil_rgb(path))
+    restart = open(os.path.join(DATA_FIXTURES, "restart_333x257.jpg"),
+                   "rb").read()
+    assert b"\xff\xdd" in restart and b"\xff\xd0" in restart
+
+
+def png_bytes(w, h, depth, ctype, interlace, raw):
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                         interlace))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def refused(path, match, reader=imread.read_rgb):
+    with pytest.raises(ValueError, match=match) as e:
+        reader(str(path))
+    assert str(path) in str(e.value)
+
+
+def test_what_the_reader_refuses_raises_naming_the_file(tmp_path):
+    img = smooth(64, 80, 1)
+    prog = tmp_path / "progressive.jpg"
+    Image.fromarray(img).save(prog, progressive=True)
+    refused(prog, "progressive")
+    cmyk = tmp_path / "cmyk.jpg"
+    Image.fromarray(img).convert("CMYK").save(cmyk)
+    refused(cmyk, "CMYK")
+    interlaced = tmp_path / "interlaced.png"          # Adam7, 1x1 gray
+    interlaced.write_bytes(png_bytes(1, 1, 8, 0, 1, b"\x00\x7f"))
+    assert pil_label(interlaced).tolist() == [[127]]  # PIL reads it
+    refused(interlaced, "interlaced")
+    deep = tmp_path / "16bit.png"
+    deep.write_bytes(png_bytes(4, 2, 16, 0, 0, (b"\x00" + bytes(8)) * 2))
+    refused(deep, "16-bit")
+    one = tmp_path / "1bit.png"
+    Image.fromarray(img[..., 0] > 128).save(one)
+    refused(one, "below 8 bits")
+    jpg = tmp_path / "whole.jpg"
+    Image.fromarray(img).save(jpg, quality=90)
+    data = jpg.read_bytes()
+    cut = tmp_path / "truncated.jpg"
+    cut.write_bytes(data[:len(data) * 2 // 3])
+    refused(cut, "truncated")
+    with pytest.raises(OSError, match="truncated"):
+        pil_rgb(cut)
+    png = tmp_path / "whole.png"
+    Image.fromarray(img).save(png)
+    data = png.read_bytes()
+    cut_png = tmp_path / "truncated.png"
+    cut_png.write_bytes(data[:len(data) * 2 // 3])
+    refused(cut_png, "truncated")
+    bad = bytearray(data)
+    bad[40] ^= 0xFF                                    # inside IDAT
+    broken = tmp_path / "broken.png"
+    broken.write_bytes(bytes(bad))
+    refused(broken, "checksum")
+    other = tmp_path / "image.bmp"
+    Image.fromarray(img).save(other)
+    refused(other, "neither a PNG nor a JPEG")
+    refused(png, "gray or palette", imread.read_label)
+    refused(jpg, "must be a PNG", imread.read_label)

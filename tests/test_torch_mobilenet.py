@@ -66,6 +66,7 @@ from test_torch_bf16 import rel_gap
 from test_torch_deeplab import (batch, close, flax_no_dropout,  # noqa: F401
                                 nhwc, no_dropout)
 from test_torch_segment import LR, TOTAL, close_l2
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, B = 4, 4
 TIGHT = 1e-5

@@ -27,6 +27,7 @@ from afan.ops.native import nms_cpu
 from afan_torch.ops import nms as tnms
 from afan_torch.ops.kernels import nms as knms
 from chip_smoke import NMS_EDGE_CASES, sorted_boxes
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 

@@ -21,6 +21,7 @@ from afan_torch.core import attack
 from afan_torch.core.project import linfball_proj
 from afan_torch.ops import pgd_step
 from afan_torch.ops.kernels import pgd_step as kernels
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def bits(a):

@@ -25,6 +25,7 @@ from afan.train.segment_loop import _per_entry_loss_sums as j_sums
 from afan_torch.models.deeplab.heads import resize_bilinear
 from afan_torch.ops import resize_ce as rce
 from afan_torch.ops.kernels import resize_ce as krce
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 

@@ -19,6 +19,7 @@ from afan.models import resnet_s as jresnet_s
 from afan_torch.interop.from_jax import resnet_s_variables_to_state_dict
 from afan_torch.models import resnet_s
 from afan_torch.models.taps import check_tap
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 BLOCKS = (1, 1, 1)

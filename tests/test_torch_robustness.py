@@ -29,17 +29,10 @@ from afan_torch.data import cifar
 from afan_torch.eval import robustness
 from afan_torch.interop.from_jax import resnet_s_variables_to_state_dict
 from afan_torch.models.resnet_s import ResNetS, resnet56
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCKS, NC, B = (1, 1, 1), 4, 8
 EPS = 8.0 / 255
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def batch(seed):

@@ -9,9 +9,9 @@ CLI's defaults and choices, and the three segmentation recipes as written.
   atol 0: Pillow's fixed-point bilinear of the uint8 image by output size
   (``voc_det.resize_uint8``) and Pillow's nearest of the label.
 - ``crop_val``'s resizes, which ``afan`` runs through OpenCV, against
-  ``cv2``: the nearest label resize exactly; the linear image resize within
-  2 float32 ulps of 1 (OpenCV's vector code rounds the two passes'
-  multiply-adds its own way; the taps and weights are the same).
+  ``cv2``: the nearest label resize and the linear image resize exactly
+  (the latter's two passes are ``fma(s1 - s0, frac, s0)`` in float32, as
+  OpenCV's AVX2 code computes them).
 - The parsers of both CLIs agree on the default and the choices of every
   flag they share, the recipes' flags among them; ``--dataset synthetic``
   and no other data flag builds a 21-class model on 513 crops in both (the
@@ -37,6 +37,8 @@ from afan_torch.cli import train_segment
 from afan_torch.data import ext_transforms, seg_data
 from afan_torch.data.voc_det import resize_uint8
 from afan_torch.models.resnet import Conv2d
+from opencv_linear import assert_opencv_linear
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPES = {"seg_voc07_final1.sh": (dict(MIX="01"), "voc", 21),
@@ -101,18 +103,20 @@ def test_crop_val_resizes_are_opencvs(size, out):
     rng = np.random.RandomState(size[0])
     img = rng.rand(*size, 3).astype(np.float32)
     want = cv2.resize(img, out[::-1], interpolation=cv2.INTER_LINEAR)
-    got = seg_data.cv2_resize_linear(img, out)
-    assert got.dtype == np.float32
-    np.testing.assert_allclose(got, want, rtol=0, atol=2 * 2.0 ** -23)
+    assert_opencv_linear(seg_data.cv2_resize_linear(img, out), want)
     lab = rng.randint(0, 21, size).astype(np.int32)
     want = cv2.resize(lab, out[::-1], interpolation=cv2.INTER_NEAREST)
     assert np.array_equal(seg_data.cv2_resize_nearest(lab, out), want)
 
 
 def test_a_voc_tree_on_disk_is_not_read(tmp_path):
+    """A VOC tree without its split lists is not read: it raises as
+    ``afan``'s loader does (the trees are read in
+    ``tests/test_torch_data_disk.py``)."""
     os.makedirs(tmp_path / "VOC2012" / "SegmentationClass")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        seg_data.voc_seg_loaders(str(tmp_path), 2, 32)
+    for loaders in (seg_data.voc_seg_loaders, j_seg.voc_seg_loaders):
+        with pytest.raises(FileNotFoundError, match="train.txt"):
+            loaders(str(tmp_path), 2, 32)
 
 
 def shared_actions():

@@ -53,6 +53,7 @@ from afan_torch.train.checkpoint import (load_checkpoint,
                                          load_training_state,
                                          overlap_restore)
 from afan_torch.train.optim import poly_schedule, sgd
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, HW, NC, LR, TOTAL = 4, 33, 4, 0.1, 20
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -217,9 +218,14 @@ def test_synth_pair_and_loaders_are_byte_identical():
 
 
 def test_real_dataset_is_not_read(tmp_path):
+    """A Cityscapes tree without its split directories is not read: it
+    raises as ``afan``'s loader does (the trees are read in
+    ``tests/test_torch_data_disk.py``)."""
     os.makedirs(tmp_path / "leftImg8bit")
-    with pytest.raises(NotImplementedError):
-        seg_data.cityscapes_loaders(str(tmp_path), 2, 32)
+    for loaders in (seg_data.cityscapes_loaders,
+                    jseg_data.cityscapes_loaders):
+        with pytest.raises(FileNotFoundError, match="train"):
+            loaders(str(tmp_path), 2, 32)
 
 
 @pytest.mark.parametrize("case", ["random", "absent_class", "all_ignored"])

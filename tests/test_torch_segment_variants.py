@@ -44,6 +44,7 @@ import chip_smoke
 from test_torch_segment import flax_no_dropout, setup  # noqa: F401
 from test_torch_segment import (NC, close, compare_states, jax_state,
                                 port_model, recipe_flags)
+from torch_threads import one_torch_thread  # noqa: F401
 
 INPUT_STEPS, ADVTRAIN_STEPS = 1, 2
 MULTI = dict(tap_se=3, extra_taps=(1, 2, 4),

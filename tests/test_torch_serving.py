@@ -17,6 +17,7 @@ from afan_torch.cli.infer_detect import (build_state, detect_batch,
                                          preprocess_frame)
 from afan_torch.cli.serve_websocket import FrameBatcher
 from afan_torch.data.voc_det import resize_image
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The port's resize is PIL's fixed-point resample: it must agree exactly.
