@@ -41,6 +41,9 @@ random init, the torso from ``--pretrained_backbone`` where given. The loop
 writes ``model-{step}.pt`` (model, optimizer, schedule and step) every
 ``--num_steps_to_snapshot`` steps and at the end, and ends with the test
 split's mAP: VOC's protocol, or COCO's (AP@[.5:.95]) for the COCO names.
+Each step's loss goes to ``<outputs_dir>/summaries/scalars.jsonl``
+(``train/loss``), and to TensorBoard there where ``torch.utils.tensorboard``
+imports, as ``afan`` writes it.
 """
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ from ..train.detect_loop import (DetAfanConfig, detection_param_groups,
 from ..train.optim import sgd, warmup_multistep_schedule
 from ..utils.device import resolve_device
 from ..utils.logging import Log
+from ..utils.observe import ScalarWriter
 
 VARIANTS = ("baseline", "advtrain", "afan", "sat", "sat_clean", "sat3",
             "sat7", "sat10", "multi", "multi_clean", "sat_multi",
@@ -288,6 +292,8 @@ def main(argv=None):
                 torch.from_numpy(batch.valid).to(device))
 
     losses = deque(maxlen=100)
+    summary_writer = ScalarWriter(os.path.join(args.outputs_dir,
+                                               "summaries"))
     t0 = time.time()
     should_stop = step >= args.num_steps_to_finish
     while not should_stop:
@@ -297,6 +303,7 @@ def main(argv=None):
             losses.append(float(metrics["loss"]))
             if not np.isfinite(losses[-1]):
                 raise FloatingPointError(f"loss {losses[-1]} at step {step}")
+            summary_writer.add_scalar("train/loss", losses[-1], step)
             should_stop = step >= args.num_steps_to_finish
             if step % args.num_steps_to_display == 0:
                 rate = (args.num_steps_to_display * args.batch_size
@@ -314,6 +321,7 @@ def main(argv=None):
                 Log.i(f"[Step {step}] mAP = {evaluator.evaluate()[0]:.4f}")
             if should_stop:
                 break
+    summary_writer.close()
 
     mean_ap, detail = evaluator.evaluate()
     Log.i(f"final mAP = {mean_ap:.4f}\n{detail}")

@@ -47,7 +47,18 @@ with mIoU every ``--val_interval`` iterations and at the end, and writes
 ``--enable_vis`` adds input | target | prediction PNG panels of the first
 ``--vis_num_samples`` validation images under ``runs/<exp>/vis/``.
 ``--test_only CKPT`` restores a checkpoint, validates, prints the metrics
-and returns them, training nothing.
+and returns them, training nothing. Each step's loss and each validation's
+mIoU go to ``runs/<exp>/scalars.jsonl`` (``train/loss``, ``val/mIoU``),
+and to TensorBoard there where ``torch.utils.tensorboard`` imports, as
+``afan`` writes them.
+
+``--fused_ce auto|on`` runs every loss and ascent site through the upsample
++ CE kernels on the card; ``off`` through the library's upsample and
+cross-entropy. A kernel that fails raises: there is no switch to ``off``.
+``afan``'s other flags parse as in ``afan``: ``--gpu_id``, ``--vis_port``,
+``--vis_env`` and ``--adv_type`` are ignored, ``--download`` logs that
+nothing is downloaded; ``--num_devices`` and ``--spatial_shards`` above 1,
+``--remat_tails`` and ``--backbone_remat`` raise, not ported yet.
 """
 from __future__ import annotations
 
@@ -71,7 +82,7 @@ from ..train.segment_loop import (SegAfanConfig, make_afan_seg_step,
                                   make_seg_eval_step)
 from ..utils.device import resolve_device
 from ..utils.logging import Log
-from ..utils.observe import save_image_panel
+from ..utils.observe import ScalarWriter, save_image_panel
 from .eval_segment import decode_palette
 
 VARIANTS = ("baseline", "advtrain", "afan", "sat", "sat_clean", "multi",
@@ -168,7 +179,45 @@ def get_parser():
                    help="write input|target|prediction panels at each "
                         "validation")
     p.add_argument("--vis_num_samples", type=int, default=8)
+    # afan's flags of its TPU runs: the kernel's switch, the meshes and
+    # recomputation
+    p.add_argument("--fused_ce", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="auto, on: the upsample + CE kernels at every loss "
+                        "site (on the card); off: the library's upsample "
+                        "and cross-entropy")
+    p.add_argument("--remat_tails", action="store_true", default=False,
+                   help="not ported yet: raises")
+    p.add_argument("--backbone_remat", action="store_true", default=False,
+                   help="not ported yet: raises")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="data-parallel devices (only 1 is ported)")
+    p.add_argument("--spatial_shards", type=int, default=1,
+                   help="row shards of a data x spatial mesh (only 1 is "
+                        "ported)")
+    # the reference's remaining `args.py` flags
+    p.add_argument("--download", action="store_true",
+                   help="downloads nothing: a warning is logged and the "
+                        "data on disk, or the synthetic fallback, is used")
+    p.add_argument("--gpu_id", type=str, default=None, help="ignored")
+    p.add_argument("--vis_port", type=str, default=None, help="ignored")
+    p.add_argument("--vis_env", type=str, default=None, help="ignored")
+    p.add_argument("--adv_type", type=str, default="baseline",
+                   help="ignored (unused by the reference trainers too)")
     return p
+
+
+def refuse_unported(args) -> None:
+    """The flags whose paths are not ported yet raise, naming the ROADMAP,
+    instead of running something else."""
+    where = "not ported yet (ROADMAP.md, queue 1)"
+    if args.num_devices is not None and args.num_devices > 1:
+        raise NotImplementedError(f"--num_devices > 1 is {where}")
+    if args.spatial_shards > 1:
+        raise NotImplementedError(f"--spatial_shards > 1 is {where}")
+    for flag in ("remat_tails", "backbone_remat"):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag} is {where}")
 
 
 def afan_config(args) -> SegAfanConfig:
@@ -210,15 +259,17 @@ def afan_config(args) -> SegAfanConfig:
 
 def build_step(args, model, optimizer, scheduler):
     """The train step of ``args.variant``."""
+    fused = args.fused_ce != "off"
     if args.variant == "baseline":
         return make_seg_base_step(model, optimizer, scheduler,
-                                  args.loss_type == "focal_loss")
+                                  args.loss_type == "focal_loss", fused)
     if args.variant == "advtrain":
         return make_seg_advtrain_step(model, optimizer, scheduler,
                                       steps=args.steps,
                                       gamma=args.gamma_se / 255,
-                                      eps=args.eps / 255)
-    return make_afan_seg_step(model, optimizer, scheduler, afan_config(args))
+                                      eps=args.eps / 255, fused_ce=fused)
+    return make_afan_seg_step(model, optimizer, scheduler, afan_config(args),
+                              fused_ce=fused)
 
 
 def lr_schedule(args):
@@ -240,12 +291,17 @@ def experiment_name(args) -> str:
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
+    refuse_unported(args)
     device = resolve_device(args.device)
     exp = experiment_name(args)
     outdir = os.path.join("checkpoints", exp)
     os.makedirs(outdir, exist_ok=True)
     Log.initialize(os.path.join(outdir, "train.log"))
     Log.i(f"args: {vars(args)}; save dir: [{exp}]; device {device}")
+
+    if args.download:
+        Log.i("--download requested: this environment has no egress; "
+              "falling back to on-disk data or the synthetic pipeline")
 
     if args.dataset == "cityscapes":
         train_loader, val_loader, num_classes = cityscapes_loaders(
@@ -330,6 +386,7 @@ def main(argv=None):
         Log.i(StreamSegMetrics.to_str(results))
         return results
 
+    writer = ScalarWriter(os.path.join("runs", exp))
     interval_loss = 0.0
     t0 = time.time()
     while cur_itrs < total:
@@ -339,6 +396,7 @@ def main(argv=None):
             loss = float(metrics["loss"])
             if not np.isfinite(loss):
                 raise FloatingPointError(f"loss {loss} at itrs {cur_itrs}")
+            writer.add_scalar("train/loss", loss, cur_itrs)
             interval_loss += loss
             if cur_itrs % args.print_interval == 0:
                 rate = (args.print_interval * args.batch_size
@@ -351,6 +409,7 @@ def main(argv=None):
             if cur_itrs % args.val_interval == 0 or cur_itrs >= total:
                 results = validate(cur_itrs)
                 score = results["Mean IoU"]
+                writer.add_scalar("val/mIoU", score, cur_itrs)
                 Log.i(f"[Val] itrs {cur_itrs}: "
                       f"{StreamSegMetrics.to_str(results)}")
                 save_checkpoint(
@@ -366,6 +425,7 @@ def main(argv=None):
                         model, optimizer, scheduler, cur_itrs, best_score)
             if cur_itrs >= total:
                 break
+    writer.close()
 
     Log.i(f"done; best mIoU {best_score:.4f}")
     return best_score

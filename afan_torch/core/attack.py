@@ -10,8 +10,10 @@ card (step and L-inf projection fused), the same PyTorch ops as ``afan``'s
 update (`attack.py:126-133`) on the CPU. A ``'grad'`` step stays eager.
 
 The sign and grad paths issue no host sync, so a CUDA graph can capture
-them; ``bailout_tol`` (a host check of the loss per step) raises under a
-capture, and ``random_steps`` reads its step sizes back to the host.
+them, ``random_steps`` included: its step sizes are drawn and rounded on the
+device (:func:`random_step_sizes`) and the kernel reads each one there.
+``bailout_tol`` (a host check of the loss per step) raises under a
+capture.
 
 The ascent runs in the attacked tensor's dtype, as ``afan``'s does
 (`attack.py:104,112-114`): under bfloat16 each step size is rounded to
@@ -38,6 +40,20 @@ def uniform_init(shape, scale, generator: Optional[torch.Generator] = None,
     ``(2 * rand - 1) * eps`` rand-init and ``noise_sd`` injection."""
     u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
     return (2.0 * u - 1.0) * weak_scalar(scale, dtype)
+
+
+def random_step_sizes(gamma: float, steps: int,
+                      generator: Optional[torch.Generator],
+                      dtype: torch.dtype, device) -> torch.Tensor:
+    """``steps`` step sizes ``2 * gamma * u``, ``u`` uniform in [0, 1)
+    drawn in float64 on ``device`` from ``generator``, each rounded to
+    ``dtype`` as :func:`afan_torch.core.project.weak_scalar` rounds a Python
+    number (float64 to float32, then to ``dtype``), all on the device:
+    ``(steps,)`` of ``dtype``. Under a replayed CUDA graph whose generator
+    is registered, each replay draws anew."""
+    u = torch.rand((steps,), generator=generator, dtype=torch.float64,
+                   device=device)
+    return (2.0 * gamma * u).to(torch.float32).to(dtype)
 
 
 def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
@@ -76,12 +92,10 @@ def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
         x_adv = x_adv + uniform_init(x.shape, eps, generator, x.dtype,
                                      x.device)
     if random_steps:
-        u = torch.rand((steps,), generator=generator, dtype=torch.float64,
-                       device=x.device)
-        step_sizes = (2.0 * gamma * u).tolist()
+        sizes = random_step_sizes(gamma, steps, generator, x.dtype, x.device)
+        step_sizes = [sizes[t:t + 1] for t in range(steps)]
     else:
-        step_sizes = [gamma] * steps
-    step_sizes = [weak_scalar(s, x.dtype) for s in step_sizes]
+        step_sizes = [weak_scalar(gamma, x.dtype)] * steps
     prev = None
     for gamma_t in step_sizes:
         x_adv = x_adv.detach().requires_grad_(True)

@@ -1,25 +1,36 @@
 // Host image decoding for the port's data pipeline: PNG unfiltering and
-// baseline / extended-sequential Huffman JPEG, giving the bytes that Pillow
-// gives (`Image.open(p).convert("RGB")`, Pillow's JPEG codec being
-// libjpeg-turbo with its default settings).
+// Huffman JPEG (baseline, extended-sequential and progressive), giving the
+// bytes that Pillow gives (`Image.open(p).convert("RGB")`, Pillow's JPEG
+// codec being libjpeg-turbo with its default settings).
 //
 // The JPEG path follows libjpeg-turbo's choices one by one:
+//   - progressive scans (jdphuff.c: DC and AC first and refinement scans,
+//     EOB runs, restarts resetting the run and the DC predictions) fill a
+//     whole-image coefficient buffer, which is transformed once the file has
+//     ended; a file whose first ten coefficients are not all complete by
+//     then would be block-smoothed (jdcoefct.c) and is refused instead;
 //   - the integer "islow" inverse DCT (jidctint.c: 13-bit constants, 2 pass
 //     bits, the post-IDCT range-limit table, indexed modulo 1024);
-//   - "fancy" upsampling (jdsample.c: the triangle filter, h2v1 with biases
-//     1 and 2, h2v2 with biases 8 and 7, the chroma's first and last real
-//     row and column repeated past the image); a chroma plane of at most two
-//     columns is replicated instead, as libjpeg-turbo does;
-//   - the table-driven YCbCr -> RGB conversion (jdcolor.c, 16 scale bits);
+//   - upsampling (jdsample.c): "fancy" h2v1 (biases 1 and 2), h1v2 (biases 1
+//     and 2) and h2v2 (biases 8 and 7), the chroma's first and last real row
+//     and column repeated past the image; a chroma plane of at most two
+//     columns under h2v1 / h2v2, and every other integral factor, is
+//     replicated;
+//   - the table-driven YCbCr -> RGB conversion (jdcolor.c, 16 scale bits),
+//     and YCCK -> CMYK with the same tables;
 //   - the colour space: JFIF is YCbCr, Adobe APP14 with transform 0 is RGB,
-//     1 is YCbCr, and without either, component ids 'R' 'G' 'B' mean RGB.
+//     1 is YCbCr, and without either, component ids 'R' 'G' 'B' mean RGB;
+//     four components are CMYK, or YCCK under Adobe's transform 2, which
+//     Pillow reads inverted ("CMYK;I") and turns into RGB with its
+//     cmyk2rgb (Convert.c).
 // No EXIF orientation is applied (Image.open applies none).
 //
-// What it does not decode it refuses with a message: progressive,
-// arithmetic, lossless and hierarchical JPEG, 12-bit samples, 4 components,
-// sampling other than luma 1x1 / 2x1 / 2x2 over chroma 1x1, a DNL marker,
-// corrupt entropy data and truncated files. The PNG side unfilters 8-bit
-// rows only; the chunk parse and the inflate are the caller's.
+// What it does not decode it refuses with a message: arithmetic, lossless
+// and hierarchical JPEG, 12-bit samples, fractional sampling ratios, a DNL
+// marker, a progression that breaks libjpeg's order, corrupt entropy data
+// and truncated files. The PNG side unfilters rows of any pixel size (sub-
+// byte, 8- and 16-bit samples); the chunk parse, the inflate, Adam7's pass
+// split and the unpacking of samples are the caller's.
 //
 // No global state: every call works on its own buffers, so threads may
 // call it at once.
@@ -57,9 +68,12 @@ inline int paeth(int a, int b, int c) {
   return c;
 }
 
+// Rows of ceil(width * bits / 8) bytes; the filters' byte distance is
+// max(1, bits / 8).
 void png_unfilter(const uint8_t* raw, int64_t raw_len, int32_t width,
-                  int32_t height, int32_t bpp, uint8_t* out) {
-  const int64_t stride = static_cast<int64_t>(width) * bpp;
+                  int32_t height, int32_t bits, uint8_t* out) {
+  const int64_t stride = (static_cast<int64_t>(width) * bits + 7) / 8;
+  const int64_t bpp = std::max(1, bits / 8);
   if (raw_len < (stride + 1) * height) {
     fail("truncated image data: " + std::to_string(raw_len) +
          " bytes inflated, " + std::to_string((stride + 1) * height) +
@@ -267,8 +281,11 @@ struct Component {
   int plane_w = 0, plane_h = 0;   // samples, MCU-padded
   int down_w = 0, down_h = 0;     // samples that belong to the image
   int blocks_w = 0, blocks_h = 0; // blocks of a non-interleaved scan
-  bool decoded = false;
+  bool decoded = false;           // sequential: its one scan is done
+  bool quant_latched = false;     // progressive: table of its first scan
+  int coef_bits[64];              // progressive: bit still to come, -1 none
   int16_t quant[64];              // natural order
+  std::vector<int16_t> coefs;     // progressive: (plane_h/8) x (plane_w/8) blocks
   std::vector<uint8_t> plane;
 };
 
@@ -411,6 +428,32 @@ void idct_islow(const int16_t* coef, const int16_t* quant, uint8_t* out,
   }
 }
 
+// jdcolor.c build_ycc_rgb_table (16 scale bits); cb_g carries ONE_HALF.
+struct YccTables {
+  static constexpr int SCALEBITS = 16;
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  YccTables() {
+    constexpr int64_t ONE_HALF = int64_t(1) << (SCALEBITS - 1);
+    auto fix = [](double x) {
+      return static_cast<int64_t>(x * (int64_t(1) << SCALEBITS) + 0.5);
+    };
+    for (int i = 0, x = -128; i < 256; ++i, ++x) {
+      cr_r[i] = static_cast<int>((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
+      cb_b[i] = static_cast<int>((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + ONE_HALF;
+    }
+  }
+  int green(int cb, int cr) const {
+    return static_cast<int>((cb_g[cb] + cr_g[cr]) >> SCALEBITS);
+  }
+};
+
+inline uint8_t clamp8(int v) {
+  return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
 struct Jpeg {
   const uint8_t* data;
   int64_t len;
@@ -418,13 +461,15 @@ struct Jpeg {
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1;
   bool have_frame = false;
+  bool progressive = false;
+  int eobrun = 0;
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
   int restart_interval = 0;
   bool have_quant[4] = {false, false, false, false};
   uint16_t quant[4][64];   // natural order
   Huffman dc[4], ac[4];
-  Component comp[3];
+  Component comp[4];
 
   int u8() {
     if (pos >= len) fail("truncated file");
@@ -467,7 +512,7 @@ struct Jpeg {
 
   void read_sof(int marker) {
     if (have_frame) fail("more than one frame");
-    (void)marker;
+    progressive = marker == 0xC2;
     int precision = u8();
     if (precision != 8) {
       fail(std::to_string(precision) + "-bit samples are not decoded");
@@ -477,8 +522,7 @@ struct Jpeg {
     ncomp = u8();
     if (height == 0) fail("a height of 0 (DNL marker) is not decoded");
     if (width == 0) fail("a width of 0");
-    if (ncomp == 4) fail("a 4-component (CMYK or YCCK) JPEG is not decoded");
-    if (ncomp != 1 && ncomp != 3) {
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) {
       fail(std::to_string(ncomp) + " components are not decoded");
     }
     for (int i = 0; i < ncomp; ++i) {
@@ -491,23 +535,18 @@ struct Jpeg {
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) {
         fail("bad component sampling or table");
       }
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    if (ncomp == 3) {
-      for (int i = 0; i < 3; ++i) {
-        int rh = hmax / comp[i].h, rv = vmax / comp[i].v;
-        bool exact = rh * comp[i].h == hmax && rv * comp[i].v == vmax;
-        bool ok = exact && ((rh == 1 && rv == 1) || (rh == 2 && rv == 1) ||
-                            (rh == 2 && rv == 2));
-        if (i == 0 && (rh != 1 || rv != 1)) ok = false;
-        if (!ok) {
-          fail("sampling " + std::to_string(comp[0].h) + "x" +
-               std::to_string(comp[0].v) + "," + std::to_string(comp[1].h) +
-               "x" + std::to_string(comp[1].v) + "," +
-               std::to_string(comp[2].h) + "x" + std::to_string(comp[2].v) +
-               " is not decoded");
+    for (int i = 0; i < ncomp; ++i) {
+      if (hmax % comp[i].h || vmax % comp[i].v) {   // jdsample.c refuses
+        std::string f;
+        for (int j = 0; j < ncomp; ++j) {
+          f += (j ? "," : "") + std::to_string(comp[j].h) + "x" +
+               std::to_string(comp[j].v);
         }
+        fail("sampling " + f + " (a fractional ratio) is not decoded");
       }
     }
     const int mcux = (width + 8 * hmax - 1) / (8 * hmax);
@@ -552,43 +591,189 @@ struct Jpeg {
                c.plane_w);
   }
 
+  // jdphuff.c decode_mcu_DC_first, for one block.
+  void dc_first(BitReader& br, Component& c, int16_t* coef, int al) {
+    int s = br.decode(dc[c.td]);
+    if (s > 15) fail("corrupt JPEG data: DC category " + std::to_string(s));
+    int diff = s ? extend(br.get(s), s) : 0;
+    c.dc_pred += diff;
+    coef[0] = static_cast<int16_t>(static_cast<unsigned>(c.dc_pred) << al);
+  }
+
+  // decode_mcu_DC_refine: the next bit of the two's-complement DC value.
+  static void dc_refine(BitReader& br, int16_t* coef, int al) {
+    if (br.get(1)) coef[0] = static_cast<int16_t>(coef[0] | (1 << al));
+  }
+
+  // decode_mcu_AC_first: one block of the band ss..se; an EOB run spans
+  // blocks.
+  void ac_first(BitReader& br, const Component& c, int16_t* coef, int ss,
+                int se, int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huffman& ha = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(ha);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        coef[kNatural[k]] = static_cast<int16_t>(
+            static_cast<unsigned>(extend(br.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) + (r ? br.get(r) : 0) - 1;
+        break;
+      }
+    }
+  }
+
+  // decode_mcu_AC_refine: correction bits for the nonzero coefficients of
+  // the band, newly nonzero ones of magnitude 1 << al.
+  void ac_refine(BitReader& br, const Component& c, int16_t* coef, int ss,
+                 int se, int al) {
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    auto correct = [&](int16_t& v) {
+      if (br.get(1) && (v & p1) == 0) {
+        v = static_cast<int16_t>(v >= 0 ? v + p1 : v + m1);
+      }
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      const Huffman& ha = ac[c.ta];
+      for (; k <= se; ++k) {
+        int rs = br.decode(ha);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {   // libjpeg warns when s != 1 and goes on as here
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = (1 << r) + (r ? br.get(r) : 0);
+          break;
+        }
+        do {
+          int16_t& v = coef[kNatural[k]];
+          if (v != 0) {
+            correct(v);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) coef[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t& v = coef[kNatural[k]];
+        if (v != 0) correct(v);
+      }
+      --eobrun;
+    }
+  }
+
+  // jdphuff.c start_pass_phuff_decoder's checks, which libjpeg partly only
+  // warns about; a progression it would warn about is refused here.
+  void check_progressive_scan(Component* const* sc, int ns, int ss, int se,
+                              int ah, int al) {
+    bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad) fail("bad progressive scan parameters");
+    for (int i = 0; i < ns; ++i) {
+      int* bits = sc[i]->coef_bits;
+      if (ss != 0 && bits[0] < 0) fail("an AC scan before the DC scan");
+      for (int k = ss; k <= se; ++k) {
+        if (ah != (bits[k] < 0 ? 0 : bits[k])) {
+          fail("a progressive scan out of order");
+        }
+        bits[k] = al;
+      }
+    }
+  }
+
   void read_sos() {
     if (!have_frame) fail("scan before frame header");
     int ns = u8();
     if (ns < 1 || ns > ncomp) fail("bad scan header");
-    Component* sc[3];
+    Component* sc[4];
+    int tables[4];
     for (int i = 0; i < ns; ++i) {
       int cid = u8();
-      int t = u8();
+      tables[i] = u8();
       Component* found = nullptr;
       for (int j = 0; j < ncomp; ++j) {
         if (comp[j].id == cid) found = &comp[j];
       }
       if (!found) fail("scan names an unknown component");
-      if (found->decoded) fail("a component is coded in two scans");
-      found->td = t >> 4;
-      found->ta = t & 15;
-      if (found->td > 3 || found->ta > 3 || !dc[found->td].defined ||
-          !ac[found->ta].defined) {
-        fail("scan uses an undefined Huffman table");
-      }
-      if (!have_quant[found->tq]) fail("component uses an undefined "
-                                       "quantization table");
-      for (int k = 0; k < 64; ++k) {
-        found->quant[k] = static_cast<int16_t>(quant[found->tq][k]);
-      }
-      found->dc_pred = 0;
-      if (found->plane.empty()) {
-        found->plane.assign(
-            static_cast<size_t>(found->plane_w) * found->plane_h, 0);
+      for (int j = 0; j < i; ++j) {
+        if (sc[j] == found) fail("a scan names a component twice");
       }
       sc[i] = found;
     }
-    int ss = u8(), se = u8(), ahl = u8();
-    if (ss != 0 || se != 63 || ahl != 0) fail("bad sequential scan header");
+    const int ss = u8(), se = u8(), ahl = u8();
+    const int ah = ahl >> 4, al = ahl & 15;
+    if (ns > 1) {
+      int blocks = 0;
+      for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
+      if (blocks > 10) fail("more than 10 blocks in an MCU");
+    }
+    if (progressive) {
+      check_progressive_scan(sc, ns, ss, se, ah, al);
+    } else if (ss != 0 || se != 63 || ahl != 0) {
+      fail("bad sequential scan header");
+    }
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      if (!progressive && c.decoded) fail("a component is coded in two scans");
+      c.td = tables[i] >> 4;
+      c.ta = tables[i] & 15;
+      const bool need_dc = !progressive || (ss == 0 && ah == 0);
+      const bool need_ac = !progressive || ss > 0;
+      if (c.td > 3 || c.ta > 3 || (need_dc && !dc[c.td].defined) ||
+          (need_ac && !ac[c.ta].defined)) {
+        fail("scan uses an undefined Huffman table");
+      }
+      if (!c.quant_latched) {   // jddctmgr.c latch_quant_tables
+        if (!have_quant[c.tq]) {
+          fail("component uses an undefined quantization table");
+        }
+        for (int k = 0; k < 64; ++k) {
+          c.quant[k] = static_cast<int16_t>(quant[c.tq][k]);
+        }
+        c.quant_latched = progressive;
+      }
+      c.dc_pred = 0;
+      if (progressive && c.coefs.empty()) {
+        c.coefs.assign(static_cast<size_t>(c.plane_w) * c.plane_h, 0);
+      } else if (!progressive && c.plane.empty()) {
+        c.plane.assign(static_cast<size_t>(c.plane_w) * c.plane_h, 0);
+      }
+    }
+    eobrun = 0;
 
     BitReader br{data, len, pos};
     int16_t coef[64];
+    auto block = [&](Component& c, int bx, int by) {
+      if (!progressive) {
+        decode_block(br, c, coef, bx, by);
+        return;
+      }
+      int16_t* co =
+          c.coefs.data() +
+          (static_cast<size_t>(by) * (c.plane_w / 8) + bx) * 64;
+      if (ss == 0) {
+        if (ah == 0) {
+          dc_first(br, c, co, al);
+        } else {
+          dc_refine(br, co, al);
+        }
+      } else if (ah == 0) {
+        ac_first(br, c, co, ss, se, al);
+      } else {
+        ac_refine(br, c, co, ss, se, al);
+      }
+    };
     int mcus_w, mcus_h;
     if (ns == 1) {
       mcus_w = sc[0]->blocks_w;
@@ -607,17 +792,18 @@ struct Jpeg {
         }
         next_rst = (next_rst + 1) & 7;
         for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
+        eobrun = 0;
       }
       const int mx = static_cast<int>(m % mcus_w);
       const int my = static_cast<int>(m / mcus_w);
       if (ns == 1) {
-        decode_block(br, *sc[0], coef, mx, my);
+        block(*sc[0], mx, my);
       } else {
         for (int i = 0; i < ns; ++i) {
           Component& c = *sc[i];
           for (int v = 0; v < c.v; ++v) {
             for (int h = 0; h < c.h; ++h) {
-              decode_block(br, c, coef, mx * c.h + h, my * c.v + v);
+              block(c, mx * c.h + h, my * c.v + v);
             }
           }
         }
@@ -627,6 +813,33 @@ struct Jpeg {
     // step back onto the marker that ends the scan
     br.next_marker();
     pos = br.pos - 2;
+  }
+
+  // After the last scan of a progressive file: the inverse DCT of every
+  // block of the image (jdcoefct.c decompress_data). Block smoothing would
+  // run instead where one of the first ten coefficients is incomplete.
+  void transform_progressive() {
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      for (int k = 1; k < 10; ++k) {
+        if (c.coef_bits[k] != 0) {
+          fail("a progressive JPEG whose scans leave coefficients "
+               "incomplete (block smoothing) is not decoded");
+        }
+      }
+      c.plane.assign(static_cast<size_t>(c.plane_w) * c.plane_h, 0);
+      for (int by = 0; by < c.blocks_h; ++by) {
+        for (int bx = 0; bx < c.blocks_w; ++bx) {
+          idct_islow(c.coefs.data() +
+                         (static_cast<size_t>(by) * (c.plane_w / 8) + bx) * 64,
+                     c.quant,
+                     c.plane.data() + static_cast<size_t>(by) * 8 * c.plane_w +
+                         bx * 8,
+                     c.plane_w);
+        }
+      }
+      std::vector<int16_t>().swap(c.coefs);
+    }
   }
 
   void parse(bool header_only) {
@@ -651,11 +864,10 @@ struct Jpeg {
       switch (marker) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
           read_sof(marker);
           if (header_only) return;
           break;
-        case 0xC2:
-          fail("progressive JPEG is not decoded");
         case 0xC3:
           fail("lossless JPEG is not decoded");
         case 0xC5:
@@ -702,8 +914,11 @@ struct Jpeg {
     }
     if (!have_frame) fail("no frame header");
     for (int i = 0; i < ncomp; ++i) {
-      if (!comp[i].decoded) fail("a component has no scan");
+      if (!comp[i].decoded || (progressive && comp[i].coef_bits[0] < 0)) {
+        fail("a component has no scan");
+      }
     }
+    if (progressive) transform_progressive();
   }
 
   bool is_rgb() const {
@@ -712,23 +927,41 @@ struct Jpeg {
     return comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
   }
 
-  // jdsample.c: the chroma plane c upsampled to the image's size.
+  // jdsample.c: the plane of c upsampled to the image's size.
   void upsample(const Component& c, uint8_t* out) const {
     const int rh = hmax / c.h, rv = vmax / c.v;
     const int dw = c.down_w, dh = c.down_h;
     const uint8_t* p = c.plane.data();
     const int pw = c.plane_w;
-    if (rh == 1 && rv == 1) {
+    if (rh == 1 && rv == 1) {   // fullsize_upsample
       for (int y = 0; y < height; ++y) {
         std::memcpy(out + static_cast<size_t>(y) * width, p + y * pw,
                     static_cast<size_t>(width));
       }
       return;
     }
-    if (dw <= 2) {   // h2v1_upsample / h2v2_upsample: replicate
+    if (rh == 1 && rv == 2) {   // h1v2_fancy_upsample
+      for (int y = 0; y < height; ++y) {
+        int near_row = y >> 1;
+        int far_row = (y & 1) ? near_row + 1 : near_row - 1;
+        far_row = std::min(std::max(far_row, 0), dh - 1);
+        const int bias = (y & 1) ? 2 : 1;
+        const uint8_t* in0 = p + near_row * pw;
+        const uint8_t* in1 = p + far_row * pw;
+        uint8_t* o = out + static_cast<size_t>(y) * width;
+        for (int x = 0; x < width; ++x) {
+          o[x] = static_cast<uint8_t>((in0[x] * 3 + in1[x] + bias) >> 2);
+        }
+      }
+      return;
+    }
+    if (rh != 2 || rv > 2 || dw <= 2) {
+      // h2v1_upsample / h2v2_upsample at two columns or fewer, and
+      // int_upsample for every other factor: replication
       for (int y = 0; y < height; ++y) {
         const uint8_t* row = p + (y / rv) * pw;
-        for (int x = 0; x < width; ++x) out[y * width + x] = row[x / 2];
+        uint8_t* o = out + static_cast<size_t>(y) * width;
+        for (int x = 0; x < width; ++x) o[x] = row[x / rh];
       }
       return;
     }
@@ -751,8 +984,7 @@ struct Jpeg {
       } else {         // h2v2_fancy_upsample
         int near_row = y >> 1;
         int far_row = (y & 1) ? near_row + 1 : near_row - 1;
-        if (far_row < 0) far_row = 0;
-        if (far_row > dh - 1) far_row = dh - 1;
+        far_row = std::min(std::max(far_row, 0), dh - 1);
         const uint8_t* in0 = p + near_row * pw;
         const uint8_t* in1 = p + far_row * pw;
         for (int i = 0; i < dw; ++i) colsum[i] = in0[i] * 3 + in1[i];
@@ -785,42 +1017,50 @@ struct Jpeg {
       }
       return;
     }
-    std::vector<uint8_t> full(3 * n);
-    for (int i = 0; i < 3; ++i) upsample(comp[i], full.data() + i * n);
-    const uint8_t* y0 = full.data();
+    std::vector<uint8_t> full(ncomp * n);
+    for (int i = 0; i < ncomp; ++i) upsample(comp[i], full.data() + i * n);
+    const uint8_t* c0 = full.data();
     const uint8_t* c1 = full.data() + n;
     const uint8_t* c2 = full.data() + 2 * n;
+    const YccTables t;
+    if (ncomp == 4) {
+      // jdcolor.c: Adobe's transform 0 (or none) is CMYK as stored, any
+      // other YCCK (ycck_cmyk_convert); then Pillow's "CMYK;I" (each sample
+      // inverted) and cmyk2rgb: nk - nk * c / 255, with MULDIV255's
+      // rounding, where nk = 255 - K read inverted, the stored K.
+      const bool ycck = saw_adobe && adobe_transform != 0;
+      const uint8_t* c3 = full.data() + 3 * n;
+      for (size_t k = 0; k < n; ++k) {
+        int s0 = c0[k], s1 = c1[k], s2 = c2[k];
+        if (ycck) {
+          const int y = s0, cb = s1, cr = s2;
+          s0 = clamp8(255 - (y + t.cr_r[cr]));
+          s1 = clamp8(255 - (y + t.green(cb, cr)));
+          s2 = clamp8(255 - (y + t.cb_b[cb]));
+        }
+        const int nk = c3[k];
+        const int sv[3] = {s0, s1, s2};
+        for (int ch = 0; ch < 3; ++ch) {
+          const int tmp = (255 - sv[ch]) * nk + 128;
+          out[3 * k + ch] = clamp8(nk - (((tmp >> 8) + tmp) >> 8));
+        }
+      }
+      return;
+    }
     if (is_rgb()) {
       for (size_t k = 0; k < n; ++k) {
-        out[3 * k] = y0[k];
+        out[3 * k] = c0[k];
         out[3 * k + 1] = c1[k];
         out[3 * k + 2] = c2[k];
       }
       return;
     }
-    // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
-    constexpr int SCALEBITS = 16;
-    constexpr int64_t ONE_HALF = int64_t(1) << (SCALEBITS - 1);
-    auto fix = [](double x) {
-      return static_cast<int64_t>(x * (int64_t(1) << SCALEBITS) + 0.5);
-    };
-    int cr_r[256], cb_b[256];
-    int64_t cr_g[256], cb_g[256];
-    for (int i = 0, x = -128; i < 256; ++i, ++x) {
-      cr_r[i] = static_cast<int>((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
-      cb_b[i] = static_cast<int>((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
-      cr_g[i] = -fix(0.71414) * x;
-      cb_g[i] = -fix(0.34414) * x + ONE_HALF;
-    }
-    auto clamp = [](int v) {
-      return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
-    };
+    // jdcolor.c ycc_rgb_convert
     for (size_t k = 0; k < n; ++k) {
-      int y = y0[k], cb = c1[k], cr = c2[k];
-      out[3 * k] = clamp(y + cr_r[cr]);
-      out[3 * k + 1] =
-          clamp(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
-      out[3 * k + 2] = clamp(y + cb_b[cb]);
+      int y = c0[k], cb = c1[k], cr = c2[k];
+      out[3 * k] = clamp8(y + t.cr_r[cr]);
+      out[3 * k + 1] = clamp8(y + t.green(cb, cr));
+      out[3 * k + 2] = clamp8(y + t.cb_b[cb]);
     }
   }
 };
@@ -829,13 +1069,14 @@ struct Jpeg {
 
 extern "C" {
 
-// Unfilter `height` rows of `width` pixels of `bpp` bytes from the inflated
-// PNG stream `raw` into `out` (height * width * bpp bytes). 0 or -1 (err).
+// Unfilter `height` rows of `width` pixels of `bits` bits each from the
+// inflated PNG stream `raw` into `out` (height * ceil(width * bits / 8)
+// bytes, the rows as packed). 0 or -1 (err).
 int afan_png_unfilter(const uint8_t* raw, int64_t raw_len, int32_t width,
-                      int32_t height, int32_t bpp, uint8_t* out, char* err,
+                      int32_t height, int32_t bits, uint8_t* out, char* err,
                       int32_t err_len) {
   try {
-    png_unfilter(raw, raw_len, width, height, bpp, out);
+    png_unfilter(raw, raw_len, width, height, bits, out);
     return 0;
   } catch (const DecodeError& e) {
     return report(e, err, err_len);

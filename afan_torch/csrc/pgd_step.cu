@@ -41,6 +41,13 @@
 // threads as scalars; a misaligned view takes the scalar loop throughout.
 // No shared memory, no reduction: every output element depends on its own
 // inputs alone, so the result does not depend on the launch shape.
+//
+// Device step size (`afan_pgd_step_dev`, `afan_pgd_step_bf16_dev`): the
+// same kernels read gamma from a one-element buffer on the card (f32, or
+// the bf16 word already rounded) as they start, instead of taking it by
+// value, so a step size drawn on the card (`--pgd_random_steps`) needs no
+// trip to the host and a replayed CUDA graph reads each replay's draw. The
+// buffer adds one 4- (2-) byte load per thread; the update is unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,7 +117,7 @@ __device__ __forceinline__ uint32_t update_pair(uint32_t x, uint32_t g,
   return lo | (hi << 16);
 }
 
-template <bool kClip>
+template <bool kClip, bool kDevGamma>
 __global__ void pgd_step_vec4(const float4* __restrict__ x,
                               const float4* __restrict__ g,
                               const float4* __restrict__ c,
@@ -119,7 +126,9 @@ __global__ void pgd_step_vec4(const float4* __restrict__ x,
                               const float* __restrict__ gs,
                               const float* __restrict__ cs,
                               float* __restrict__ outs, int64_t n,
-                              float gamma, float eps) {
+                              float gamma, const float* __restrict__ gamma_dev,
+                              float eps) {
+  if (kDevGamma) gamma = *gamma_dev;
   const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = tid; i < n4; i += stride) {
@@ -138,12 +147,15 @@ __global__ void pgd_step_vec4(const float4* __restrict__ x,
   }
 }
 
-template <bool kClip>
+template <bool kClip, bool kDevGamma>
 __global__ void pgd_step_scalar(const float* __restrict__ x,
                                 const float* __restrict__ g,
                                 const float* __restrict__ c,
                                 float* __restrict__ out, int64_t n,
-                                float gamma, float eps) {
+                                float gamma,
+                                const float* __restrict__ gamma_dev,
+                                float eps) {
+  if (kDevGamma) gamma = *gamma_dev;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
        i += stride) {
@@ -151,7 +163,7 @@ __global__ void pgd_step_scalar(const float* __restrict__ x,
   }
 }
 
-template <bool kClip>
+template <bool kClip, bool kDevGamma>
 __global__ void pgd_step_bf16_vec8(const uint4* __restrict__ x,
                                    const uint4* __restrict__ g,
                                    const uint4* __restrict__ c,
@@ -160,7 +172,10 @@ __global__ void pgd_step_bf16_vec8(const uint4* __restrict__ x,
                                    const uint16_t* __restrict__ gs,
                                    const uint16_t* __restrict__ cs,
                                    uint16_t* __restrict__ outs, int64_t n,
-                                   float gamma, float eps) {
+                                   float gamma,
+                                   const uint16_t* __restrict__ gamma_dev,
+                                   float eps) {
+  if (kDevGamma) gamma = bf16_float(*gamma_dev);
   const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = tid; i < n8; i += stride) {
@@ -180,12 +195,15 @@ __global__ void pgd_step_bf16_vec8(const uint4* __restrict__ x,
   }
 }
 
-template <bool kClip>
+template <bool kClip, bool kDevGamma>
 __global__ void pgd_step_bf16_scalar(const uint16_t* __restrict__ x,
                                      const uint16_t* __restrict__ g,
                                      const uint16_t* __restrict__ c,
                                      uint16_t* __restrict__ out, int64_t n,
-                                     float gamma, float eps) {
+                                     float gamma,
+                                     const uint16_t* __restrict__ gamma_dev,
+                                     float eps) {
+  if (kDevGamma) gamma = bf16_float(*gamma_dev);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
        i += stride) {
@@ -199,39 +217,44 @@ int blocks_for(int64_t work) {
   return (int)(b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b));
 }
 
-template <bool kClip>
+template <bool kClip, bool kDevGamma>
 void launch(const float* x, const float* g, const float* c, float* out,
-            int64_t n, float gamma, float eps, cudaStream_t s) {
+            int64_t n, float gamma, const float* gamma_dev, float eps,
+            cudaStream_t s) {
   const uintptr_t bits = (uintptr_t)x | (uintptr_t)g | (uintptr_t)out |
                          (kClip ? (uintptr_t)c : 0);
   if (bits % 16 == 0) {
     const int64_t n4 = n / 4;
-    pgd_step_vec4<kClip><<<blocks_for(n4 > 0 ? n4 : 1), kThreads, 0, s>>>(
-        reinterpret_cast<const float4*>(x), reinterpret_cast<const float4*>(g),
-        reinterpret_cast<const float4*>(c), reinterpret_cast<float4*>(out), n4,
-        x, g, c, out, n, gamma, eps);
+    pgd_step_vec4<kClip, kDevGamma>
+        <<<blocks_for(n4 > 0 ? n4 : 1), kThreads, 0, s>>>(
+            reinterpret_cast<const float4*>(x),
+            reinterpret_cast<const float4*>(g),
+            reinterpret_cast<const float4*>(c),
+            reinterpret_cast<float4*>(out), n4, x, g, c, out, n, gamma,
+            gamma_dev, eps);
   } else {
-    pgd_step_scalar<kClip><<<blocks_for(n), kThreads, 0, s>>>(
-        x, g, c, out, n, gamma, eps);
+    pgd_step_scalar<kClip, kDevGamma><<<blocks_for(n), kThreads, 0, s>>>(
+        x, g, c, out, n, gamma, gamma_dev, eps);
   }
 }
 
-template <bool kClip>
+template <bool kClip, bool kDevGamma>
 void launch_bf16(const uint16_t* x, const uint16_t* g, const uint16_t* c,
-                 uint16_t* out, int64_t n, float gamma, float eps,
-                 cudaStream_t s) {
+                 uint16_t* out, int64_t n, float gamma,
+                 const uint16_t* gamma_dev, float eps, cudaStream_t s) {
   const uintptr_t bits = (uintptr_t)x | (uintptr_t)g | (uintptr_t)out |
                          (kClip ? (uintptr_t)c : 0);
   if (bits % 16 == 0) {
     const int64_t n8 = n / 8;
-    pgd_step_bf16_vec8<kClip><<<blocks_for(n8 > 0 ? n8 : 1), kThreads, 0,
-                                s>>>(
-        reinterpret_cast<const uint4*>(x), reinterpret_cast<const uint4*>(g),
-        reinterpret_cast<const uint4*>(c), reinterpret_cast<uint4*>(out), n8,
-        x, g, c, out, n, gamma, eps);
+    pgd_step_bf16_vec8<kClip, kDevGamma>
+        <<<blocks_for(n8 > 0 ? n8 : 1), kThreads, 0, s>>>(
+            reinterpret_cast<const uint4*>(x),
+            reinterpret_cast<const uint4*>(g),
+            reinterpret_cast<const uint4*>(c), reinterpret_cast<uint4*>(out),
+            n8, x, g, c, out, n, gamma, gamma_dev, eps);
   } else {
-    pgd_step_bf16_scalar<kClip><<<blocks_for(n), kThreads, 0, s>>>(
-        x, g, c, out, n, gamma, eps);
+    pgd_step_bf16_scalar<kClip, kDevGamma><<<blocks_for(n), kThreads, 0, s>>>(
+        x, g, c, out, n, gamma, gamma_dev, eps);
   }
 }
 
@@ -245,9 +268,9 @@ int afan_pgd_step(const float* x, const float* g, const float* c, float* out,
                   int64_t n, float gamma, float eps, int clip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (clip) {
-    launch<true>(x, g, c, out, n, gamma, eps, s);
+    launch<true, false>(x, g, c, out, n, gamma, nullptr, eps, s);
   } else {
-    launch<false>(x, g, c, out, n, gamma, eps, s);
+    launch<false, false>(x, g, c, out, n, gamma, nullptr, eps, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -259,9 +282,37 @@ int afan_pgd_step_bf16(const uint16_t* x, const uint16_t* g,
                        float gamma, float eps, int clip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (clip) {
-    launch_bf16<true>(x, g, c, out, n, gamma, eps, s);
+    launch_bf16<true, false>(x, g, c, out, n, gamma, nullptr, eps, s);
   } else {
-    launch_bf16<false>(x, g, c, out, n, gamma, eps, s);
+    launch_bf16<false, false>(x, g, c, out, n, gamma, nullptr, eps, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// afan_pgd_step with gamma read on the card from `gamma` (one f32).
+int afan_pgd_step_dev(const float* x, const float* g, const float* c,
+                      float* out, int64_t n, const float* gamma, float eps,
+                      int clip, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (clip) {
+    launch<true, true>(x, g, c, out, n, 0.0f, gamma, eps, s);
+  } else {
+    launch<false, true>(x, g, c, out, n, 0.0f, gamma, eps, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// afan_pgd_step_bf16 with gamma read on the card from `gamma` (one bf16
+// word); eps must already be a bf16 value.
+int afan_pgd_step_bf16_dev(const uint16_t* x, const uint16_t* g,
+                           const uint16_t* c, uint16_t* out, int64_t n,
+                           const uint16_t* gamma, float eps, int clip,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (clip) {
+    launch_bf16<true, true>(x, g, c, out, n, 0.0f, gamma, eps, s);
+  } else {
+    launch_bf16<false, true>(x, g, c, out, n, 0.0f, gamma, eps, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,11 +10,14 @@ CUDA tensor runs it as one hand-written kernel
 :func:`pgd_update_plain`, the same chain of PyTorch ops. Both take float32
 and bfloat16; in bfloat16 ``gamma`` and ``eps`` are rounded to bfloat16
 first, as ``afan``'s ascent rounds them (``attack.py:114`` and JAX's weak
-typing), so each op rounds once, as ``afan``'s bf16 ops do.
+typing), so each op rounds once, as ``afan``'s bf16 ops do. ``gamma``
+may be a one-element tensor of ``x``'s dtype on ``x``'s device, a step size
+drawn there (``random_steps``): the kernel then reads it on the card and
+the plain version multiplies by it, so nothing goes to the host.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -23,12 +26,13 @@ from .kernels import pgd_step as kernels
 
 
 def pgd_update_plain(x: torch.Tensor, g: torch.Tensor,
-                     center: Optional[torch.Tensor] = None, *, gamma: float,
+                     center: Optional[torch.Tensor] = None, *,
+                     gamma: Union[float, torch.Tensor],
                      eps: Optional[float] = None, clip: bool = False
                      ) -> torch.Tensor:
     """The plain version: ``x + gamma * sign(g)``, then
     ``linfball_proj(center, eps, .)`` when ``clip``, with ``gamma`` and
-    ``eps`` in ``x``'s dtype."""
+    ``eps`` in ``x``'s dtype (a tensor ``gamma`` already is)."""
     out = x + weak_scalar(gamma, x.dtype) * torch.sign(g)
     if clip:
         out = linfball_proj(center, eps, out)
@@ -36,7 +40,8 @@ def pgd_update_plain(x: torch.Tensor, g: torch.Tensor,
 
 
 def pgd_update(x: torch.Tensor, g: torch.Tensor,
-               center: Optional[torch.Tensor] = None, *, gamma: float,
+               center: Optional[torch.Tensor] = None, *,
+               gamma: Union[float, torch.Tensor],
                eps: Optional[float] = None, clip: bool = False
                ) -> torch.Tensor:
     """``x + gamma * sign(g)``, clamped into ``[center - eps, center +

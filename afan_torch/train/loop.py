@@ -238,7 +238,9 @@ class AlfaEpochScan:
     ``zero_grad(set_to_none=True)``), so the capture allocates them, with
     every other temporary, in the graph's private pool, at the addresses
     every replay writes. The run's generator is registered with the graph,
-    so each replay draws anew from it. ``data_x``, ``data_y`` and the
+    so each replay draws anew from it: the random start, and under
+    ``random_steps`` the step sizes, which the PGD-update kernel reads on
+    the card. ``data_x``, ``data_y`` and the
     generator must be the first call's. ``eager_steps`` and ``replays``
     count the steps run each way.
     """
@@ -246,11 +248,6 @@ class AlfaEpochScan:
     def __init__(self, model: ResNetS, optimizer: CapturableSGD,
                  cfg: AlfaConfig, batch_size: int, steps_per_epoch: int,
                  record_augment: bool = False):
-        if cfg.random_steps:
-            raise NotImplementedError(
-                "random_steps in an epoch scan: its step sizes are read back "
-                "to the host (ROADMAP.md queue 1: a step size in device "
-                "memory for the PGD-update kernel)")
         if not isinstance(optimizer, CapturableSGD):
             raise TypeError("an epoch scan needs a CapturableSGD, whose lr "
                             "lives on the device")

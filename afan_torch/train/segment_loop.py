@@ -9,7 +9,10 @@ presets) and the eval step.
 Every loss site and every ascent site ends in
 :func:`afan_torch.ops.resize_ce.fused_resize_nll_sums`, which on the card
 runs the hand-written upsample + CE kernels and on the CPU its plain
-version. There is no fallback: a kernel that fails raises.
+version; with ``fused_ce=False`` (``--fused_ce off``) in the library's
+composition instead, the upsample then the cross-entropy, as ``afan``'s
+``fused_ce=False`` sites. There is no fallback: a kernel that fails
+raises.
 
 BatchNorm rule (``afan/train/segment_loop.py:9-13``, ``loop.py:16-23``):
 every forward of the step normalizes with batch statistics, and the running
@@ -41,6 +44,7 @@ from ..core.afn import mix_feature
 from ..core.attack import input_pgd, pgd, uniform_init
 from ..core.spectrum import sample_points
 from ..eval.seg_miou import confusion_matrix
+from ..models.deeplab.heads import resize_bilinear
 from ..models.deeplab.modeling import DeepLab
 from ..models.resnet import frozen_bn_stats
 from ..ops.resize_ce import IGNORE, fused_resize_nll_sums
@@ -137,10 +141,13 @@ def _nchw(images: torch.Tensor) -> torch.Tensor:
     return images.permute(0, 3, 1, 2).contiguous()
 
 
-def _site_loss(labels: torch.Tensor, focal) -> Callable:
+def _site_loss(labels: torch.Tensor, focal, fused: bool = True) -> Callable:
     """Mean masked loss of one site's os4 logits ``(k * B, C, h, w)`` per
     group of B entries → ``(k,)``: each site's reference loss is its
-    entries' loss sum over the shared valid-pixel count of ``labels``."""
+    entries' loss sum over the shared valid-pixel count of ``labels``.
+    ``fused``: the upsample + CE kernels (on the card); else the library's
+    upsample of the logits, then the loss (``afan``'s ``fused_ce=False``
+    sites, `segment_loop.py:505-512`)."""
     bsz = labels.shape[0]
     npix = (labels != IGNORE).sum().clamp_min(1)
     size = tuple(labels.shape[1:])
@@ -148,21 +155,26 @@ def _site_loss(labels: torch.Tensor, focal) -> Callable:
     def site_groups(lo: torch.Tensor) -> torch.Tensor:
         reps = lo.shape[0] // bsz
         tiled = labels.repeat(reps, 1, 1) if reps > 1 else labels
-        sums = fused_resize_nll_sums(lo, tiled, size, focal)
+        if fused:
+            sums = fused_resize_nll_sums(lo, tiled, size, focal)
+        else:
+            sums = _per_entry_loss_sums(resize_bilinear(lo, size), tiled,
+                                        focal is not None, *(focal or ()))
         return sums.reshape(reps, bsz).sum(dim=1) / npix
 
     return site_groups
 
 
 def make_seg_base_step(model: DeepLab, optimizer: torch.optim.Optimizer,
-                       scheduler, use_focal: bool = False):
+                       scheduler, use_focal: bool = False,
+                       fused_ce: bool = True):
     """`main_ori.py` baseline step: ``step(images, labels) -> {"loss"}``."""
     focal = FOCAL if use_focal else None
 
     def step_fn(images: torch.Tensor, labels: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
         model.train()
-        site = _site_loss(labels, focal)
+        site = _site_loss(labels, focal, fused_ce)
         optimizer.zero_grad(set_to_none=True)
         loss = site(model.forward_logits(_nchw(images)))[0]
         loss.backward()
@@ -176,7 +188,7 @@ def make_seg_base_step(model: DeepLab, optimizer: torch.optim.Optimizer,
 def make_seg_advtrain_step(model: DeepLab, optimizer: torch.optim.Optimizer,
                            scheduler, steps: int = 3,
                            gamma: float = 2.0 / 255, eps: float = 8.0 / 255,
-                           randinit: bool = True):
+                           randinit: bool = True, fused_ce: bool = True):
     """`main_advtrain.py:185-200`: input PGD (no projection) clamped to
     [0, 1], then one SGD update on the adversarial image's loss alone,
     whose forward updates the running statistics.
@@ -187,7 +199,7 @@ def make_seg_advtrain_step(model: DeepLab, optimizer: torch.optim.Optimizer,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         model.train()
-        site = _site_loss(labels, None)
+        site = _site_loss(labels, None, fused_ce)
         with frozen_bn_stats(model):
             adv = input_pgd(
                 lambda im: site(model.forward_logits(_nchw(im)))[0], images,
@@ -204,7 +216,7 @@ def make_seg_advtrain_step(model: DeepLab, optimizer: torch.optim.Optimizer,
 
 
 def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
-                       scheduler, cfg: SegAfanConfig):
+                       scheduler, cfg: SegAfanConfig, fused_ce: bool = True):
     """The A-FAN segmentation step (`main_aug_final.py:152-232` and the
     sat/multi variants):
 
@@ -222,7 +234,8 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
     ``step(images, labels, generator=None)`` returns the detached
     ``loss``, ``loss_clean``, ``loss_spectrum`` and ``loss_sd``;
     ``generator`` drives the input ascent's random start, ``randinit``,
-    ``random_steps`` and ``noise_sd``.
+    ``random_steps`` and ``noise_sd``. ``fused_ce=False`` runs every site
+    through the library's upsample and loss (:func:`_site_loss`).
     """
     n_spec = cfg.spectrum
     if len(cfg.mix_mask) != n_spec:
@@ -243,7 +256,7 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
                 ) -> Dict[str, torch.Tensor]:
         model.train()
         x = _nchw(images)
-        site = _site_loss(labels, focal)
+        site = _site_loss(labels, focal, fused_ce)
 
         with frozen_bn_stats(model):
             x_l0 = x

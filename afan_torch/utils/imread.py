@@ -5,20 +5,29 @@ bytes (the machine with the card has neither library).
 
 - **PNG**: the chunks are parsed here (each CRC checked), the image data
   inflated with :mod:`zlib`, and the rows unfiltered by the host library
-  ``csrc/imdecode.cpp``. 8-bit gray, RGB, palette, gray+alpha and RGBA
-  images are read; for RGB the alpha is dropped, the palette looked up and
-  the gray channel repeated, as ``convert("RGB")`` does.
-- **JPEG**: baseline and extended-sequential Huffman (SOF0, SOF1), 8-bit,
-  gray or three components with luma sampling 1x1, 2x1 or 2x2 over chroma
-  1x1, decoded entirely by ``csrc/imdecode.cpp`` with libjpeg-turbo's
-  integer IDCT, fancy upsampling and YCbCr table (Pillow's JPEG codec);
-  restart intervals, byte stuffing and fill bytes are handled, Adobe's
-  transform 0 means RGB, a gray JPEG repeats its channel, and no EXIF
-  rotation is applied.
+  ``csrc/imdecode.cpp``, each of Adam7's seven passes on its own when the
+  file is interlaced. Every colour type at every depth PNG allows is read
+  (gray at 1, 2, 4, 8 and 16 bits, palette at 1 to 8, RGB, gray+alpha and
+  RGBA at 8 and 16), with Pillow's conversions: for RGB the alpha is
+  dropped, the palette looked up, the gray channel repeated; 16-bit colour
+  keeps its high byte, 16-bit gray is clipped to 255 (``I;16`` to RGB),
+  and 1-, 2- and 4-bit gray scale to 0..255 (1-bit by 255, as mode ``1``).
+  A label map is the gray values or palette indices: 16-bit gray keeps its
+  low byte (numpy's cast of ``I;16``), 1-bit gray is 0/1 (mode ``1``), 2-
+  and 4-bit gray scale by 85 and 17 (mode ``L``).
+- **JPEG**: Huffman-coded baseline, extended-sequential and progressive
+  (SOF0-2), 8-bit, gray, three components or four (CMYK, or YCCK under
+  Adobe's transform 2) at any integral sampling, decoded entirely by
+  ``csrc/imdecode.cpp`` with libjpeg-turbo's integer IDCT, upsampling and
+  YCbCr table (Pillow's JPEG codec), and Pillow's inverted CMYK and its
+  ``cmyk2rgb``; restart intervals, byte stuffing and fill bytes are handled,
+  Adobe's transform 0 means RGB, a gray JPEG repeats its channel, and no
+  EXIF rotation is applied.
 
 Anything else raises a :class:`ValueError` that names the file and what it
-met: interlaced, 16-bit or sub-8-bit PNG; progressive, arithmetic-coded,
-lossless, 12-bit, CMYK / YCCK or otherwise sampled JPEG; truncated or
+met: arithmetic-coded, lossless, hierarchical or 12-bit JPEG, fractional
+sampling ratios, a progression that breaks libjpeg's order or leaves
+coefficients incomplete (libjpeg would smooth the blocks); truncated or
 corrupt data. The library is compiled with ``c++`` into ``build/host/`` at
 first use (:func:`afan_torch.ops.kernels.build.build_host`) and bound with
 :mod:`ctypes`, which releases the GIL during a call, so a prefetch thread
@@ -37,9 +46,15 @@ import numpy as np
 from ..ops.kernels.build import build_host
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> (name, bytes per pixel at 8 bits)
-PNG_COLOR_TYPES = {0: ("gray", 1), 2: ("RGB", 3), 3: ("palette", 1),
-                   4: ("gray+alpha", 2), 6: ("RGBA", 4)}
+# PNG colour type -> (name, channels, the bit depths PNG allows)
+PNG_COLOR_TYPES = {0: ("gray", 1, (1, 2, 4, 8, 16)), 2: ("RGB", 3, (8, 16)),
+                   3: ("palette", 1, (1, 2, 4, 8)),
+                   4: ("gray+alpha", 2, (8, 16)), 6: ("RGBA", 4, (8, 16))}
+# Adam7: (first column, first row, column step, row step) of each pass
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# 1-, 2- and 4-bit gray to 8 bits (mode ``L``): v * 255 / (2^depth - 1)
+_GRAY_SCALE = {1: 255, 2: 85, 4: 17}
 _ERR_LEN = 256
 
 _lib: Optional[ctypes.CDLL] = None
@@ -93,8 +108,34 @@ def _png_chunks(data: bytes, path: str):
         pos = end
 
 
-def _png(data: bytes, path: str) -> Tuple[int, np.ndarray, Optional[bytes]]:
-    """(colour type, unfiltered pixels (H, W, bpp) uint8, PLTE or None)."""
+def _unfilter(raw: bytes, width: int, height: int, depth: int,
+              channels: int, path: str) -> np.ndarray:
+    """The first ``height`` filtered rows of ``raw``, unfiltered and
+    unpacked: (height, width, channels) samples, uint16 at 16 bits, else
+    uint8."""
+    bits = depth * channels
+    stride = (width * bits + 7) // 8
+    rows = np.empty((height, stride), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if load_library().afan_png_unfilter(raw, len(raw), width, height, bits,
+                                        rows.ctypes.data, err, _ERR_LEN):
+        raise ValueError(f"{path}: {err.value.decode()}")
+    if depth == 8:
+        return rows.reshape(height, width, channels)
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(height, width,
+                                                          channels)
+    per_byte = 8 // depth                         # gray or palette samples
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return samples.reshape(height, stride * per_byte)[:, :width, None]
+
+
+def _png(data: bytes, path: str) -> Tuple[int, int, np.ndarray,
+                                          Optional[bytes]]:
+    """(colour type, bit depth, samples (H, W, channels), PLTE or None);
+    the samples are uint16 at 16 bits, else uint8 (sub-byte ones
+    unscaled)."""
     header, palette, idat = None, None, []
     for kind, body in _png_chunks(data, path):
         if kind == b"IHDR":
@@ -108,13 +149,12 @@ def _png(data: bytes, path: str) -> Tuple[int, np.ndarray, Optional[bytes]]:
     width, height, depth, ctype, _, _, interlace = header
     if ctype not in PNG_COLOR_TYPES:
         raise ValueError(f"{path}: unknown PNG colour type {ctype}")
-    if depth == 16:
-        raise ValueError(f"{path}: 16-bit PNG is not decoded")
-    if depth != 8:
-        raise ValueError(f"{path}: {depth}-bit PNG (below 8 bits) is not "
-                         f"decoded")
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNG is not decoded")
+    _, channels, depths = PNG_COLOR_TYPES[ctype]
+    if depth not in depths:
+        raise ValueError(f"{path}: a bit depth of {depth} is not valid for "
+                         f"{PNG_COLOR_TYPES[ctype][0]} PNG")
+    if interlace > 1:
+        raise ValueError(f"{path}: unknown PNG interlace method {interlace}")
     if ctype == 3 and palette is None:
         raise ValueError(f"{path}: palette PNG without a PLTE chunk")
     inflater = zlib.decompressobj()
@@ -124,13 +164,27 @@ def _png(data: bytes, path: str) -> Tuple[int, np.ndarray, Optional[bytes]]:
         raise ValueError(f"{path}: corrupt PNG image data ({e})") from None
     if not inflater.eof:
         raise ValueError(f"{path}: truncated PNG image data")
-    bpp = PNG_COLOR_TYPES[ctype][1]
-    out = np.empty((height, width, bpp), np.uint8)
-    err = ctypes.create_string_buffer(_ERR_LEN)
-    if load_library().afan_png_unfilter(raw, len(raw), width, height, bpp,
-                                        out.ctypes.data, err, _ERR_LEN):
-        raise ValueError(f"{path}: {err.value.decode()}")
-    return ctype, out, palette
+    if not interlace:
+        px = _unfilter(raw, width, height, depth, channels, path)
+        return ctype, depth, px, palette
+    # Adam7: each pass unfiltered on its own at its own width (a pass with
+    # no column or no row has no bytes), then scattered into the image
+    px = np.empty((height, width, channels),
+                  np.uint16 if depth == 16 else np.uint8)
+    offset = 0
+    for x0, y0, dx, dy in ADAM7:
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w <= 0 or h <= 0:
+            continue
+        size = h * (1 + (w * depth * channels + 7) // 8)
+        if offset + size > len(raw):
+            raise ValueError(f"{path}: truncated image data: {len(raw)} "
+                             f"bytes inflated, more needed by Adam7's "
+                             f"passes")
+        px[y0::dy, x0::dx] = _unfilter(raw[offset:offset + size], w, h,
+                                       depth, channels, path)
+        offset += size
+    return ctype, depth, px, palette
 
 
 def _palette_table(palette: bytes) -> np.ndarray:
@@ -162,9 +216,17 @@ def read_rgb(path: str) -> np.ndarray:
     PNG or JPEG file."""
     data = _read(path)
     if data.startswith(PNG_SIGNATURE):
-        ctype, px, palette = _png(data, path)
+        ctype, depth, px, palette = _png(data, path)
         if ctype == 3:
             return _palette_table(palette)[px[..., 0]]
+        if depth == 16:
+            if ctype == 0:                              # I;16 -> RGB clips
+                px = np.minimum(px, 255)
+            else:                                       # RGB;16B, LA;16B...
+                px = px >> 8
+            px = px.astype(np.uint8)
+        elif depth < 8:
+            px = px * np.uint8(_GRAY_SCALE[depth])
         if ctype in (0, 4):
             return np.repeat(px[..., :1], 3, axis=2)
         return np.ascontiguousarray(px[..., :3])
@@ -175,13 +237,19 @@ def read_rgb(path: str) -> np.ndarray:
 
 def read_label(path: str) -> np.ndarray:
     """``np.asarray(Image.open(path), np.uint8)`` of a label map: (H, W)
-    uint8, the values of an 8-bit gray PNG or the indices of a palette PNG
-    (any ``tRNS`` chunk ignored)."""
+    uint8, the values of a gray PNG (16-bit: the low byte; 1-bit: 0/1; 2-
+    and 4-bit: scaled to 0..255) or the indices of a palette PNG (any
+    ``tRNS`` chunk ignored)."""
     data = _read(path)
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f"{path}: a label map must be a PNG file")
-    ctype, px, _ = _png(data, path)
+    ctype, depth, px, _ = _png(data, path)
     if ctype not in (0, 3):
-        raise ValueError(f"{path}: a label map must be an 8-bit gray or "
-                         f"palette PNG, not {PNG_COLOR_TYPES[ctype][0]}")
-    return px[..., 0]
+        raise ValueError(f"{path}: a label map must be a gray or palette "
+                         f"PNG, not {PNG_COLOR_TYPES[ctype][0]}")
+    label = px[..., 0]
+    if depth == 16:
+        return label.astype(np.uint8)                   # numpy wraps
+    if ctype == 0 and depth in (2, 4):
+        return label * np.uint8(_GRAY_SCALE[depth])
+    return label

@@ -10,12 +10,13 @@ the kernel timings of phase 10 (the upsample + CE kernels alone, no
 trainer); ``--only seg`` phases 1, 2 and
 7-10; ``--only det`` phases 1-6; ``--only cls`` phases 1, 2 and 11-14 (phase
 11 then lacks the segmentation ascents' shapes); ``--only dettrain`` phases
-1, 2 and 15-17; ``--only scan`` phases 1, 2 and 18-21; ``--only variants``
+1, 2 and 15-17; ``--only scan`` phases 1, 2, 18-21 and 52-54; ``--only
+variants``
 phases 1, 2 and 22-26; ``--only bf16`` phases 1, 2 and 27-29; ``--only
 detbf16`` phases 1, 2 and 30-32; ``--only clsbf16`` phases 1, 2 and 33-35;
 ``--only eval`` phases 1, 2 and 36-39; ``--only mobilenet`` phases 1, 2
 and 40-42; ``--only coco`` phases 1, 2 and 43-46; ``--only data`` phases 1,
-2 and 47-50.
+2 and 47-51.
 The kernels
 line then lists the kernels of the phases that ran; without phase 8 the
 upsample + CE kernels have no launch count (null), and under ``--only
@@ -282,7 +283,9 @@ Phases (any failure exits non-zero):
      VOC 2007 detection (16 trainval, 4 test, wide and tall fixture JPEGs,
      one difficult object per test image) and COCO 2017 (8 train, 2 val,
      one crowd annotation per split); the decode ms per image (median of
-     20) of a 500x375 JPEG and a 2048x1024 PNG on the host's CPU;
+     20) of a 500x375 JPEG and a 2048x1024 PNG on the host's CPU, and of a
+     500x375 progressive JPEG, a 320x240 CMYK JPEG and a 500x375 Adam7
+     label PNG;
  49. ``recipes/seg_city_final.sh``, ``seg_voc07_final1.sh``,
      ``detect_voc07_final_setting1.sh`` and ``detect_coco_final_setting.sh``
      setting 1 as written with DATA pointing at the trees (2 steps each,
@@ -304,7 +307,32 @@ Phases (any failure exits non-zero):
      49's runs, bit for bit; then the loaders' host ms per batch alone
      (Cityscapes batch 4, VOC detection batch 8) beside the recipe steps'
      ms and waits, and the kernels at the new shapes with plain versions,
-     bounds and (upsample + CE) the library.
+     bounds and (upsample + CE) the library;
+ 51. ``recipes/seg_city_final.sh`` on the Cityscapes tree with the
+     reference scripts' ``--gpu_id 0 --vis_port 8097 --download``, in f32,
+     with ``--fused_ce on`` and then ``off``, 2 steps and a validation
+     each: 5 upsample + CE launches each way per step with ``on``, none
+     with ``off``; the first steps' losses within 1e-4 (relative); each
+     run's ``runs/<exp>/scalars.jsonl`` holding every step's
+     ``train/loss`` and the ``val/mIoU``, and its log the ``--download``
+     warning (phase 49's detection runs hold ``train/loss`` per step in
+     ``<outputs_dir>/summaries/scalars.jsonl``);
+ 52. ``train_classify.main --epoch_scan --pgd_random_steps`` at full width
+     (ALFA ResNet-56, batch 128), f32 and ``--bf16``, 2 epochs of 8 steps:
+     phase 18's checks, the launches being the PGD update's
+     device-step-size entry points (its step sizes drawn on the card, each
+     replay anew), 5 of its kernels per replay in a profiler trace;
+ 53. 6 one-step epochs of a random-steps epoch scan (3 eager, the capture,
+     replays) against 6 eager device-data steps from the same weights and
+     draws, each fed the step sizes the scan's step used (read back after
+     it ran), f32 and bf16: metrics and parameters within 1e-4 (f32) or one
+     bf16 ulp (2^-8, bf16), every step's sizes new; ``profile_trace``
+     (``afan_torch/utils/observe.py``) around 3 more replays, its trace
+     holding 15 device-step-size kernels; the device-step-size kernel
+     against the host-step-size kernel and the plain version at the ALFA
+     tap, f32 and bf16, clipped and not, bit for bit;
+ 54. the device-step-size kernel at the ALFA tap in turns with the
+     host-step-size kernel, f32 and bf16, its plain version and bound.
 
 The line before the last lists each kernel with its launches on its main
 paths (the bf16 paths of phases 27-29 as entries of their own, ``_bf16``,
@@ -318,8 +346,11 @@ runs of phases 22 and 23 and the bf16 runs of phases 30 and 33 (NMS in
 29's where it ran, else the bf16 detection or ALFA step's) and the eval runs
 of phases 36 and 37 (under ``--only eval`` the times are per ``rob`` image
 for NMS and the PGD update, per VOC ``pgd`` image for the upsample + CE)
-and the runs of phases 40, 43, 44 and 49 (under ``--only mobilenet``,
+and the runs of phases 40, 43, 44, 49 and 51 (under ``--only mobilenet``,
 ``--only coco`` or ``--only data`` the times are phase 42's, 46's or 50's).
+The device-step-size PGD update has entries of its own,
+``pgd_update_dev`` and ``pgd_update_dev_bf16``: phase 52's launches and
+phase 54's times per replay (5 launches).
 Launches are the wrappers' counts: a graph replay runs kernels that no
 wrapper call counts, so phase 18 prints the PGD-update kernels its replays
 ran (the profiled kernels per replay times the replays) beside the
@@ -331,6 +362,7 @@ import argparse
 import asyncio
 import contextlib
 import copy
+import functools
 import gc
 import inspect
 import itertools
@@ -1022,9 +1054,9 @@ def train_full_width():
     losses, configs = [], []
     real = train_segment.make_afan_seg_step
 
-    def recording(model, optimizer, scheduler, cfg):
+    def recording(model, optimizer, scheduler, cfg, **kw):
         configs.append(cfg)
-        step = real(model, optimizer, scheduler, cfg)
+        step = real(model, optimizer, scheduler, cfg, **kw)
 
         def run(images, labels, generator=None):
             out = step(images, labels, generator)
@@ -2291,12 +2323,15 @@ def seg_variant_args(variant, extra=()):
 
 def seg_expected(args):
     """(upsample + CE launches each way, PGD-update launches) per step of
-    the step that ``train_segment.build_step`` builds for ``args``."""
+    the step that ``train_segment.build_step`` builds for ``args``; under
+    ``--fused_ce off`` no upsample + CE kernel launches."""
     if args.variant == "advtrain":
-        return seg_launches_per_step(None, args.steps)
-    if args.variant == "baseline":
-        return seg_launches_per_step(None)
-    return seg_launches_per_step(train_segment.afan_config(args))
+        sites, pgd = seg_launches_per_step(None, args.steps)
+    elif args.variant == "baseline":
+        sites, pgd = seg_launches_per_step(None)
+    else:
+        sites, pgd = seg_launches_per_step(train_segment.afan_config(args))
+    return (0 if args.fused_ce == "off" else sites), pgd
 
 
 def run_segment_cli(variant, extra, updates):
@@ -3274,6 +3309,8 @@ KERNEL_SOURCES = {
                            "afan/ops/kernels/resize_ce_kernel.py:127"),
     "pgd_update": ("afan_torch/csrc/pgd_step.cu",
                    "afan/ops/kernels/pgd_step.py:40"),
+    "pgd_update_dev": ("afan_torch/csrc/pgd_step.cu",
+                       "afan/ops/kernels/pgd_step.py:40"),
 }
 
 
@@ -3326,10 +3363,18 @@ class RecordingScan:
         return out
 
 
-def pgd_per_replay(scan, clip, bf16=False):
+def pgd_kernel_name(clip, bf16=False, dev=False):
+    """The aligned PGD-update kernel's instantiation, as the profiler names
+    it: clipped with ``clip``, bf16 with ``bf16``, reading its step size on
+    the card with ``dev``."""
+    return (f"pgd_step_{'bf16_vec8' if bf16 else 'vec4'}"
+            f"<{'true' if clip else 'false'}, {'true' if dev else 'false'}>")
+
+
+def pgd_per_replay(scan, clip, bf16=False, dev=False):
     """PGD-update kernels per replay, by kernel name (the clipped
-    instantiation with ``clip``, the bf16 one with ``bf16``), in a profiler
-    trace of
+    instantiation with ``clip``, the bf16 one with ``bf16``, the
+    device-step-size one with ``dev``), in a profiler trace of
     ``SCAN_BATCHES`` more replays of ``scan``'s own graph, its step index
     reset to row 0 first. The replays train the model on: run it after the
     run's checkpoint is written. The profiler has lost records on the card
@@ -3338,23 +3383,23 @@ def pgd_per_replay(scan, clip, bf16=False):
     ``ALFA_STEPS`` per replay is taken once more, and the second count
     stands."""
     from torch.profiler import ProfilerActivity, profile
-    want = (f"pgd_step_{'bf16_vec8' if bf16 else 'vec4'}"
-            f"<{'true' if clip else 'false'}>")
+    want = pgd_kernel_name(clip, bf16, dev)
+    n = min(SCAN_BATCHES, scan.steps_per_epoch)     # rows of the epoch
     for attempt in (1, 2):
         scan.scan._static["i"].zero_()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(SCAN_BATCHES):
+            for _ in range(n):
                 scan.graph.replay()
             torch.cuda.synchronize()
         found = {e.key: e.count for e in prof.key_averages()
                  if "pgd_step" in e.key}
         other = [k for k in found if want not in k]
-        require(not other, f"PGD kernels {found} in {SCAN_BATCHES} replays")
-        per = sum(found.values()) / SCAN_BATCHES
+        require(not other, f"PGD kernels {found} in {n} replays")
+        per = sum(found.values()) / n
         if per == ALFA_STEPS or attempt == 2:
             return per
         print(f"    trace {attempt} held {sum(found.values())} PGD-update "
-              f"kernels in {SCAN_BATCHES} replays; tracing them again")
+              f"kernels in {n} replays; tracing them again")
 
 
 def run_scan_cli(flags, epochs, tag, resume=False, batches=SCAN_BATCHES):
@@ -3363,8 +3408,10 @@ def run_scan_cli(flags, epochs, tag, resume=False, batches=SCAN_BATCHES):
     losses, graph and checkpoint, then profiles its graph
     (:func:`pgd_per_replay`). Returns (the recorded scan, save_dir, the
     PGD-update launches the wrapper counted in the run, the kernels per
-    replay in the trace)."""
+    replay in the trace). Under ``--pgd_random_steps`` the launches are the
+    device-step-size entry points' (``dev_launches``)."""
     spe = batches or TRAIN_SPLIT // CLS_BATCH
+    dev = "--pgd_random_steps" in flags
     save_dir = os.path.join("checkpoints", f"chip_smoke_classify_{tag}")
     if not resume:
         shutil.rmtree(save_dir, ignore_errors=True)
@@ -3376,7 +3423,7 @@ def run_scan_cli(flags, epochs, tag, resume=False, batches=SCAN_BATCHES):
         return scans[-1]
 
     train_classify.make_epoch_scan_alfa = recording
-    kpgd.launches = 0
+    kpgd.launches = kpgd.dev_launches = 0
     t0 = time.time()
     try:
         train_classify.main(
@@ -3389,7 +3436,9 @@ def run_scan_cli(flags, epochs, tag, resume=False, batches=SCAN_BATCHES):
     finally:
         train_classify.make_epoch_scan_alfa = real
     secs = time.time() - t0
-    wrapper = kpgd.launches
+    wrapper = kpgd.dev_launches if dev else kpgd.launches
+    require((kpgd.launches if dev else kpgd.dev_launches) == 0,
+            f"{tag}: PGD-update launches of the other step-size entry")
     (scan,) = scans
     ran = len(scan.epochs)
     losses = np.concatenate([e["loss"] for e in scan.epochs])
@@ -3415,7 +3464,8 @@ def run_scan_cli(flags, epochs, tag, resume=False, batches=SCAN_BATCHES):
     with open(os.path.join(save_dir, "result.pkl"), "rb") as f:
         result = pickle.load(f)
     replays = scan.replays
-    per = pgd_per_replay(scan, clip="--clip" in flags, bf16="--bf16" in flags)
+    per = pgd_per_replay(scan, clip="--clip" in flags, bf16="--bf16" in flags,
+                         dev=dev)
     print(f"    {tag}: {ran} epoch(s) of {spe} steps + validation "
           f"and test in {secs:.1f} s: {scan.eager_steps} eager steps, "
           f"{replays} graph replays; per-epoch mean loss "
@@ -3424,7 +3474,7 @@ def run_scan_cli(flags, epochs, tag, resume=False, batches=SCAN_BATCHES):
           f"{saved['step']}, lr {host_lr}; val accuracy {result['ta']}; "
           f"PGD-update launches counted by the wrapper {wrapper} (eager "
           f"steps and the capture); kernels per replay in a profiler trace "
-          f"of {SCAN_BATCHES} replays of this graph {per:g}, so "
+          f"of {min(SCAN_BATCHES, spe)} replays of this graph {per:g}, so "
           f"{per * replays:g} run by the run's replays")
     require(per == ALFA_STEPS, f"{tag}: {per} PGD-update kernels per replay")
     return scan, save_dir, wrapper, per * replays
@@ -3656,10 +3706,253 @@ def robust_eval_phase(card, split, ckpt_dir, errs):
         "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
 
 
+# --pgd_random_steps under --epoch_scan (phases 52-54): the CLI runs' steps
+# per epoch; the graph against eager, each replay's step sizes read back and
+# fed to the eager step, within 1e-4 (relative) in f32 and one bf16 ulp in
+# bf16; the device-step-size kernel's trace goes under TRACE_DIR.
+RANDOM_STEPS_BATCHES = 8
+RANDOM_STEPS_RUNS = (([], torch.float32, "scan_random_steps"),
+                     (["--bf16"], torch.bfloat16, "scan_random_steps_bf16"))
+RANDOM_GRAPH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -8}
+TRACE_DIR = os.path.join("checkpoints", "chip_smoke_trace")
+
+
+def random_steps_runs():
+    """Phase 52: ``train_classify --mode alfa --epoch_scan
+    --pgd_random_steps``, f32 and ``--bf16``, :func:`run_scan_cli`'s checks
+    with the device-step-size launches. Returns them by dtype."""
+    print(f"[52] train_classify --epoch_scan --pgd_random_steps: ALFA "
+          f"ResNet-56, batch {CLS_BATCH}, {SCAN_EPOCHS} epochs of "
+          f"{RANDOM_STEPS_BATCHES} steps, f32 and bf16; each step's sizes "
+          f"drawn on the card, read there by the PGD-update kernel")
+    launches = {}
+    for flags, dtype, tag in RANDOM_STEPS_RUNS:
+        before = kpgd.bf16_dev_launches
+        scan, _, launches[dtype], _ = run_scan_cli(
+            ["--pgd_random_steps"] + flags, SCAN_EPOCHS, tag,
+            batches=RANDOM_STEPS_BATCHES)
+        bf16 = kpgd.bf16_dev_launches - before
+        require(bf16 == (launches[dtype] if dtype == torch.bfloat16 else 0),
+                f"{tag}: {bf16} bf16 of {launches[dtype]} device-step-size "
+                f"launches")
+        del scan
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def random_steps_graph_vs_eager(split, dtype, steps=6):
+    """Phase 53, one dtype: ``steps`` one-step epochs of a random-steps
+    epoch scan (3 eager, the capture, replays), each epoch's step sizes
+    read back after it ran, against as many eager device-data steps from
+    the same weights, permutations and generator seed, each fed the scan's
+    step sizes (its own draws, taken to keep the generator in step, are
+    compared with them); then :func:`afan_torch.utils.observe.profile_trace`
+    around three more replays."""
+    from afan_torch.utils.observe import profile_trace
+    data_x, data_y = split
+    cfg = cls_loop.AlfaConfig(random_steps=True)
+    real = attack.random_step_sizes
+    recorded, own, runs = [], [], []
+    before = kpgd.dev_launches
+
+    def record(*a):
+        recorded.append(real(*a))
+        return recorded[-1]
+
+    def feed(*a):
+        own.append(real(*a))
+        return sizes[len(own) - 1].clone()
+
+    with deterministic():
+        for graphed in (True, False):
+            model = resnet56(generator=torch.Generator().manual_seed(0),
+                             dtype=dtype).cuda()
+            opt, count = alfa_optimizer(model)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            perms = [torch.randperm(len(data_x), generator=gen,
+                                    device="cuda") for _ in range(steps)]
+            attack.random_step_sizes = record if graphed else feed
+            try:
+                if graphed:
+                    scan = cls_loop.make_epoch_scan_alfa(model, opt, cfg,
+                                                         CLS_BATCH, 1)
+                    out, sizes = [], []
+                    for perm in perms:
+                        out.append(scan(data_x, data_y, perm, gen))
+                        sizes.append(recorded[-1].clone())
+                else:
+                    step = cls_loop.make_device_data_alfa_step(
+                        model, opt, count, cfg, CLS_BATCH)
+                    out = [step(data_x, data_y, perm, 0, gen)
+                           for perm in perms]
+            finally:
+                attack.random_step_sizes = real
+            torch.cuda.synchronize()
+            runs.append(({k: torch.stack([m[k].reshape(()) for m in out])
+                          for k in out[0]},
+                         {k: v.detach().clone()
+                          for k, v in model.state_dict().items()}))
+            if graphed:
+                graph = scan
+            else:
+                del model, opt, step
+    (mg, sg), (me, se) = runs
+    launches = kpgd.dev_launches - before
+    metric_err = max(float(((mg[k] - me[k]).abs()
+                            / me[k].abs().clamp_min(1e-30)).max())
+                     for k in ("loss", "accuracy", "pert_l2", "pert_linf"))
+    param_err = max(float((sg[k] - v).float().abs().max())
+                    / max(float(v.float().abs().max()), 1e-30)
+                    for k, v in se.items() if v.is_floating_point())
+    same_draws = all(bits_equal(a, b) for a, b in zip(own, sizes))
+    fresh = len({tuple(u.float().tolist()) for u in sizes}) == steps
+    tol = RANDOM_GRAPH_TOL[dtype]
+    print(f"    {str(dtype)[6:]}: {graph.eager_steps} eager steps, then "
+          f"{graph.replays} replays; step sizes x255 per epoch "
+          f"{[[round(v * 255, 4) for v in u.float().tolist()] for u in sizes]}"
+          f" (each replay's new: {fresh}; the eager steps' own draws equal "
+          f"them bit for bit: {same_draws}); loss graph "
+          f"{[round(float(v), 6) for v in mg['loss']]}, eager "
+          f"{[round(float(v), 6) for v in me['loss']]}; largest metric rel "
+          f"err {metric_err:.3e}, parameter / buffer rel err "
+          f"{param_err:.3e} (tolerance {tol:.3g}); device-step-size "
+          f"launches counted by the wrapper {launches}")
+    require(fresh, "two replays of the random-steps graph drew the same "
+            "step sizes")
+    require(metric_err <= tol and param_err <= tol,
+            f"random-steps graph and eager differ: metrics {metric_err}, "
+            f"parameters {param_err}")
+    require(launches == ALFA_STEPS * (steps + graph.eager_steps + 1),
+            f"{launches} device-step-size launches counted: the eager "
+            f"steps of both runs and the capture expected")
+    name = pgd_kernel_name(False, dtype == torch.bfloat16, dev=True)
+    logdir = os.path.join(TRACE_DIR, str(dtype)[6:])
+    shutil.rmtree(logdir, ignore_errors=True)
+    with profile_trace(logdir):
+        for _ in range(3):
+            graph._static["i"].zero_()     # the epoch's one row
+            graph.graph.replay()
+    (trace,) = os.listdir(logdir)
+    with open(os.path.join(logdir, trace)) as f:
+        events = json.load(f)["traceEvents"]
+    found = sum(name in str(ev.get("name", "")) for ev in events)
+    print(f"    profile_trace of 3 replays: {os.path.join(logdir, trace)}, "
+          f"{len(events)} events, {found} of them {name}")
+    require(found == 3 * ALFA_STEPS,
+            f"the trace of 3 replays holds {found} {name} kernels")
+
+
+def dev_gamma_kernel_checks(errs):
+    """Phase 53: the device-step-size kernel against the host-step-size one
+    on the same step size and against the plain version, at the ALFA tap,
+    f32 and bf16, clipped and not, over step sizes drawn on the card: bit
+    for bit. The errors (0) go to ``errs`` by dtype."""
+    shape = (CLS_BATCH, 16, 32, 32)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g, c = (t.to(dtype) for t in pgd_inputs(shape, 530))
+        sizes = attack.random_step_sizes(
+            ALFA_GAMMA, 4, torch.Generator(device="cuda").manual_seed(5),
+            dtype, "cuda")
+        for clip in (False, True):
+            kw = dict(eps=ALFA_EPS if clip else None, clip=clip)
+            centre = c if clip else None
+            for t in range(len(sizes)):
+                dev = kpgd.pgd_update(x, g, centre, gamma=sizes[t:t + 1],
+                                      **kw)
+                host = kpgd.pgd_update(x, g, centre, gamma=float(sizes[t]),
+                                       **kw)
+                plain = tpgd.pgd_update_plain(x, g, centre,
+                                              gamma=sizes[t:t + 1], **kw)
+                torch.cuda.synchronize()
+                require(bits_equal(dev, host) and bits_equal(dev, plain),
+                        f"device-step-size kernel {dtype} clip={clip} step "
+                        f"{t}: not bit-equal to the host-step-size kernel "
+                        f"and the plain version")
+                finite = torch.isfinite(dev) & torch.isfinite(plain)
+                errs[dtype].append(float((dev.float() - plain.float())[
+                    finite].abs().max()))
+        print(f"    device-step-size kernel {str(dtype)[6:]} at {shape}, "
+              f"clipped and not, {len(sizes)} step sizes drawn on the card "
+              f"(x255: {[round(float(v) * 255, 4) for v in sizes]}): "
+              f"bit-equal to the host-step-size kernel and the plain "
+              f"version")
+
+
+def time_dev_gamma(card, launches, errs):
+    """Phase 54: at the ALFA tap, f32 and bf16, unclipped: the
+    device-step-size kernel in turns with the host-step-size kernel (host,
+    device, device, host, twice; device ms per call queued behind a sleep
+    kernel, inputs cycled through 8 sets), the plain version with the
+    tensor step size, and the bound: x and g read and the output written
+    once, and the step size read once, at HBM's rate; PGD_OPS per element
+    at the f32 peak. Per replay: ALFA_STEPS launches. Returns the kernels
+    line's parts by name."""
+    print(f"[54] the device-step-size PGD update at the ALFA tap, in turns "
+          f"with the host-step-size kernel, on {card}")
+    shape = (CLS_BATCH, 16, 32, 32)
+    n = int(np.prod(shape))
+    parts = {}
+    for dtype, name in ((torch.float32, "pgd_update_dev"),
+                        (torch.bfloat16, "pgd_update_dev_bf16")):
+        sets = itertools.cycle([tuple(t.to(dtype) for t in
+                                      pgd_inputs(shape, 540 + i))
+                                for i in range(8)])
+        step = attack.random_step_sizes(
+            ALFA_GAMMA, 1, torch.Generator(device="cuda").manual_seed(6),
+            dtype, "cuda")
+        value = float(step)
+
+        def call(fn, gamma):
+            x, g, _ = next(sets)
+            return fn(x, g, gamma=gamma)
+
+        runs = {"host": lambda: call(kpgd.pgd_update, value),
+                "device": lambda: call(kpgd.pgd_update, step)}
+        turns = {"host": [], "device": []}
+        for which in ("host", "device", "device", "host") * 2:
+            turns[which].append(queued_ms(runs[which]))
+        p_ms = queued_ms(lambda: call(tpgd.pgd_update_plain, step))
+        size = step.element_size()
+        byte_ms = (3 * size * n + size) / HBM_BYTES_PER_S * 1e3
+        op_ms = PGD_OPS * n / F32_OPS_PER_S * 1e3
+        k_ms = float(np.median(turns["device"]))
+        h_ms = float(np.median(turns["host"]))
+        print(f"    {name} {shape}: device step size "
+              f"{[round(t, 5) for t in turns['device']]} ms per launch, host "
+              f"step size {[round(t, 5) for t in turns['host']]} (medians "
+              f"{k_ms:.5f} and {h_ms:.5f}, {k_ms / h_ms:.3f}x); plain "
+              f"{p_ms:.5f} ms; bound max(bytes {byte_ms:.6f}, operations "
+              f"{op_ms:.6f}) ms; kernel at {k_ms / max(byte_ms, op_ms):.2f}x "
+              f"its bound; per replay ({ALFA_STEPS} launches) "
+              f"{ALFA_STEPS * k_ms:.5f} ms ({card})")
+        parts[name] = (launches[dtype], max(errs[dtype]), kernel_times(
+            ALFA_STEPS * k_ms, ALFA_STEPS * p_ms, ALFA_STEPS * byte_ms,
+            ALFA_STEPS * op_ms))
+    return parts
+
+
+def random_steps_phases(card, split):
+    """Phases 52-54; returns the device-step-size kernel's parts for the
+    kernels line: the launches of phase 52's runs, the largest error,
+    times per replay."""
+    launches = random_steps_runs()
+    print(f"[53] the random-steps epoch scan (graph replays) vs eager "
+          f"device-data steps fed each replay's step sizes, from the same "
+          f"weights and draws (cuDNN deterministic, no TF32)")
+    for dtype in (torch.float32, torch.bfloat16):
+        random_steps_graph_vs_eager(split, dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+    errs = {torch.float32: [], torch.bfloat16: []}
+    dev_gamma_kernel_checks(errs)
+    return time_dev_gamma(card, launches, errs)
+
+
 def epoch_scan_phases(card):
-    """Phases 18-21; returns the PGD-update kernel's part: the launches of
-    the epoch-scan runs and of the robust evaluation, its times per
-    robust-eval batch."""
+    """Phases 18-21 and 52-54; returns the PGD-update kernel's part (the
+    launches of the epoch-scan runs and of the robust evaluation, its times
+    per robust-eval batch) and the device-step-size kernel's parts."""
     launches, ckpt_dir = train_scan_full_width()
     split = device_split()
     scan_graph_vs_eager(split)
@@ -3668,11 +3961,14 @@ def epoch_scan_phases(card):
     time_scan(card, split)
     errs = []
     rob_launches, times = robust_eval_phase(card, split, ckpt_dir, errs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev_parts = random_steps_phases(card, split)
     return {"name": "pgd_update", "route": "cuda",
             "source": "afan_torch/csrc/pgd_step.cu",
             "replaces": "afan/ops/kernels/pgd_step.py:40",
             "launches": launches + rob_launches, "max_abs_err": max(errs),
-            **times, "library_ms": None}
+            **times, "library_ms": None}, dev_parts
 
 
 # ---------- evaluation: phases 36-39 ----------
@@ -4937,16 +5233,26 @@ def cpu_model():
 
 def decode_timings(root):
     """Phase 48's decode times: ms per image, median of 20, of a 500x375
-    JPEG and a 2048x1024 PNG on this host."""
+    JPEG and a 2048x1024 PNG on this host, and of the image kinds PIL reads
+    beyond those: a 500x375 progressive JPEG, a 320x240 CMYK JPEG and a
+    500x375 Adam7 label PNG."""
     from afan_torch.utils import imread
-    jpg = os.path.join(DATA_FIXTURES, "voc_500x375.jpg")
     png = next(os.path.join(dp, f) for dp, _, fs in sorted(os.walk(
         os.path.join(root, "leftImg8bit", "train"))) for f in sorted(fs))
-    times = {"jpeg_500x375": host_ms(lambda: imread.read_rgb(jpg)),
-             "png_2048x1024": host_ms(lambda: imread.read_rgb(png))}
+    fixture = functools.partial(os.path.join, DATA_FIXTURES)
+    files = {"jpeg_500x375": (fixture("voc_500x375.jpg"), imread.read_rgb),
+             "png_2048x1024": (png, imread.read_rgb),
+             "progressive_jpeg_500x375": (fixture("progressive_500x375.jpg"),
+                                          imread.read_rgb),
+             "cmyk_jpeg_320x240": (fixture("cmyk_320x240.jpg"),
+                                   imread.read_rgb),
+             "adam7_label_png_500x375": (fixture("adam7_label_500x375.png"),
+                                         imread.read_label)}
+    times = {k: host_ms(lambda p=path, r=read: r(p))
+             for k, (path, read) in files.items()}
     print(f"    decode, median of 20 on {cpu_model()} ({os.cpu_count()} "
-          f"cores): 500x375 JPEG {times['jpeg_500x375']:.3f} ms, 2048x1024 "
-          f"RGB PNG {times['png_2048x1024']:.3f} ms per image")
+          f"cores), ms per image: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
     return times
 
 
@@ -5027,6 +5333,9 @@ def data_recipe_runs(root, updates, host):
         launches["pgd_update"] += pgd - pgd16
         launches["pgd_update_bf16"] += pgd16
         ckpts[tag] = os.path.join(DET_OUT, tag, f"model-{RECIPE_STEPS}.pt")
+        check_scalars(os.path.join(DET_OUT, tag, "summaries"),
+                      [("train/loss", i + 1) for i in range(RECIPE_STEPS)],
+                      tag)
         host[tag] = (step_ms(stamps),
                      [w * 1e3 for p in prefetchers for w in p.wait_seconds],
                      "wait on the prefetch queue before each step (an "
@@ -5205,8 +5514,73 @@ def data_timings(card, root, calls, batch, updates, host):
     return times
 
 
+def check_scalars(logdir, want, tag):
+    """``<logdir>/scalars.jsonl`` holds the records ``want`` ((tag, step)
+    in order), finite; returns the records."""
+    with open(os.path.join(logdir, "scalars.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    require([(r["tag"], r["step"]) for r in recs] == want
+            and all(np.isfinite(r["value"]) for r in recs),
+            f"{tag}: scalars {recs}, expected {want}")
+    mirrored = any(n.startswith("events.out.tfevents")
+                   for n in os.listdir(logdir))
+    print(f"    {tag}: {os.path.join(logdir, 'scalars.jsonl')} holds "
+          f"{[(r['tag'], r['step'], round(r['value'], 5)) for r in recs]}; "
+          f"TensorBoard mirror {'written' if mirrored else 'none'}")
+    return recs
+
+
+# Phase 51: recipes/seg_city_final.sh on the tree with the reference
+# scripts' --gpu_id, --vis_port and --download, in f32 (its --bf16 left
+# out: the library's upsample and cross-entropy on bf16 logits round each
+# site's loss to bf16, as afan's do, 2^-8 relative, and the two paths are
+# held within FUSED_CE_REL)
+SEG_CLI_EXTRA = ["--gpu_id", "0", "--vis_port", "8097", "--download"]
+FUSED_CE_REL = 1e-4
+
+
+def seg_cli_flag_runs(root):
+    """Phase 51: the Cityscapes recipe with afan's remaining flags,
+    ``--fused_ce on`` and then ``off``, 2 steps and a validation each:
+    per step 5 upsample + CE launches each way with ``on`` and none with
+    ``off`` (:func:`run_seg_recipe`'s counts), the first steps' losses
+    within ``FUSED_CE_REL``, ``runs/<exp>/scalars.jsonl`` holding each
+    step's ``train/loss`` and the validation's ``val/mIoU``, the warning
+    ``--download`` logs. Returns both runs' launches."""
+    name, env, _ = DATA_SEG_RECIPES[0]
+    flags = ([f for f in recipe_flags(name, env) if f != "--bf16"]
+             + ["--data_root", root] + SEG_CLI_EXTRA)
+    print(f"[51] {name} on the tree with {' '.join(SEG_CLI_EXTRA)}, f32, "
+          f"--fused_ce on then off, {RECIPE_STEPS} steps each")
+    first, total = {}, None
+    for mode in ("on", "off"):
+        tag = f"data_fused_{mode}"
+        argv = flags + ["--fused_ce", mode]
+        args = train_segment.get_parser().parse_args(
+            argv + ["--exp", "chip_" + tag])
+        exp = train_segment.experiment_name(args)
+        shutil.rmtree(os.path.join("runs", exp), ignore_errors=True)
+        run = run_seg_recipe(tag, argv, torch.float32, [])
+        total = run if total is None else tuple(map(sum, zip(total, run)))
+        want = [("train/loss", i + 1) for i in range(RECIPE_STEPS)] + [
+            ("val/mIoU", RECIPE_STEPS)]
+        first[mode] = check_scalars(os.path.join("runs", exp), want,
+                                    tag)[0]["value"]
+        with open(os.path.join("checkpoints", exp, "train.log")) as f:
+            require("--download requested" in f.read(),
+                    f"{tag}: no --download warning in its log")
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = abs(first["on"] - first["off"]) / abs(first["on"])
+    print(f"    first-step loss: --fused_ce on {first['on']:.7f}, off "
+          f"{first['off']:.7f}, {rel:.3e} apart (relative; at most "
+          f"{FUSED_CE_REL:g})")
+    require(rel <= FUSED_CE_REL, f"--fused_ce on and off differ by {rel}")
+    return total
+
+
 def data_phases(card):
-    """Phases 47-50; returns (launches, error, times) of each kernel on the
+    """Phases 47-51; returns (launches, error, times) of each kernel on the
     on-disk paths."""
     decoder_on_the_card(card)
     root = os.path.join(DATA_OUT, "DATA")
@@ -5233,7 +5607,13 @@ def data_phases(card):
             f"{[k for k, e in errs.items() if not e]} against its plain "
             f"version")
     times = data_timings(card, root, calls, batch, updates, host)
-    print(f"    on-disk launches (phases 49 and 50's runs): {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = seg_cli_flag_runs(root)
+    for i, k in enumerate(("resize_ce_forward", "resize_ce_backward",
+                           "pgd_update")):
+        launches[k] += run[i]
+    print(f"    on-disk launches (phases 49-51's runs): {launches}")
     return {k: (launches[k], max(errs[k]), times[k]) for k in launches}
 
 
@@ -5337,7 +5717,9 @@ def main(argv=None):
             torch.cuda.empty_cache()
     if only in (None, "scan"):
         with group_time(seconds, "scan"):
-            merge_entry(entries, epoch_scan_phases(card))
+            pgd_entry, dev_parts = epoch_scan_phases(card)
+            merge_entry(entries, pgd_entry)
+            merge_launches(entries, dev_parts)
             gc.collect()
             torch.cuda.empty_cache()
     if variant:

@@ -6,16 +6,24 @@ image, ``np.asarray(Image.open(p), np.uint8)`` for a label map).
     python tests/fixtures/torch_images/make_fixtures.py
 
 The content is smooth and synthetic: sines over the image plane, a little
-seeded noise, and for the label map class rectangles with 255 borders.
+seeded noise, and for the label maps class rectangles with 255 borders.
+PIL writes no interlaced and no 16-bit colour PNG, so :func:`encode_png`, a
+small numpy encoder, writes those (any colour type and bit depth, Adam7 or
+not); the tests use it too.
 """
 import hashlib
 import json
 import os
+import struct
+import sys
+import zlib
 
 import numpy as np
 from PIL import Image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))
+from chip_smoke import png_filtered_rows  # noqa: E402
 
 
 def smooth(h, w, seed):
@@ -53,6 +61,60 @@ def voc_palette():
     return pal
 
 
+# Adam7: (first column, first row, column step, row step) of each pass
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}     # PNG colour type -> channels
+
+
+def packed_rows(samples, depth):
+    """(H, W, C) samples as PNG's packed rows (H, ceil(W * C * depth / 8))
+    uint8: 16-bit big-endian, sub-byte samples from the high bits on."""
+    h, w, c = samples.shape
+    flat = np.asarray(samples).reshape(h, w * c)
+    if depth == 16:
+        return flat.astype(">u2").view(np.uint8).reshape(h, 2 * w * c)
+    if depth == 8:
+        return flat.astype(np.uint8)
+    per = 8 // depth
+    flat = np.pad(flat.astype(np.uint8), ((0, 0), (0, -(w * c) % per)))
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    return (flat.reshape(h, -1, per) << shifts).sum(-1, dtype=np.uint8)
+
+
+def encode_png(samples, depth=8, ctype=0, interlace=False, palette=None,
+               filters=(0, 1, 2, 3, 4)):
+    """A PNG file's bytes: ``samples`` (H, W, channels of ``ctype``) at
+    ``depth`` bits, with ``palette`` ((N, 3) uint8) for colour type 3;
+    interlaced by Adam7, each pass filtered on its own, where asked; the
+    rows filtered in turn by the types ``filters`` at byte distance
+    ``max(1, channels * depth / 8)``."""
+    samples = np.asarray(samples)
+    h, w = samples.shape[:2]
+    samples = samples.reshape(h, w, CHANNELS[ctype])
+    bpp = max(1, CHANNELS[ctype] * depth // 8)
+    if interlace:
+        passes = [samples[y0::dy, x0::dx] for x0, y0, dx, dy in ADAM7]
+        raw = b"".join(
+            png_filtered_rows(packed_rows(p, depth), bpp, filters).tobytes()
+            for p in passes if p.shape[0] and p.shape[1])
+    else:
+        raw = png_filtered_rows(packed_rows(samples, depth), bpp,
+                                filters).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    out = [b"\x89PNG\r\n\x1a\n",
+           chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                      int(bool(interlace))))]
+    if palette is not None:
+        out.append(chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    out += [chunk(b"IDAT", zlib.compress(raw, 9)), chunk(b"IEND", b"")]
+    return b"".join(out)
+
+
 FIXTURES = {
     "voc_500x375.jpg": lambda p: Image.fromarray(smooth(375, 500, 1)).save(
         p, quality=85, subsampling=2),
@@ -65,7 +127,19 @@ FIXTURES = {
     "restart_333x257.jpg": lambda p: Image.fromarray(
         smooth(257, 333, 5)).save(p, quality=75, subsampling=1,
                                   restart_marker_rows=1),
+    "progressive_500x375.jpg": lambda p: Image.fromarray(
+        smooth(375, 500, 7)).save(p, quality=85, subsampling=2,
+                                  progressive=True),
+    "cmyk_320x240.jpg": lambda p: Image.fromarray(
+        smooth(240, 320, 8)).convert("CMYK").save(p, quality=80),
 }
+
+
+def write_bytes(data):
+    def write(p):
+        with open(p, "wb") as f:
+            f.write(data)
+    return write
 
 
 def write_label(p):
@@ -75,6 +149,12 @@ def write_label(p):
 
 
 FIXTURES["label_500x375.png"] = write_label
+# the VOC label map again, interlaced; a 16-bit gray label map whose high
+# byte PIL's uint8 cast drops
+FIXTURES["adam7_label_500x375.png"] = write_bytes(encode_png(
+    label_map(375, 500, 9), 8, 3, interlace=True, palette=voc_palette()))
+FIXTURES["gray16_label_200x150.png"] = write_bytes(encode_png(
+    label_map(150, 200, 10).astype(np.uint16) | 0x1200, 16, 0))
 
 
 def decoded(path):

@@ -412,8 +412,8 @@ def test_cli_resume_restores_everything(tmp_path, monkeypatch):
                for k, v in saved["state_dict"].items())
 
 
-@pytest.mark.parametrize("flag", [["--epoch_scan", "--pgd_random_steps"],
-                                  ["--num_devices", "2"]])
+@pytest.mark.parametrize("flag", [["--num_devices", "2"],
+                                  ["--num_devices", "4", "--epoch_scan"]])
 def test_cli_refuses_unported_flags(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_classify.main(["--device", "cpu", "--save_dir", str(tmp_path)]

@@ -469,23 +469,24 @@ def _tiny_split(card, n=64):
             torch.from_numpy(y).to(card))
 
 
-@pytest.mark.cuda
-def test_alfa_epoch_scan_graph_matches_eager(card, deterministic):
-    """A tiny ALFA epoch scan (ResNet-s (1, 1, 1), 4 classes, batch 16, 5
-    PGD steps): three eager steps, then a captured graph replayed for the
-    other five steps of two epochs, against eight eager device-data steps
-    from the same weights, permutations and generator seed. The draws and
-    metrics are bit-equal, the parameters within 1e-5 of each tensor's
-    largest value; the wrapper counts 5 PGD-update launches for each eager
-    step and 5 for the capture and none at a replay, and a profiler trace of
-    the second epoch's four replays holds 20 PGD-update kernels."""
+def _scan_against_eager(card, cfg):
+    """A tiny ALFA epoch scan (ResNet-s (1, 1, 1), 4 classes, batch 16):
+    three eager steps, then a captured graph replayed for the other five
+    steps of two epochs, against eight eager device-data steps from the same
+    weights, permutations and generator seed. Returns the two runs' metrics,
+    states and step counts, the scan, the PGD-update wrapper's counts (host
+    and device step size) over the first epoch and over the second epoch's
+    replays, and the PGD-update kernels a profiler trace of those replays
+    holds."""
     from torch.profiler import ProfilerActivity, profile
 
     from afan_torch.models.resnet_s import ResNetS
     from afan_torch.train import loop, optim
 
+    def counts():
+        return kpgd.launches, kpgd.dev_launches
+
     data_x, data_y = _tiny_split(card)
-    cfg = loop.AlfaConfig(tap=5, steps=5)
     sched = optim.multistep_warmup_schedule_tensor(0.1, [6], 0.1, 3)
     runs = []
     for graphed in (True, False):
@@ -497,16 +498,16 @@ def test_alfa_epoch_scan_graph_matches_eager(card, deterministic):
         if graphed:
             scan = loop.make_epoch_scan_alfa(model, opt, cfg, 16, 4,
                                              record_augment=True)
-            before = kpgd.launches
+            c0 = counts()
             ms = [scan(data_x, data_y, torch.randperm(64, generator=gen,
                                                       device=card), gen)]
-            wrapper = kpgd.launches - before
+            c1 = counts()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 ms.append(scan(data_x, data_y,
                                torch.randperm(64, generator=gen,
                                               device=card), gen))
                 torch.cuda.synchronize()
-            at_replays = kpgd.launches - before - wrapper
+            c2 = counts()
             traced = sum(e.count for e in prof.key_averages()
                          if "pgd_step" in e.key)
         else:
@@ -522,11 +523,15 @@ def test_alfa_epoch_scan_graph_matches_eager(card, deterministic):
         runs.append((ms, {k: v.detach().clone()
                           for k, v in model.state_dict().items()},
                      int(opt.count)))
+    wrapper = tuple(b - a for a, b in zip(c0, c1))
+    at_replays = tuple(b - a for a, b in zip(c1, c2))
+    return runs, scan, wrapper, at_replays, traced
+
+
+def _check_scan_runs(runs):
+    """Draws and metrics bit-equal, parameters within 1e-5 of each tensor's
+    largest value, 8 steps each way."""
     (mg, sg, cg), (me, se, ce) = runs
-    assert loop.GRAPH_WARMUP_STEPS == 3
-    assert scan.eager_steps == 3 and scan.replays == 5
-    assert wrapper == 5 * (3 + 1) and at_replays == 0
-    assert traced == 5 * 4
     assert cg == ce == 8
     for a, b in zip(mg, me):
         for k in a:
@@ -538,6 +543,111 @@ def test_alfa_epoch_scan_graph_matches_eager(card, deterministic):
             assert err <= 1e-5 * max(float(v.abs().max()), 1e-30), (k, err)
         else:
             assert torch.equal(sg[k], v), k
+
+
+@pytest.mark.cuda
+def test_alfa_epoch_scan_graph_matches_eager(card, deterministic):
+    """5 PGD steps: the draws and metrics are bit-equal, the parameters
+    within 1e-5 of each tensor's largest value; the wrapper counts 5
+    PGD-update launches for each eager step and 5 for the capture and none
+    at a replay, and a profiler trace of the second epoch's four replays
+    holds 20 PGD-update kernels."""
+    from afan_torch.train import loop
+
+    runs, scan, wrapper, at_replays, traced = _scan_against_eager(
+        card, loop.AlfaConfig(tap=5, steps=5))
+    assert loop.GRAPH_WARMUP_STEPS == 3
+    assert scan.eager_steps == 3 and scan.replays == 5
+    assert wrapper == (5 * (3 + 1), 0) and at_replays == (0, 0)
+    assert traced == 5 * 4
+    _check_scan_runs(runs)
+
+
+@pytest.mark.cuda
+def test_alfa_epoch_scan_with_random_steps_graph_matches_eager(card,
+                                                               deterministic):
+    """``random_steps``: each step draws its step sizes on the card, and
+    the device-step-size kernel reads them, so a replay draws anew; the
+    graph equals the eager steps as without random steps. The wrapper
+    counts 5 device-step-size launches per eager step and capture, none
+    with a host step size, none at a replay; the trace holds 20 kernels."""
+    from afan_torch.train import loop
+
+    runs, scan, wrapper, at_replays, traced = _scan_against_eager(
+        card, loop.AlfaConfig(tap=5, steps=5, random_steps=True))
+    assert scan.eager_steps == 3 and scan.replays == 5
+    assert wrapper == (0, 5 * (3 + 1)) and at_replays == (0, 0)
+    assert traced == 5 * 4
+    _check_scan_runs(runs)
+    # the replays' perturbations differ from step to step, as the step
+    # sizes do
+    linf = torch.cat([m["pert_linf"] for m in runs[0][0]])
+    assert len(set(linf.tolist())) == len(linf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,clip", [
+    ((128, 16, 32, 32), False), ((128, 16, 32, 32), True), ((1001,), True),
+    ((7,), False)])
+def test_pgd_step_device_gamma_kernel_bit_equal(card, shape, clip, dtype):
+    """The device-step-size entry points against the plain version with the
+    same tensor step size and against the host-step-size kernel with its
+    value, bit for bit, on aligned and misaligned views (the scalar path);
+    each launch counted as a device-step-size launch only."""
+    from afan_torch.core.attack import random_step_sizes
+    n = int(np.prod(shape))
+    x, g, c = (t.to(dtype) for t in _pgd_inputs(card, n + 1, n))
+    sizes = random_step_sizes(1.5 / 255, 3,
+                              torch.Generator(card).manual_seed(n), dtype,
+                              card)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for view in ((x[:n], g[:n], c[:n]), (x[1:], g[1:], c[1:])):
+        xv, gv, cv = (t.reshape(shape) for t in view)
+        for t in range(3):
+            kw = dict(eps=2.0 / 255 if clip else None, clip=clip)
+            before = (kpgd.launches, kpgd.dev_launches)
+            got = kpgd.pgd_update(xv, gv, cv if clip else None,
+                                  gamma=sizes[t:t + 1], **kw)
+            assert (kpgd.launches, kpgd.dev_launches) == (before[0],
+                                                          before[1] + 1)
+            want = tpgd.pgd_update_plain(xv, gv, cv if clip else None,
+                                         gamma=sizes[t:t + 1], **kw)
+            host = kpgd.pgd_update(xv, gv, cv if clip else None,
+                                   gamma=float(sizes[t]), **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype
+            assert torch.equal(got.view(bits), want.view(bits))
+            assert torch.equal(got.view(bits), host.view(bits))
+
+
+@pytest.mark.cuda
+def test_pgd_step_device_gamma_is_read_at_each_replay(card):
+    """Under a CUDA graph the kernel reads the step size's buffer at each
+    replay: a new value there moves the replayed update."""
+    x, g, _ = _pgd_inputs(card, 4096, 3)
+    gamma = torch.full((1,), 0.01, device=card)
+    kpgd.pgd_update(x, g, gamma=gamma)          # load the library first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kpgd.pgd_update(x, g, gamma=gamma)
+    for value in (0.01, 0.25, 1.0 / 3):
+        gamma.fill_(value)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tpgd.pgd_update_plain(x, g, gamma=value)
+        assert _bits_equal(out, want), value
+
+
+@pytest.mark.cuda
+def test_pgd_step_device_gamma_refuses_what_it_does_not_take(card):
+    x = torch.zeros(8, device=card)
+    for gamma in (torch.zeros(2, device=card), torch.zeros(1),
+                  torch.zeros(1, device=card, dtype=torch.bfloat16)):
+        with pytest.raises(ValueError, match="device step size"):
+            kpgd.pgd_update(x, x, gamma=gamma)
 
 
 @pytest.mark.cuda
@@ -675,6 +785,31 @@ def test_image_decoder_on_the_card_machine_matches_the_manifest(card):
              else imread.read_rgb(path))
         assert list(a.shape) == want["shape"], name
         assert hashlib.sha256(a.tobytes()).hexdigest() == want["sha256"], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["progressive_500x375.jpg",
+                                  "cmyk_320x240.jpg",
+                                  "adam7_label_500x375.png",
+                                  "gray16_label_200x150.png"])
+def test_image_kinds_pil_reads_decode_on_the_card_machine(card, name):
+    """A progressive and a CMYK JPEG, an Adam7 and a 16-bit PNG, decoded by
+    the host decoder built where the card is, twice (the second from the
+    same library), to their manifest's sha256 (PIL's bytes)."""
+    import hashlib
+    import json
+    import os
+
+    from afan_torch.utils import imread
+    from chip_smoke import DATA_FIXTURES
+    with open(os.path.join(DATA_FIXTURES, "manifest.json")) as f:
+        want = json.load(f)[name]
+    path = os.path.join(DATA_FIXTURES, name)
+    read = imread.read_label if name.endswith(".png") else imread.read_rgb
+    for _ in range(2):
+        a = read(path)
+        assert list(a.shape) == want["shape"]
+        assert hashlib.sha256(a.tobytes()).hexdigest() == want["sha256"]
 
 
 @pytest.mark.cuda

@@ -177,9 +177,9 @@ def test_batch_indices_equal_afan_dynamic_slice():
         assert np.array_equal(got.numpy(), np.asarray(want)), i
 
 
-def run_eager_and_scan(epochs, record_augment=False):
+def run_eager_and_scan(epochs, record_augment=False, random_steps=False):
     data_x, data_y = split()
-    cfg = loop.AlfaConfig(tap=5, steps=2)
+    cfg = loop.AlfaConfig(tap=5, steps=2, random_steps=random_steps)
     m1, m2 = tiny_model(), tiny_model()
     o1, _ = capturable(m1)
     o2, s2 = capturable(m2)
@@ -245,12 +245,16 @@ def test_epoch_scan_counts_steps_and_stacks_afan_metrics():
 
 
 def test_epoch_scan_refuses_random_steps_and_a_host_lr_optimizer():
+    """Random step sizes are drawn and rounded on the device, so an epoch
+    scan takes them: its epochs equal the eager device-data steps bit for
+    bit. An optimizer whose lr lives on the host is still refused."""
+    (m1, _, scan), (m2, _), out = run_eager_and_scan(2, random_steps=True)
+    for em, steps in out:
+        for k, v in em.items():
+            assert torch.equal(v, torch.stack([s[k] for s in steps])), k
+    s1, s2 = m1.state_dict(), m2.state_dict()
+    assert all(torch.equal(s1[k], s2[k]) for k in s1)
     model = tiny_model()
-    opt, _ = capturable(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.make_epoch_scan_alfa(model, opt,
-                                  loop.AlfaConfig(random_steps=True), B,
-                                  STEPS)
     topt, _ = optim.sgd([{"params": list(model.parameters())}],
                         lambda c: LR, LR)
     with pytest.raises(TypeError, match="CapturableSGD"):

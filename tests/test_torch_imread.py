@@ -9,28 +9,50 @@ Every case must equal PIL bit for bit: ``read_rgb(p)`` against
   10, 75 and 95, at sizes from 1x1 to 500x375 with odd sides (MCU padding
   cropped); gray; optimised Huffman tables; restart intervals by blocks and
   by rows; an RGB JPEG with Adobe's transform 0.
+- Progressive JPEGs (PIL's scan script: DC and AC first and refinement
+  scans) at the three subsamplings, with optimised tables and with
+  restarts, and gray; CMYK JPEGs as PIL writes them (Adobe's transform 0,
+  inverted) and as YCCK (the same file with Adobe's transform set to 2),
+  baseline and progressive; OpenCV's 4:1:1 and 4:4:0 (PIL writes neither),
+  baseline and progressive.
 - PNGs of every 8-bit colour type, rows filtered by each of the five
   filter types and by all in turn (``chip_smoke.write_png``), a palette
-  shorter than its indices, a ``tRNS`` chunk; the label reader on gray and
-  palette PNGs.
+  shorter than its indices, a ``tRNS`` chunk; every colour type at every
+  bit depth PNG allows (1-16), Adam7-interlaced and not, written by the
+  fixtures' numpy encoder (``make_fixtures.encode_png``; PIL writes no
+  interlaced PNG); the label reader on gray and palette PNGs.
 - The committed fixtures of ``tests/fixtures/torch_images`` against their
   manifest, which is recomputed here with PIL so that it cannot go stale.
 - What the reader refuses raises a ``ValueError`` naming the file:
-  progressive and CMYK JPEG, interlaced, 16-bit and 1-bit PNG, truncated
-  files of both kinds, a broken checksum, other formats.
+  arithmetic-coded, lossless and 12-bit JPEG, a progressive JPEG whose
+  scans stop early (libjpeg would smooth its blocks), truncated files of
+  both kinds, a broken checksum, other formats.
 """
 import hashlib
+import importlib.util
 import json
 import os
 import struct
 import zlib
 
+import cv2
 import numpy as np
 import pytest
 from PIL import Image
 
 from afan_torch.utils import imread
 from chip_smoke import DATA_FIXTURES, write_png
+
+
+def _fixture_writer():
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", os.path.join(DATA_FIXTURES, "make_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+encode_png = _fixture_writer().encode_png
 
 SIZES = [(375, 500), (500, 375), (257, 333), (17, 9), (1, 1), (8, 16),
          (3, 5), (16, 24), (2, 7)]
@@ -111,7 +133,80 @@ def test_adobe_rgb_jpeg_is_not_converted(tmp_path):
     same(imread.read_rgb(path), pil_rgb(path))
 
 
+@pytest.mark.parametrize("kw", [{}, dict(optimize=True),
+                                dict(restart_marker_blocks=3),
+                                dict(restart_marker_rows=1, optimize=True)],
+                         ids=["plain", "optimize", "restart3",
+                              "restart_rows_optimize"])
+@pytest.mark.parametrize("subsampling", [0, 1, 2],
+                         ids=["444", "422", "420"])
+def test_progressive_jpeg_equals_pil(tmp_path, subsampling, kw):
+    """PIL's progressive scan script: DC first (interleaved) and refinement,
+    AC first and refinement scans per component with EOB runs; optimised
+    tables are redefined between scans; restarts reset the EOB run and the
+    DC predictions."""
+    for i, (h, w) in enumerate(SIZES):
+        path = str(tmp_path / f"{i}.jpg")
+        Image.fromarray(smooth(h, w, i)).save(
+            path, quality=(10, 75, 95)[i % 3], subsampling=subsampling,
+            progressive=True, **kw)
+        assert b"\xff\xc2" in open(path, "rb").read()     # SOF2
+        same(imread.read_rgb(path), pil_rgb(path))
+
+
+def test_gray_progressive_jpeg_equals_pil(tmp_path):
+    for i, (h, w) in enumerate(SIZES):
+        path = str(tmp_path / f"{i}.jpg")
+        Image.fromarray(smooth(h, w, i)[..., 1]).save(path, quality=60,
+                                                      progressive=True)
+        same(imread.read_rgb(path), pil_rgb(path))
+
+
+def adobe_transform(path, transform):
+    """The file at ``path`` with its Adobe segment's transform byte set."""
+    data = bytearray(open(path, "rb").read())
+    at = data.index(b"Adobe")
+    data[at + 11] = transform
+    with open(path, "wb") as f:
+        f.write(bytes(data))
+
+
+@pytest.mark.parametrize("transform", [0, 2], ids=["cmyk", "ycck"])
+@pytest.mark.parametrize("progressive", [False, True],
+                         ids=["baseline", "progressive"])
+def test_cmyk_and_ycck_jpeg_equal_pil(tmp_path, transform, progressive):
+    """PIL writes CMYK with Adobe's transform 0 and reads it as ``CMYK;I``,
+    then ``convert("RGB")`` is its cmyk2rgb; with the transform byte set to
+    2 the same samples are read as YCCK, which libjpeg turns into CMYK
+    first."""
+    for i, (h, w) in enumerate(SIZES[:6]):
+        path = str(tmp_path / f"{i}.jpg")
+        Image.fromarray(smooth(h, w, i)).convert("CMYK").save(
+            path, quality=85, progressive=progressive)
+        adobe_transform(path, transform)
+        with Image.open(path) as im:
+            assert im.mode == "CMYK"
+        same(imread.read_rgb(path), pil_rgb(path))
+
+
+@pytest.mark.parametrize("progressive", [0, 1],
+                         ids=["baseline", "progressive"])
+@pytest.mark.parametrize("factor", ["411", "440"])
+def test_opencv_411_and_440_jpeg_equal_pil(tmp_path, factor, progressive):
+    """Luma 4x1 over chroma 1x1 (replicated) and 1x2 over 1x1 (h1v2 fancy
+    upsampling), which PIL cannot write and reads."""
+    flag = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{factor}")
+    for i, (h, w) in enumerate(SIZES):
+        path = str(tmp_path / f"{i}.jpg")
+        assert cv2.imwrite(path, smooth(h, w, i),
+                           [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, flag,
+                            cv2.IMWRITE_JPEG_PROGRESSIVE, progressive])
+        same(imread.read_rgb(path), pil_rgb(path))
+
+
 PNG_MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}
+PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+              4: (8, 16), 6: (8, 16)}
 
 
 @pytest.mark.parametrize("mode", sorted(PNG_MODES) + ["P"])
@@ -172,6 +267,32 @@ def test_palette_png_past_its_palette_and_with_trns(tmp_path):
     same(imread.read_rgb(trns), pil_rgb(trns))
 
 
+@pytest.mark.parametrize("interlace", [False, True],
+                         ids=["rows", "adam7"])
+@pytest.mark.parametrize("ctype,depth", [(c, d) for c in sorted(PNG_DEPTHS)
+                                         for d in PNG_DEPTHS[c]])
+def test_png_depths_and_adam7_equal_pil(tmp_path, ctype, depth, interlace):
+    """Every colour type at every depth, Adam7 or not, at sizes where
+    passes have no column or no row: ``read_rgb`` and (gray, palette)
+    ``read_label`` as PIL's, e.g. 16-bit colour its high byte, 16-bit gray
+    clipped to 255 in RGB and its low byte as a label, 1-bit gray 0/255 and
+    0/1, 2- and 4-bit gray scaled by 85 and 17, sub-byte palettes looked
+    up."""
+    rng = np.random.RandomState(ctype * 100 + depth)
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    for i, (h, w) in enumerate([(1, 1), (1, 9), (9, 1), (2, 3), (5, 7),
+                                (8, 8), (13, 17), (37, 53)]):
+        samples = rng.randint(0, 1 << depth, (h, w, channels))
+        palette = (rng.randint(0, 256, (1 << depth, 3))
+                   if ctype == 3 else None)
+        path = tmp_path / f"{i}.png"
+        path.write_bytes(encode_png(samples, depth, ctype, interlace,
+                                    palette, filters=(i % 5, 4, 1, 3, 2)))
+        same(imread.read_rgb(str(path)), pil_rgb(path))
+        if ctype in (0, 3):
+            same(imread.read_label(str(path)), pil_label(path))
+
+
 def manifest():
     out = {}
     for name in sorted(os.listdir(DATA_FIXTURES)):
@@ -223,30 +344,36 @@ def refused(path, match, reader=imread.read_rgb):
 
 def test_what_the_reader_refuses_raises_naming_the_file(tmp_path):
     img = smooth(64, 80, 1)
-    prog = tmp_path / "progressive.jpg"
-    Image.fromarray(img).save(prog, progressive=True)
-    refused(prog, "progressive")
-    cmyk = tmp_path / "cmyk.jpg"
-    Image.fromarray(img).convert("CMYK").save(cmyk)
-    refused(cmyk, "CMYK")
-    interlaced = tmp_path / "interlaced.png"          # Adam7, 1x1 gray
-    interlaced.write_bytes(png_bytes(1, 1, 8, 0, 1, b"\x00\x7f"))
-    assert pil_label(interlaced).tolist() == [[127]]  # PIL reads it
-    refused(interlaced, "interlaced")
-    deep = tmp_path / "16bit.png"
-    deep.write_bytes(png_bytes(4, 2, 16, 0, 0, (b"\x00" + bytes(8)) * 2))
-    refused(deep, "16-bit")
-    one = tmp_path / "1bit.png"
-    Image.fromarray(img[..., 0] > 128).save(one)
-    refused(one, "below 8 bits")
     jpg = tmp_path / "whole.jpg"
     Image.fromarray(img).save(jpg, quality=90)
     data = jpg.read_bytes()
+    sof = data.index(b"\xff\xc0")
+    for marker, what in [(0xC9, "arithmetic"), (0xC3, "lossless")]:
+        other = tmp_path / f"sof{marker:x}.jpg"
+        other.write_bytes(data[:sof + 1] + bytes([marker]) + data[sof + 2:])
+        refused(other, what)
+    twelve = tmp_path / "12bit.jpg"                   # the SOF's precision
+    twelve.write_bytes(data[:sof + 4] + b"\x0c" + data[sof + 5:])
+    refused(twelve, "12-bit")
     cut = tmp_path / "truncated.jpg"
     cut.write_bytes(data[:len(data) * 2 // 3])
     refused(cut, "truncated")
     with pytest.raises(OSError, match="truncated"):
         pil_rgb(cut)
+    prog = tmp_path / "progressive.jpg"
+    Image.fromarray(img).save(prog, progressive=True)
+    data = prog.read_bytes()
+    cut_prog = tmp_path / "truncated_progressive.jpg"
+    cut_prog.write_bytes(data[:len(data) * 2 // 3])
+    refused(cut_prog, "truncated")
+    with pytest.raises(OSError, match="truncated"):
+        pil_rgb(cut_prog)
+    # the scans up to the last refinement of the AC bands, then the end of
+    # the image: PIL decodes it, with libjpeg's block smoothing
+    early = tmp_path / "early_end.jpg"
+    early.write_bytes(data[:data.rindex(b"\xff\xda")] + b"\xff\xd9")
+    assert pil_rgb(early).shape == (64, 80, 3)
+    refused(early, "block smoothing")
     png = tmp_path / "whole.png"
     Image.fromarray(img).save(png)
     data = png.read_bytes()
