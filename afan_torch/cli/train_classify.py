@@ -21,7 +21,13 @@ reference's: per-epoch train/val/test accuracy, ``checkpoint.pt`` and
 best-on-val ``best_model.pt``
 (`main_perturb.py:116-136`), ``result.pkl`` accuracy curves and
 ``result_norm.pkl`` perturbation-norm telemetry (`main_perturb.py:138-150`)
-in ``--save_dir``. ``--bf16`` makes bfloat16 the model's compute dtype in
+in ``--save_dir``. ``--num_devices N`` above 1 trains data-parallel on N
+cards, one process each (``--device cpu``: N gloo processes): every rank
+draws the global batch of the one-process run and keeps its rows, the
+step computes the global batch's function (:mod:`afan_torch.parallel.mesh`),
+validation sums the ranks' counts, and rank 0 alone logs and writes;
+``--device_data`` and ``--epoch_scan`` are off under it, as in ``afan``. On
+the card ``--num_devices`` defaults to every visible card. ``--bf16`` makes bfloat16 the model's compute dtype in
 every mode (``afan``'s ``ResNetS(dtype=bf16)``); parameters, optimizer
 state and checkpoints stay float32.
 """
@@ -30,6 +36,7 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
+import sys
 import time
 
 import numpy as np
@@ -38,6 +45,8 @@ import torch
 from ..data.cifar import (augment_batch_device, cifar10_dataloaders,
                           cifar100_dataloaders)
 from ..data.prefetch import Prefetcher
+from ..parallel import mesh as dp
+from ..parallel.launch import launch_cli
 from ..models.resnet_s import LEARNABLE_TAPS, ResNetS
 from ..train.checkpoint import (load_checkpoint, load_training_state,
                                 overlap_restore, restore_optimizer,
@@ -104,7 +113,8 @@ def get_parser() -> argparse.ArgumentParser:
                    help="bfloat16 compute in the model (parameters stay "
                         "float32)")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="data-parallel devices (only 1 is ported)")
+                   help="data-parallel devices: every visible card by "
+                        "default; with --device cpu, N processes")
     p.add_argument("--limit_batches", type=int, default=0,
                    help="debug: cap batches per epoch")
     p.add_argument("--synthetic_ok", action="store_true", default=True)
@@ -120,15 +130,6 @@ def get_parser() -> argparse.ArgumentParser:
                         "CUDA graph of the device-data step (implies "
                         "--device_data; base and learnable ignore it)")
     return p
-
-
-def refuse_unported(args) -> None:
-    """The flags whose paths are not ported yet raise, naming the ROADMAP
-    item, instead of running something else."""
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(
-            "--num_devices > 1 is not ported yet (ROADMAP queue 1: data "
-            "parallelism)")
 
 
 def build_model(args, generator: torch.Generator) -> ResNetS:
@@ -182,22 +183,41 @@ def build_step(args, model, optimizer, scheduler, device_data: bool):
 
 
 def validate(eval_step, loader, device) -> float:
+    """Top-1 in percent; under data parallelism each rank evaluates its
+    rows of each batch and the ranks' counts are summed."""
     correct, count = 0, 0
     for x, y in loader:
+        if dp.world_size() > 1:
+            rows = dp.rank_rows(len(x))
+            x, y = x[rows], y[rows]
+            if not len(x):
+                continue
         out = eval_step(torch.from_numpy(x).to(device),
                         torch.from_numpy(y).to(device))
         correct += int(out["correct"])
         count += int(out["count"])
+    if dp.world_size() > 1:
+        correct, count = (int(v) for v in dp.sum_numpy(
+            np.asarray([correct, count], np.int64)))
     return 100.0 * correct / max(count, 1)
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = get_parser().parse_args(argv)
-    refuse_unported(args)
     device = resolve_device(args.device)
+    n_ranks = dp.resolve_size(args.num_devices, device)
+    dp.check_divisible(args.batch_size, n_ranks)
+    if n_ranks > 1 and dp.data_group() is None:
+        return launch_cli(__name__, argv, n_ranks, device)
     os.makedirs(args.save_dir, exist_ok=True)
-    Log.initialize()
-    Log.i(f"args: {vars(args)}; device {device}")
+    Log.initialize(quiet=not dp.is_main())
+    Log.i(f"args: {vars(args)}; device {device}; data-parallel ranks "
+          f"{dp.world_size()}")
+    if dp.world_size() > 1 and (args.device_data or args.epoch_scan):
+        Log.i("--device_data/--epoch_scan are off under data parallelism "
+              "(as in afan): each rank steps on its rows of host batches")
+        args.device_data = args.epoch_scan = False
 
     seed = args.seed if args.seed is not None else 0
     loaders = (cifar10_dataloaders if args.dataset == "cifar10"
@@ -214,7 +234,7 @@ def main(argv=None):
     if args.limit_batches:
         steps_per_epoch = min(steps_per_epoch, args.limit_batches)
 
-    torch.manual_seed(seed)
+    torch.manual_seed(dp.rank_seed(seed))
     model = build_model(args, torch.Generator().manual_seed(seed)).to(device)
     optimizer, scheduler = build_optimizer(args, model, steps_per_epoch)
     if scan:
@@ -224,7 +244,7 @@ def main(argv=None):
         train_step = build_step(args, model, optimizer, scheduler,
                                 device_data)
     eval_step = make_eval_step(model)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(device=device).manual_seed(dp.rank_seed(seed))
 
     start_epoch, step, best_prec1 = 0, 0, 0.0
     ckpt_path = os.path.join(args.save_dir, "checkpoint.pt")
@@ -240,6 +260,7 @@ def main(argv=None):
         start_epoch = int(saved["epoch"])
         step = int(saved["step"])
         best_prec1 = float(saved["best_prec1"])
+    dp.replicate_state(model, optimizer)
 
     all_result = {"train": [], "ta": [], "test_ta": []}
     all_norm = {"l2": {}, "linf": {}}
@@ -270,8 +291,11 @@ def main(argv=None):
             if device_data:
                 metrics = train_step(data_x, data_y, perm, i, generator)
             else:
-                x = torch.from_numpy(batch[0]).to(device, non_blocking=True)
-                y = torch.from_numpy(batch[1]).to(device, non_blocking=True)
+                bx, by = batch[:2]
+                if dp.world_size() > 1:
+                    bx, by = dp.shard_batch(bx, by)
+                x = torch.from_numpy(bx).to(device, non_blocking=True)
+                y = torch.from_numpy(by).to(device, non_blocking=True)
                 if device_aug:
                     x = augment_batch_device(x, generator)
                 if args.mode == "base":
@@ -310,13 +334,14 @@ def main(argv=None):
 
         is_best = tacc > best_prec1
         best_prec1 = max(tacc, best_prec1)
-        save_classify_checkpoint(ckpt_path, model, optimizer, scheduler,
-                                 epoch + 1, step, best_prec1)
-        if is_best:
-            save_classify_checkpoint(
-                os.path.join(args.save_dir, "best_model.pt"), model,
-                optimizer, scheduler, epoch + 1, step, best_prec1)
-        _dump_results(args.save_dir, all_result, all_norm)
+        if dp.is_main():
+            save_classify_checkpoint(ckpt_path, model, optimizer, scheduler,
+                                     epoch + 1, step, best_prec1)
+            if is_best:
+                save_classify_checkpoint(
+                    os.path.join(args.save_dir, "best_model.pt"), model,
+                    optimizer, scheduler, epoch + 1, step, best_prec1)
+            _dump_results(args.save_dir, all_result, all_norm)
 
     Log.i(f"done; best val accuracy {best_prec1:.2f}")
     return best_prec1

@@ -29,6 +29,13 @@ bfloat16 compute::
 stay float32. ``recipes/detect_coco_final_setting.sh`` N (1-6) runs as
 written too: ``-s coco2017`` at 800x1333, four anchor sizes, 92 classes.
 ``--pertub_idx_sd rpn`` puts the SD attack on the RPN trunk feature.
+``--num_devices N`` above 1 trains data-parallel on N cards, one process
+each (``--device cpu``: N gloo processes; every visible card by default on
+the card): each rank decodes its rows of the one-process run's batches,
+draws its samples from a generator of its own, its loss is its images'
+share of the global batch's (:mod:`afan_torch.parallel.mesh`), the mAP
+pass splits the test batches over the ranks and gathers their detections,
+and rank 0 alone logs and writes.
 
 Data is read from ``--data_dir``: VOC 2007 (``VOC2007/`` or
 ``VOCdevkit/VOC2007/``; ``-s voc20072012`` adds VOC 2012's trainval,
@@ -50,6 +57,7 @@ from __future__ import annotations
 import argparse
 import ast
 import os
+import sys
 import time
 from collections import deque
 
@@ -60,6 +68,8 @@ from ..data.prefetch import Prefetcher
 from ..data.registry import DETECTION_DATASETS, detection_loaders
 from ..eval.det_map import DetectionEvaluator
 from ..models.frcnn import FRCNNConfig, FasterRCNN
+from ..parallel import mesh as dp
+from ..parallel.launch import launch_cli
 from ..train.checkpoint import (load_checkpoint, load_training_state,
                                 overlap_restore, restore_optimizer,
                                 save_detect_checkpoint)
@@ -156,7 +166,8 @@ def get_parser():
                    help="bfloat16 compute in the model (parameters stay "
                         "float32)")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="data-parallel devices (only 1 is ported)")
+                   help="data-parallel devices: every visible card by "
+                        "default; with --device cpu, N processes")
     p.add_argument("--eval_every", type=int, default=0,
                    help="run the mAP eval every N steps (0 = only at end)")
     p.add_argument("--seed", "--random_seed", type=int, default=0,
@@ -166,11 +177,11 @@ def get_parser():
 
 def refuse_unported(args) -> None:
     """The flags whose paths are not ported yet raise, naming the ROADMAP,
-    instead of running something else (``--remat_tails`` raises in the
-    step's factory)."""
-    where = "not ported yet (ROADMAP.md, queue 1: detection)"
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(f"--num_devices > 1 is {where}")
+    instead of running something else, before any rank starts (the step's
+    factory refuses ``remat_tails`` too)."""
+    if args.remat_tails:
+        raise NotImplementedError("--remat_tails is not ported yet "
+                                  "(ROADMAP.md, queue 1: recomputation)")
 
 
 def afan_config_for(args) -> DetAfanConfig:
@@ -234,16 +245,24 @@ def frcnn_config(args, num_classes: int) -> FRCNNConfig:
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = get_parser().parse_args(argv)
     refuse_unported(args)
     device = resolve_device(args.device)
+    n_ranks = dp.resolve_size(args.num_devices, device)
+    dp.check_divisible(args.batch_size, n_ranks)
+    if n_ranks > 1 and dp.data_group() is None:
+        return launch_cli(__name__, argv, n_ranks, device)
     os.makedirs(args.outputs_dir, exist_ok=True)
-    Log.initialize(os.path.join(args.outputs_dir, "train.log"))
-    Log.i(f"args: {vars(args)}; device {device}")
+    Log.initialize(os.path.join(args.outputs_dir, "train.log")
+                   if dp.is_main() else None, quiet=not dp.is_main())
+    Log.i(f"args: {vars(args)}; device {device}; data-parallel ranks "
+          f"{dp.world_size()}")
 
     train_loader, eval_loader, num_classes = detection_loaders(
         args.dataset, args.data_dir, args.batch_size, args.image_min_side,
         args.image_max_side, seed=args.seed)
+    train_loader.shard = (dp.rank(), dp.world_size())
     Log.i(f"Found {len(train_loader.samples)} train samples")
 
     model = FasterRCNN(frcnn_config(args, num_classes),
@@ -272,6 +291,7 @@ def main(argv=None):
         Log.i(f"Model restored ({frac:.1%} keys) from "
               f"{args.resume_checkpoint} at step {step}; optimizer state "
               + ("restored" if ok else "mismatch, fresh"))
+    dp.replicate_state(model, optimizer)
 
     if args.variant == "baseline":
         train_step = make_baseline_det_step(model, optimizer, scheduler)
@@ -280,7 +300,7 @@ def main(argv=None):
     else:
         train_step = make_afan_det_step(model, optimizer, scheduler,
                                         afan_config_for(args))
-    generator = torch.Generator(device).manual_seed(args.seed)
+    generator = torch.Generator(device).manual_seed(dp.rank_seed(args.seed))
     evaluator = DetectionEvaluator(
         eval_loader, make_detect_fn(model), num_classes,
         protocol="coco" if args.dataset.startswith("coco") else "voc")
@@ -292,8 +312,8 @@ def main(argv=None):
                 torch.from_numpy(batch.valid).to(device))
 
     losses = deque(maxlen=100)
-    summary_writer = ScalarWriter(os.path.join(args.outputs_dir,
-                                               "summaries"))
+    summary_writer = ScalarWriter(os.path.join(
+        args.outputs_dir, "summaries")) if dp.is_main() else None
     t0 = time.time()
     should_stop = step >= args.num_steps_to_finish
     while not should_stop:
@@ -303,7 +323,8 @@ def main(argv=None):
             losses.append(float(metrics["loss"]))
             if not np.isfinite(losses[-1]):
                 raise FloatingPointError(f"loss {losses[-1]} at step {step}")
-            summary_writer.add_scalar("train/loss", losses[-1], step)
+            if summary_writer:
+                summary_writer.add_scalar("train/loss", losses[-1], step)
             should_stop = step >= args.num_steps_to_finish
             if step % args.num_steps_to_display == 0:
                 rate = (args.num_steps_to_display * args.batch_size
@@ -312,7 +333,8 @@ def main(argv=None):
                 Log.i(f"[Step {step}] Avg. Loss = "
                       f"{sum(losses) / len(losses):.6f} "
                       f"({rate:.2f} samples/sec)")
-            if step % args.num_steps_to_snapshot == 0 or should_stop:
+            if dp.is_main() and (step % args.num_steps_to_snapshot == 0
+                                 or should_stop):
                 path = save_detect_checkpoint(
                     os.path.join(args.outputs_dir, f"model-{step}.pt"),
                     model, optimizer, scheduler, step)
@@ -321,7 +343,8 @@ def main(argv=None):
                 Log.i(f"[Step {step}] mAP = {evaluator.evaluate()[0]:.4f}")
             if should_stop:
                 break
-    summary_writer.close()
+    if summary_writer:
+        summary_writer.close()
 
     mean_ap, detail = evaluator.evaluate()
     Log.i(f"final mAP = {mean_ap:.4f}\n{detail}")

@@ -57,13 +57,20 @@ and to TensorBoard there where ``torch.utils.tensorboard`` imports, as
 cross-entropy. A kernel that fails raises: there is no switch to ``off``.
 ``afan``'s other flags parse as in ``afan``: ``--gpu_id``, ``--vis_port``,
 ``--vis_env`` and ``--adv_type`` are ignored, ``--download`` logs that
-nothing is downloaded; ``--num_devices`` and ``--spatial_shards`` above 1,
-``--remat_tails`` and ``--backbone_remat`` raise, not ported yet.
+nothing is downloaded; ``--spatial_shards`` above 1, ``--remat_tails`` and
+``--backbone_remat`` raise, not ported yet. ``--num_devices N`` above 1
+trains data-parallel on N cards, one process each (``--device cpu``: N
+gloo processes; every visible card by default on the card): each rank
+loads the global batch of the one-process run and keeps its rows, the loss
+divides by the global valid-pixel count, BatchNorm takes the global
+statistics (:mod:`afan_torch.parallel.mesh`), validation sums the ranks'
+confusion matrices, and rank 0 alone logs and writes.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
@@ -73,6 +80,8 @@ from ..data.seg_data import cityscapes_loaders, voc_seg_loaders
 from ..eval.seg_miou import StreamSegMetrics
 from ..models.deeplab import build_model
 from ..models.deeplab.modeling import segmentation_param_groups
+from ..parallel import mesh as dp
+from ..parallel.launch import launch_cli
 from ..train.checkpoint import (load_checkpoint, load_training_state,
                                 overlap_restore, restore_pretrained_backbone,
                                 save_checkpoint)
@@ -211,8 +220,6 @@ def refuse_unported(args) -> None:
     """The flags whose paths are not ported yet raise, naming the ROADMAP,
     instead of running something else."""
     where = "not ported yet (ROADMAP.md, queue 1)"
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(f"--num_devices > 1 is {where}")
     if args.spatial_shards > 1:
         raise NotImplementedError(f"--spatial_shards > 1 is {where}")
     for flag in ("remat_tails", "backbone_remat"):
@@ -290,14 +297,21 @@ def experiment_name(args) -> str:
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = get_parser().parse_args(argv)
     refuse_unported(args)
     device = resolve_device(args.device)
+    n_ranks = dp.resolve_size(args.num_devices, device)
+    dp.check_divisible(args.batch_size, n_ranks)
+    if n_ranks > 1 and dp.data_group() is None:
+        return launch_cli(__name__, argv, n_ranks, device)
     exp = experiment_name(args)
     outdir = os.path.join("checkpoints", exp)
     os.makedirs(outdir, exist_ok=True)
-    Log.initialize(os.path.join(outdir, "train.log"))
-    Log.i(f"args: {vars(args)}; save dir: [{exp}]; device {device}")
+    Log.initialize(os.path.join(outdir, "train.log") if dp.is_main()
+                   else None, quiet=not dp.is_main())
+    Log.i(f"args: {vars(args)}; save dir: [{exp}]; device {device}; "
+          f"data-parallel ranks {dp.world_size()}")
 
     if args.download:
         Log.i("--download requested: this environment has no egress; "
@@ -315,8 +329,10 @@ def main(argv=None):
             crop_val=args.crop_val)
     if args.num_classes is not None:
         num_classes = args.num_classes
+    train_loader.shard = val_loader.shard = (dp.rank(), dp.world_size())
 
-    torch.manual_seed(args.random_seed)
+    # dropout draws from the global generator: its own stream per rank
+    torch.manual_seed(dp.rank_seed(args.random_seed))
     model = build_model(args.model, num_classes, args.output_stride,
                         torch.bfloat16 if args.bf16 else torch.float32,
                         separable_conv=args.separable_conv)
@@ -343,6 +359,7 @@ def main(argv=None):
             cur_itrs = int(saved["cur_itrs"])
             best_score = float(saved["best_score"])
             Log.i(f"Training state restored at itrs {cur_itrs}")
+    dp.replicate_state(model, optimizer)
 
     step = build_step(args, model, optimizer, scheduler)
     eval_step = make_seg_eval_step(model, num_classes)
@@ -364,8 +381,10 @@ def main(argv=None):
         ``--vis_num_samples`` images' panels, named as ``afan`` names them
         (`cli/train_segment.py:355-368`)."""
         metrics = StreamSegMetrics(num_classes)
-        vis_left = args.vis_num_samples if vis else 0
+        vis_left = args.vis_num_samples if vis and dp.is_main() else 0
         for imgs, labs in val_loader:
+            if not len(imgs):
+                continue
             preds, hist = eval_step(*to_device(imgs, labs))
             metrics.update_hist(hist.cpu().numpy())
             if vis_left:
@@ -376,6 +395,7 @@ def main(argv=None):
                                  f"itrs{itrs:06d}_{vis_left:02d}.png"),
                     imgs[j], decode(labs[j]), decode(preds[j]))
                 vis_left -= 1
+        metrics.confusion_matrix = dp.sum_numpy(metrics.confusion_matrix)
         return metrics.get_results()
 
     if args.test_only:
@@ -386,7 +406,8 @@ def main(argv=None):
         Log.i(StreamSegMetrics.to_str(results))
         return results
 
-    writer = ScalarWriter(os.path.join("runs", exp))
+    writer = ScalarWriter(os.path.join("runs", exp)) if dp.is_main() \
+        else None
     interval_loss = 0.0
     t0 = time.time()
     while cur_itrs < total:
@@ -396,7 +417,8 @@ def main(argv=None):
             loss = float(metrics["loss"])
             if not np.isfinite(loss):
                 raise FloatingPointError(f"loss {loss} at itrs {cur_itrs}")
-            writer.add_scalar("train/loss", loss, cur_itrs)
+            if writer:
+                writer.add_scalar("train/loss", loss, cur_itrs)
             interval_loss += loss
             if cur_itrs % args.print_interval == 0:
                 rate = (args.print_interval * args.batch_size
@@ -409,23 +431,28 @@ def main(argv=None):
             if cur_itrs % args.val_interval == 0 or cur_itrs >= total:
                 results = validate(cur_itrs)
                 score = results["Mean IoU"]
-                writer.add_scalar("val/mIoU", score, cur_itrs)
                 Log.i(f"[Val] itrs {cur_itrs}: "
                       f"{StreamSegMetrics.to_str(results)}")
-                save_checkpoint(
-                    os.path.join(outdir,
-                                 f"latest_{args.model}_{args.dataset}.pt"),
-                    model, optimizer, scheduler, cur_itrs,
-                    max(best_score, score))
-                if score > best_score:
-                    best_score = score
+                if dp.is_main():
+                    writer.add_scalar("val/mIoU", score, cur_itrs)
                     save_checkpoint(
                         os.path.join(outdir,
-                                     f"best_{args.model}_{args.dataset}.pt"),
-                        model, optimizer, scheduler, cur_itrs, best_score)
+                                     f"latest_{args.model}_{args.dataset}.pt"),
+                        model, optimizer, scheduler, cur_itrs,
+                        max(best_score, score))
+                if score > best_score:
+                    best_score = score
+                    if dp.is_main():
+                        save_checkpoint(
+                            os.path.join(
+                                outdir,
+                                f"best_{args.model}_{args.dataset}.pt"),
+                            model, optimizer, scheduler, cur_itrs,
+                            best_score)
             if cur_itrs >= total:
                 break
-    writer.close()
+    if writer:
+        writer.close()
 
     Log.i(f"done; best mIoU {best_score:.4f}")
     return best_score

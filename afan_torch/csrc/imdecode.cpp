@@ -8,7 +8,9 @@
 //     EOB runs, restarts resetting the run and the DC predictions) fill a
 //     whole-image coefficient buffer, which is transformed once the file has
 //     ended; a file whose first ten coefficients are not all complete by
-//     then would be block-smoothed (jdcoefct.c) and is refused instead;
+//     then is block-smoothed first (jdcoefct.c decompress_smooth_data, as
+//     libjpeg-turbo 2.1 and later: the 3x3 and 5x5 DC-neighbourhood
+//     estimates, and the DC's own smoothing when no AC scan came);
 //   - the integer "islow" inverse DCT (jidctint.c: 13-bit constants, 2 pass
 //     bits, the post-IDCT range-limit table, indexed modulo 1024);
 //   - upsampling (jdsample.c): "fancy" h2v1 (biases 1 and 2), h1v2 (biases 1
@@ -132,6 +134,9 @@ const int kNatural[64 + 16] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+// the coefficients block smoothing estimates: zigzag 0-9 (jdcoefct.c)
+constexpr int kSavedCoefs = 10;
+
 
 struct Huffman {
   bool defined = false;
@@ -815,27 +820,204 @@ struct Jpeg {
     pos = br.pos - 2;
   }
 
-  // After the last scan of a progressive file: the inverse DCT of every
-  // block of the image (jdcoefct.c decompress_data). Block smoothing would
-  // run instead where one of the first ten coefficients is incomplete.
-  void transform_progressive() {
+  // jdcoefct.c smoothing_ok: block smoothing runs when every component's
+  // DC is at least partly known, its DC and first nine AC quantizers are
+  // nonzero, and one of the first ten coefficients of some component still
+  // lacks bits.
+  bool smoothing_ok() const {
+    bool useful = false;
     for (int i = 0; i < ncomp; ++i) {
-      Component& c = comp[i];
-      for (int k = 1; k < 10; ++k) {
-        if (c.coef_bits[k] != 0) {
-          fail("a progressive JPEG whose scans leave coefficients "
-               "incomplete (block smoothing) is not decoded");
+      const Component& c = comp[i];
+      for (int k = 0; k < kSavedCoefs; ++k) {
+        if (c.quant[kNatural[k]] == 0) return false;
+      }
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < kSavedCoefs; ++k) {
+        if (c.coef_bits[k] != 0) useful = true;
+      }
+    }
+    return useful;
+  }
+
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 and later) for one
+  // component: each block's still-zero AC coefficients among the first nine
+  // are estimated from the DC values of its 5x5 neighbourhood of blocks,
+  // each estimate clamped below 1 << Al of the bits not yet coded; when no
+  // AC scan came at all the DC is smoothed too and AC03-AC30 are estimated
+  // (the 5x5 kernels). Rows and columns past the component's edge repeat
+  // the edge's DC values, and the row test runs on libjpeg's iMCU-row
+  // arithmetic, which in the last iMCU row counts fewer block rows.
+  void idct_smoothed(Component& c) {
+    const int v = c.v;
+    const int bw = c.plane_w / 8;
+    const int total = (height + 8 * vmax - 1) / (8 * vmax);
+    const int* bits = c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k < kSavedCoefs; ++k) change_dc &= bits[k] == -1;
+    const int64_t Q00 = c.quant[0], Q01 = c.quant[1], Q10 = c.quant[8],
+                  Q20 = c.quant[16], Q11 = c.quant[9], Q02 = c.quant[2],
+                  Q03 = c.quant[3], Q12 = c.quant[10], Q21 = c.quant[17],
+                  Q30 = c.quant[24];
+    auto predict = [](int64_t num, int64_t q, int al) {
+      int pred = static_cast<int>(((q << 7) + (num >= 0 ? num : -num)) /
+                                  (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      return num >= 0 ? pred : -pred;
+    };
+    auto row_of = [&](int r) {
+      return c.coefs.data() + static_cast<size_t>(r) * bw * 64;
+    };
+    const int last_col = c.blocks_w - 1;
+    int16_t ws[64];
+    for (int imcu = 0; imcu < total; ++imcu) {
+      int block_rows = v;
+      if (imcu == total - 1) {
+        block_rows = c.blocks_h % v;
+        if (block_rows == 0) block_rows = v;
+      }
+      const int image_block_rows = block_rows * total;
+      for (int br = 0; br < block_rows; ++br) {
+        const int ibr = imcu * block_rows + br;
+        const int r = imcu * v + br;
+        const int16_t* cur = row_of(r);
+        const int16_t* prev = ibr > 0 ? row_of(r - 1) : cur;
+        const int16_t* pprev = ibr > 1 ? row_of(r - 2) : prev;
+        const int16_t* next = ibr < image_block_rows - 1 ? row_of(r + 1) : cur;
+        const int16_t* nnext =
+            ibr < image_block_rows - 2 ? row_of(r + 2) : next;
+        int DC01, DC02, DC03, DC04, DC05, DC06, DC07, DC08, DC09, DC10;
+        int DC11, DC12, DC13, DC14, DC15, DC16, DC17, DC18, DC19, DC20;
+        int DC21, DC22, DC23, DC24, DC25;
+        DC01 = DC02 = DC03 = DC04 = DC05 = pprev[0];
+        DC06 = DC07 = DC08 = DC09 = DC10 = prev[0];
+        DC11 = DC12 = DC13 = DC14 = DC15 = cur[0];
+        DC16 = DC17 = DC18 = DC19 = DC20 = next[0];
+        DC21 = DC22 = DC23 = DC24 = DC25 = nnext[0];
+        for (int bn = 0; bn <= last_col; ++bn) {
+          const size_t o = static_cast<size_t>(bn) * 64;
+          std::memcpy(ws, cur + o, sizeof(ws));
+          if (bn == 0 && bn < last_col) {
+            DC04 = DC05 = pprev[o + 64];
+            DC09 = DC10 = prev[o + 64];
+            DC14 = DC15 = cur[o + 64];
+            DC19 = DC20 = next[o + 64];
+            DC24 = DC25 = nnext[o + 64];
+          }
+          if (bn + 1 < last_col) {
+            DC05 = pprev[o + 128];
+            DC10 = prev[o + 128];
+            DC15 = cur[o + 128];
+            DC20 = next[o + 128];
+            DC25 = nnext[o + 128];
+          }
+          int al;
+          if ((al = bits[1]) != 0 && ws[1] == 0) {   // AC01
+            const int64_t num = Q00 * (change_dc ?
+                (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                 13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 +
+                 3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+                 DC21 - DC22 + DC24 + DC25) :
+                (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+            ws[1] = static_cast<int16_t>(predict(num, Q01, al));
+          }
+          if ((al = bits[2]) != 0 && ws[8] == 0) {   // AC10
+            const int64_t num = Q00 * (change_dc ?
+                (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                 13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+                 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+                (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+            ws[8] = static_cast<int16_t>(predict(num, Q10, al));
+          }
+          if ((al = bits[3]) != 0 && ws[16] == 0) {  // AC20
+            const int64_t num = Q00 * (change_dc ?
+                (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                 14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 +
+                 DC23) :
+                (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+            ws[16] = static_cast<int16_t>(predict(num, Q20, al));
+          }
+          if ((al = bits[4]) != 0 && ws[9] == 0) {   // AC11
+            const int64_t num = Q00 * (change_dc ?
+                (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+                 DC21 - DC25) :
+                (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+                 DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09));
+            ws[9] = static_cast<int16_t>(predict(num, Q11, al));
+          }
+          if ((al = bits[5]) != 0 && ws[2] == 0) {   // AC02
+            const int64_t num = Q00 * (change_dc ?
+                (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                 14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+                 2 * DC19) :
+                (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+            ws[2] = static_cast<int16_t>(predict(num, Q02, al));
+          }
+          if (change_dc) {
+            if ((al = bits[6]) != 0 && ws[3] == 0) {   // AC03
+              const int64_t num =
+                  Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19);
+              ws[3] = static_cast<int16_t>(predict(num, Q03, al));
+            }
+            if ((al = bits[7]) != 0 && ws[10] == 0) {  // AC12
+              const int64_t num =
+                  Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19);
+              ws[10] = static_cast<int16_t>(predict(num, Q12, al));
+            }
+            if ((al = bits[8]) != 0 && ws[17] == 0) {  // AC21
+              const int64_t num =
+                  Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19);
+              ws[17] = static_cast<int16_t>(predict(num, Q21, al));
+            }
+            if ((al = bits[9]) != 0 && ws[24] == 0) {  // AC30
+              const int64_t num =
+                  Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19);
+              ws[24] = static_cast<int16_t>(predict(num, Q30, al));
+            }
+            // the DC itself, a weighted mean of the 25 (weights sum to 256)
+            const int64_t num = Q00 *
+                (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+                 6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+                 8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 -
+                 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+                 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25);
+            ws[0] = static_cast<int16_t>(predict(num, Q00, 0));
+          }
+          idct_islow(ws, c.quant,
+                     c.plane.data() + static_cast<size_t>(r) * 8 * c.plane_w +
+                         bn * 8,
+                     c.plane_w);
+          DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
+          DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
+          DC11 = DC12; DC12 = DC13; DC13 = DC14; DC14 = DC15;
+          DC16 = DC17; DC17 = DC18; DC18 = DC19; DC19 = DC20;
+          DC21 = DC22; DC22 = DC23; DC23 = DC24; DC24 = DC25;
         }
       }
+    }
+  }
+
+  // After the last scan of a progressive file: the inverse DCT of every
+  // block of the image (jdcoefct.c decompress_data), or block smoothing
+  // (decompress_smooth_data) where smoothing_ok says so.
+  void transform_progressive() {
+    const bool smooth = smoothing_ok();
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
       c.plane.assign(static_cast<size_t>(c.plane_w) * c.plane_h, 0);
-      for (int by = 0; by < c.blocks_h; ++by) {
-        for (int bx = 0; bx < c.blocks_w; ++bx) {
-          idct_islow(c.coefs.data() +
-                         (static_cast<size_t>(by) * (c.plane_w / 8) + bx) * 64,
-                     c.quant,
-                     c.plane.data() + static_cast<size_t>(by) * 8 * c.plane_w +
-                         bx * 8,
-                     c.plane_w);
+      if (smooth) {
+        idct_smoothed(c);
+      } else {
+        for (int by = 0; by < c.blocks_h; ++by) {
+          for (int bx = 0; bx < c.blocks_w; ++bx) {
+            idct_islow(
+                c.coefs.data() +
+                    (static_cast<size_t>(by) * (c.plane_w / 8) + bx) * 64,
+                c.quant,
+                c.plane.data() + static_cast<size_t>(by) * 8 * c.plane_w +
+                    bx * 8,
+                c.plane_w);
+          }
         }
       }
       std::vector<int16_t>().swap(c.coefs);

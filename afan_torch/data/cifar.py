@@ -23,6 +23,8 @@ Differences from the reference's torchvision pipeline:
 """
 from __future__ import annotations
 
+import functools
+
 import os
 import pickle
 from typing import Iterator, Optional, Tuple
@@ -79,12 +81,16 @@ def load_cifar(data_dir: str, num_classes: int = 10
     return None
 
 
+@functools.lru_cache(maxsize=2)
 def synthetic_arrays(num_train: int = 50000, num_test: int = 10000,
                      num_classes: int = 10, seed: int = 0):
     """Deterministic class-structured fake CIFAR for tests/benchmarks.
 
     Each class gets a fixed random 32x32x3 template; samples are template +
     noise, so a model CAN learn it (loss decreases), unlike pure noise.
+    Made once per process for each argument set (the default set takes
+    seconds): callers share the arrays and must not write into them (the
+    loaders index copies out of them).
     """
     rng = np.random.RandomState(seed)
     templates = rng.randint(0, 256, (num_classes, 32, 32, 3))

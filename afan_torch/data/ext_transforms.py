@@ -2,7 +2,11 @@
 pipelines — a copy of the numpy classes of ``afan/data/ext_transforms.py``
 that the port runs (image HWC float32 in [0, 1], label HW int32; each
 ``__call__`` draws from an explicit ``np.random.RandomState``, so a pipeline
-is deterministic per seed and draws exactly what ``afan``'s does).
+is deterministic per seed and draws exactly what ``afan``'s does). Each
+draw depends on the item's size alone, never on its pixels: ``skip``
+makes a transform's draws from the (H, W) of an item it does not apply
+to and returns the size it would have given, so that a data-parallel rank
+keeps the one-process stream without decoding the other ranks' rows.
 
 ``afan``'s VOC scale resizes through PIL (``_resize_pair``); the machine
 with the card has no PIL, so :func:`_resize_pair` here computes what PIL
@@ -75,6 +79,11 @@ class ExtCompose:
             img, lbl = t(img, lbl, rng)
         return img, lbl
 
+    def skip(self, size_hw: Tuple[int, int], rng) -> Tuple[int, int]:
+        for t in self.transforms:
+            size_hw = t.skip(size_hw, rng)
+        return size_hw
+
 
 class ExtRandomHorizontalFlip:
     def __init__(self, p: float = 0.5):
@@ -85,6 +94,10 @@ class ExtRandomHorizontalFlip:
             return img[:, ::-1].copy(), lbl[:, ::-1].copy()
         return img, lbl
 
+    def skip(self, size_hw, rng):
+        rng.rand()
+        return size_hw
+
 
 class ExtRandomScale:
     """Uniform scale in ``scale_range`` applied to both H and W, each side
@@ -94,9 +107,12 @@ class ExtRandomScale:
         self.scale_range = scale_range
 
     def __call__(self, img, lbl, rng) -> Pair:
+        return _resize_pair(img, lbl, self.skip(lbl.shape, rng))
+
+    def skip(self, size_hw, rng):
         s = rng.uniform(self.scale_range[0], self.scale_range[1])
-        h, w = lbl.shape
-        return _resize_pair(img, lbl, (int(h * s), int(w * s)))
+        h, w = size_hw
+        return int(h * s), int(w * s)
 
 
 class ExtRandomCrop:
@@ -118,6 +134,15 @@ class ExtRandomCrop:
         y = rng.randint(0, h - th + 1)
         x = rng.randint(0, w - tw + 1)
         return img[y:y + th, x:x + tw], lbl[y:y + th, x:x + tw]
+
+    def skip(self, size_hw, rng):
+        th, tw = self.size
+        h, w = size_hw
+        if self.pad_if_needed:
+            h, w = max(h, th), max(w, tw)
+        rng.randint(0, h - th + 1)
+        rng.randint(0, w - tw + 1)
+        return th, tw
 
 
 class ExtColorJitter:
@@ -163,6 +188,14 @@ class ExtColorJitter:
         for op in ops:
             img = op(img)
         return np.clip(img, 0.0, 1.0), lbl
+
+    def skip(self, size_hw, rng):
+        factors = [r for r in (self.brightness, self.contrast,
+                               self.saturation) if r is not None]
+        for r in factors:
+            rng.uniform(*r)
+        rng.shuffle(factors)        # the same draws as ``ops``' shuffle
+        return size_hw
 
 
 def cityscapes_train_transform(crop_size: int) -> ExtCompose:

@@ -27,7 +27,8 @@ from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..utils.imread import read_label, read_rgb
+from ..parallel.mesh import split_rows
+from ..utils.imread import read_label, read_png_size, read_rgb
 from .ext_transforms import cityscapes_train_transform, voc_train_transform
 
 IGNORE = 255
@@ -154,7 +155,14 @@ class SegLoader:
     int32)`` of ``samples``: shuffled and transformed by ``dataset``'s train
     pipeline for training; in order for evaluation, each padded to
     ``eval_canvas`` or, with ``crop_val``, resized so that its short side is
-    the crop and centre-cropped (`Segmentation/args.py:70,123-129`)."""
+    the crop and centre-cropped (`Segmentation/args.py:70,123-129`).
+
+    ``shard = (rank, size)`` makes each batch the rank's contiguous rows of
+    the one-process batch, and only those rows are decoded. The train
+    pipeline draws each item's scale, crop, jitter and flip from one stream
+    in batch order; for the other ranks' rows the rank makes the same draws
+    from the label map's size (its PNG header) alone
+    (``transform.skip``)."""
 
     def __init__(self, samples: Sequence[SegSample], batch_size: int,
                  num_classes: int, crop_size: int = 513, train: bool = True,
@@ -172,6 +180,7 @@ class SegLoader:
         self.crop_val = crop_val
         self.transform = (voc_train_transform(crop_size) if dataset == "voc"
                           else cityscapes_train_transform(crop_size))
+        self.shard = (0, 1)
 
     def __len__(self):
         n = len(self.samples)
@@ -206,12 +215,29 @@ class SegLoader:
             return self.transform(img, lab, self.rng)
         return self._eval_item(img, lab)
 
+    def _skip(self, s: SegSample) -> None:
+        """The train pipeline's draws for ``s``, which another rank loads."""
+        size = ((self.crop, self.crop) if s.image_path is None
+                else read_png_size(s.label_path))
+        self.transform.skip(size, self.rng)
+
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         n = len(self.samples)
         order = self.rng.permutation(n) if self.train else np.arange(n)
+        rank, size = self.shard
         for b in range(len(self)):
             sel = order[b * self.batch_size:(b + 1) * self.batch_size]
-            items = [self._item(self.samples[i]) for i in sel]
+            rows = split_rows(len(sel), rank, size)
+            items = []
+            for j, i in enumerate(sel):
+                if rows.start <= j < rows.stop:
+                    items.append(self._item(self.samples[i]))
+                elif self.train:
+                    self._skip(self.samples[i])
+            if not items:
+                yield (np.zeros((0, 1, 1, 3), np.float32),
+                       np.zeros((0, 1, 1), np.int32))
+                continue
             yield (np.stack([it[0] for it in items]),
                    np.stack([it[1] for it in items]))
 

@@ -35,6 +35,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import split_rows
 from ..utils.imread import read_rgb
 
 VOC_CLASSES = (
@@ -265,7 +266,14 @@ class DetBatch:
 class DetectionLoader:
     """Bucketed epoch iterator (tall vs fat) with a static canvas per
     bucket: fat (min_side, max_side), tall transposed, rounded up to
-    ``pad_multiple``."""
+    ``pad_multiple``.
+
+    ``shard = (rank, size)`` (data parallelism) makes each training batch
+    the rank's contiguous rows of the one-process batch: only those images
+    are decoded, and the other rows' flips are still drawn, so every rank
+    follows the one-process stream. An evaluation loader yields every
+    batch; :meth:`eval_batches` gives the batches' indices for a rank to
+    pick its own."""
 
     def __init__(self, samples: Sequence[DetSample], batch_size: int,
                  image_min_side: float = 600.0, image_max_side: float = 1000.0,
@@ -283,6 +291,7 @@ class DetectionLoader:
 
         self.fat_canvas = (rup(image_min_side), rup(image_max_side))
         self.tall_canvas = (rup(image_max_side), rup(image_min_side))
+        self.shard = (0, 1)
 
     def __len__(self):
         tall = sum(1 for s in self.samples if s.width / s.height < 1)
@@ -295,18 +304,24 @@ class DetectionLoader:
         first = self.samples[idxs[0]]
         tall = first.width / first.height < 1
         ch, cw = self.tall_canvas if tall else self.fat_canvas
-        bsz = len(idxs)
+        rows = split_rows(len(idxs), *self.shard) if self.train else \
+            slice(0, len(idxs))
+        bsz = rows.stop - rows.start
         images = np.zeros((bsz, ch, cw, 3), np.float32)
         boxes = np.zeros((bsz, MAX_GT_BOXES, 4), np.float32)
         labels = np.zeros((bsz, MAX_GT_BOXES), np.int32)
         valid = np.zeros((bsz, MAX_GT_BOXES), bool)
         scales = np.zeros((bsz,), np.float32)
         ids = []
-        for j, i in enumerate(idxs):
+        for row, i in enumerate(idxs):
+            flip = self.train and self.rng.rand() < 0.5
+            if not rows.start <= row < rows.stop:
+                continue                   # another rank's row
+            j = row - rows.start
             s = self.samples[i]
             img = load_image(s)
             bxs = s.boxes.copy()
-            if self.train and self.rng.rand() < 0.5:  # hflip + box flip
+            if flip:                       # hflip + box flip
                 img = img[:, ::-1]
                 if len(bxs):
                     x1 = bxs[:, 0].copy()
@@ -342,10 +357,18 @@ class DetectionLoader:
             for k in self.rng.permutation(len(batches)):
                 yield self._make_batch(list(batches[k]))
         else:
-            # one orientation per batch: the canvas is the first sample's
-            for group in (tall, fat):
-                for i in range(0, len(group), bs):
-                    yield self._make_batch(list(group[i:i + bs]))
+            for idxs in self.eval_batches():
+                yield self._make_batch(idxs)
+
+    def eval_batches(self) -> List[List[int]]:
+        """The evaluation batches' sample indices, in order: one orientation
+        per batch (the canvas is the first sample's)."""
+        ratios = np.asarray([s.width / s.height for s in self.samples])
+        bs = self.batch_size
+        return [list(group[i:i + bs])
+                for group in (np.nonzero(ratios < 1)[0],
+                              np.nonzero(ratios >= 1)[0])
+                for i in range(0, len(group), bs)]
 
 
 def voc_detection_loaders(data_dir: Optional[str], batch_size: int,

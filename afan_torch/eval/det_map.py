@@ -17,6 +17,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..parallel import mesh as dp
 from .coco_map import coco_bbox_ap, format_coco_summary
 
 
@@ -168,21 +169,36 @@ class DetectionEvaluator:
         self.use_07 = use_07_metric
         self.protocol = protocol
 
+    def _batches(self):
+        """(index, batch) of the loader's batches; under data parallelism
+        rank r decodes and runs the batches whose index is r modulo N."""
+        size, r = dp.world_size(), dp.rank()
+        if size == 1:
+            yield from enumerate(self.loader)
+            return
+        for k, idxs in enumerate(self.loader.eval_batches()):
+            if k % size == r:
+                yield k, self.loader._make_batch(idxs)
+
     def evaluate(self) -> Tuple[float, str]:
-        id_chunks: List[List[str]] = []
-        box_chunks: List[np.ndarray] = []
-        cls_chunks: List[np.ndarray] = []
-        prob_chunks: List[np.ndarray] = []
-        for batch in self.loader:
+        chunks = []
+        for k, batch in self._batches():
             boxes, probs, keep = (t.cpu().numpy() for t in self.detect_fn(
                 torch.as_tensor(batch.images)))
             mask = keep & (probs > self.PROB_THRESH)
             bsel, psel, csel = np.nonzero(mask)
             scales = np.asarray(batch.scales, np.float64)[bsel]
-            id_chunks.append([batch.image_ids[b] for b in bsel])
-            box_chunks.append(boxes[bsel, psel, csel] / scales[:, None])
-            cls_chunks.append(csel)
-            prob_chunks.append(probs[bsel, psel, csel])
+            chunks.append((k, [batch.image_ids[b] for b in bsel],
+                           boxes[bsel, psel, csel] / scales[:, None], csel,
+                           probs[bsel, psel, csel]))
+        if dp.world_size() > 1:
+            # every rank's detections, in the one-process batch order
+            chunks = sorted((c for part in dp.gather_objects(chunks)
+                             for c in part), key=lambda c: c[0])
+        id_chunks: List[List[str]] = [c[1] for c in chunks]
+        box_chunks: List[np.ndarray] = [c[2] for c in chunks]
+        cls_chunks: List[np.ndarray] = [c[3] for c in chunks]
+        prob_chunks: List[np.ndarray] = [c[4] for c in chunks]
         gt = ground_truth(self.loader.samples)
         all_ids = [i for chunk in id_chunks for i in chunk]
         if not all_ids:

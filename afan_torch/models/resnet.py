@@ -36,6 +36,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import mesh
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -127,7 +129,9 @@ class BatchNorm(nn.BatchNorm2d):
     *biased* batch variance; ``nn.BatchNorm2d`` keeps the unbiased one. With
     ``update_stats`` False (:func:`frozen_bn_stats`) a train-mode forward
     leaves the running statistics untouched. Eval mode normalizes with
-    them."""
+    them. Inside a data-parallel group of more than one rank a train-mode
+    forward takes the global batch's statistics (:meth:`_global_forward`);
+    with one rank it is the single-process path, bit for bit."""
 
     def __init__(self, num_features: int, momentum: float = 0.01,
                  eps: float = 1e-5):
@@ -138,6 +142,8 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if mesh.world_size() > 1:
+            return self._global_forward(x)
         if not self.update_stats:
             return F.batch_norm(x, None, None, self.weight, self.bias, True,
                                 0.0, self.eps)
@@ -152,6 +158,33 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
         return y
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over data-parallel ranks: the statistics of the
+        global batch, as ``afan``'s BatchNorm computes them under a mesh
+        (flax's ``mean(x)`` and ``mean(x^2) - mean(x)^2`` in float32).
+        The per-channel sum, sum of squares and count are summed over the
+        ranks with autograd (:func:`afan_torch.parallel.mesh.sum_over_ranks`),
+        so the backward carries every rank's terms; the same global mean
+        and biased variance feed the running statistics' EMA."""
+        c = x.shape[1]
+        xf = x.float()
+        count = torch.full((1,), x.numel() // c, dtype=torch.float32,
+                           device=x.device)
+        stats = mesh.sum_over_ranks(torch.cat(
+            [xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]))
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean * mean).clamp_min(0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return torch.addcmul(self.bias.reshape(shape),
+                             x - mean.reshape(shape),
+                             mul.reshape(shape)).to(x.dtype)
 
 
 @contextlib.contextmanager

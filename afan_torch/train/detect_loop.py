@@ -21,6 +21,15 @@ Images enter as ``(B, H, W, 3)`` in [0, 1], ground truth as boxes
 ``(B, G, 4)``, classes ``(B, G)`` and validity ``(B, G)``, on the model's
 device.
 
+Data parallelism (:mod:`afan_torch.parallel.mesh`): inside a group of N
+ranks each rank holds its rows of the global batch and every loss it
+differentiates (the ascents' too) is its share of the global one, the
+per-image losses summed over its images over the global batch
+(``local mean / N``); the gradients are summed over the ranks before the
+update, and the reported losses are the global ones. The torso's BatchNorm
+is frozen, so no statistic crosses the ranks. With one rank nothing
+changes.
+
 Under a bfloat16 model (``--bf16``) the steps keep ``afan``'s dtypes: the
 SE and SD features are bfloat16 and so are their ascents (the PGD-update
 kernel's bfloat16 path, step sizes rounded to bfloat16), the spectrum and
@@ -41,6 +50,7 @@ from ..core.spectrum import sample_points
 from ..models.frcnn.model import FasterRCNN, Targets
 from ..models.resnet import FrozenBatchNorm
 from ..ops.lowp import mean
+from ..parallel.mesh import global_sum, share, sum_gradients
 
 UNPORTED = "not ported yet (ROADMAP.md, queue 1: detection)"
 
@@ -77,12 +87,13 @@ def make_baseline_det_step(model: FasterRCNN,
                 targets: Optional[Targets] = None):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = model.losses(images, gt_boxes, gt_classes, gt_valid,
-                            generator, targets=targets).total()
+        loss = share(model.losses(images, gt_boxes, gt_classes, gt_valid,
+                                  generator, targets=targets).total())
         loss.backward()
+        sum_gradients(optimizer)
         optimizer.step()
         scheduler.step()
-        return {"loss": loss.detach()}
+        return {"loss": global_sum(loss.detach())}
 
     return step_fn
 
@@ -104,15 +115,17 @@ def make_advtrain_det_step(model: FasterRCNN,
                 generator: Optional[torch.Generator] = None):
         model.train()
         gt = (gt_boxes, gt_classes, gt_valid)
-        adv = input_pgd(lambda x: model.losses(x, *gt, generator).total(),
+        adv = input_pgd(lambda x: share(model.losses(x, *gt,
+                                                     generator).total()),
                         images, steps=steps, gamma=gamma, eps=eps,
                         randinit=randinit, generator=generator)
         optimizer.zero_grad(set_to_none=True)
-        loss = model.losses(adv, *gt, generator).total()
+        loss = share(model.losses(adv, *gt, generator).total())
         loss.backward()
+        sum_gradients(optimizer)
         optimizer.step()
         scheduler.step()
-        return {"loss": loss.detach()}
+        return {"loss": global_sum(loss.detach())}
 
     return step_fn
 
@@ -254,14 +267,14 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
                 shared = model.compute_targets(images, *gt, generator)
 
         def tail_loss(tap, feat):
-            return model.losses(images, *gt, generator, tap, feat,
-                                shared).total()
+            return share(model.losses(images, *gt, generator, tap, feat,
+                                      shared).total())
 
         images_l0 = images
         if cfg.input_adv:
             images_l0 = input_pgd(
-                lambda x: model.losses(x, *gt, generator,
-                                       targets=shared).total(),
+                lambda x: share(model.losses(x, *gt, generator,
+                                             targets=shared).total()),
                 images, steps=cfg.input_adv_steps,
                 gamma=cfg.input_adv_gamma, eps=cfg.input_adv_eps,
                 randinit=True, clip=True, generator=generator,
@@ -285,9 +298,9 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
             def sd_loss(rf):
                 L = model.roi_tail_losses(rd, rf)
                 if cfg.only_roi_sd:
-                    return mean(L.proposal_class) + \
-                        mean(L.proposal_transformer)
-                return L.total()
+                    return share(mean(L.proposal_class)
+                                 + mean(L.proposal_transformer))
+                return share(L.total())
         elif cfg.sd == "rpn":
             with torch.no_grad():
                 rd = model.rpn_head_forward(images)
@@ -298,8 +311,8 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
                                                       generator)
 
             def sd_loss(rf):
-                return model.rpn_tail_losses(rd, hw, *gt, sd_priorities,
-                                             rf).total()
+                return share(model.rpn_tail_losses(rd, hw, *gt,
+                                                   sd_priorities, rf).total())
         if cfg.sd is not None:
             adv_sd = attack(sd_loss, sd_clean, cfg.gamma_sd, generator)
             if cfg.mix_sd:
@@ -323,11 +336,11 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
             """The SD loss on the clean image's ``features`` (the RPN tail)
             or RPN outputs (the ROI tail)."""
             if cfg.sd == "rpn":
-                return model.rpn_tail_losses({"features": features}, hw,
-                                             *gt, sd_priorities,
-                                             adv_sd).total()
-            return model.roi_tail_losses(
-                model.roi_dict(*rpn_out, sd_targets), adv_sd).total()
+                return share(model.rpn_tail_losses(
+                    {"features": features}, hw, *gt, sd_priorities,
+                    adv_sd).total())
+            return share(model.roi_tail_losses(
+                model.roi_dict(*rpn_out, sd_targets), adv_sd).total())
 
         optimizer.zero_grad(set_to_none=True)
         # the clean term's forward; without input_adv the SD term's RPN
@@ -335,8 +348,8 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
         features = model.features_clean(images_l0.permute(0, 3, 1, 2))
         rpn_out = model.rpn(features)
         clean = shared if shared is not None else targets.get("clean")
-        l0 = model._losses_from_features(features, hw, *gt, generator, clean,
-                                         rpn_out).total()
+        l0 = share(model._losses_from_features(features, hw, *gt, generator,
+                                               clean, rpn_out).total())
         first = c_clean * l0
         l_sd = torch.zeros_like(l0)
         if cfg.sd is not None and not cfg.input_adv:
@@ -362,6 +375,7 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
             term = tail_loss(tap, feat)
             (c_se * term).backward()
             terms.append(term.detach())
+        sum_gradients(optimizer)
         optimizer.step()
         scheduler.step()
         zero = torch.zeros_like(l0)
@@ -369,8 +383,9 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
         l_multi = sum(terms[len(spec_feats):], zero)
         loss = (c_clean * l0.detach() + c_se * (l_spectrum + l_multi)
                 + c_sd * l_sd.detach())
-        return {"loss": loss, "loss_clean": l0.detach(),
-                "loss_spectrum": l_spectrum, "loss_sd": l_sd.detach()}
+        return {"loss": global_sum(loss), "loss_clean": global_sum(l0.detach()),
+                "loss_spectrum": global_sum(l_spectrum),
+                "loss_sd": global_sum(l_sd.detach())}
 
     return step_fn
 

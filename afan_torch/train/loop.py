@@ -28,6 +28,14 @@ Images enter as ``(B, 32, 32, 3)`` in [0, 1] and labels as ``(B,)`` int64,
 on the model's device. Steps return detached metric tensors (no host sync)
 under ``afan``'s names.
 
+Data parallelism (:mod:`afan_torch.parallel.mesh`): inside a group of N
+ranks each rank runs the step on its rows of the global batch; every loss
+it differentiates (the ascents' too) is its share of the global batch's
+mean, ``local mean / N`` (the learnable step's η penalty, which belongs to
+no row, ``/ N`` as well), the BatchNorm statistics are the global batch's,
+the gradients are summed over the ranks before the update, and the
+reported metrics are the global batch's. With one rank nothing changes.
+
 Under a bfloat16 model (``--bf16``) the steps keep ``afan``'s dtypes: the
 logits, the CE (optax's formula in bfloat16, :func:`cross_entropy`) and the
 losses of the base and ALFA steps are bfloat16, the tapped features and
@@ -48,6 +56,7 @@ from ..data.cifar import apply_augment, augment_draws, batch_indices
 from ..models.resnet import frozen_bn_stats
 from ..models.resnet_s import LEARNABLE_TAPS, ResNetS
 from ..ops import lowp
+from ..parallel.mesh import global_mean, global_sum, share, sum_gradients
 from .optim import CapturableSGD, StepCount
 
 Metrics = Dict[str, torch.Tensor]
@@ -110,13 +119,15 @@ def _nchw(images: torch.Tensor) -> torch.Tensor:
 
 def _update(optimizer: torch.optim.Optimizer, scheduler,
             loss: torch.Tensor) -> None:
-    """Backward, a zero gradient for every parameter that got none, one SGD
-    step and one schedule step."""
+    """Backward, a zero gradient for every parameter that got none, the
+    gradients summed over the data-parallel ranks, one SGD step and one
+    schedule step."""
     loss.backward()
     for group in optimizer.param_groups:
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+    sum_gradients(optimizer)
     optimizer.step()
     scheduler.step()
 
@@ -130,10 +141,10 @@ def make_base_step(model: ResNetS, optimizer: torch.optim.Optimizer,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         logits = model(_nchw(images))
-        loss = cross_entropy(logits, labels)
+        loss = share(cross_entropy(logits, labels))
         _update(optimizer, scheduler, loss)
-        return {"loss": loss.detach(),
-                "accuracy": accuracy(logits.detach(), labels)}
+        return {"loss": global_sum(loss.detach()),
+                "accuracy": global_mean(accuracy(logits.detach(), labels))}
 
     return step_fn
 
@@ -159,8 +170,8 @@ def make_alfa_step(model: ResNetS, optimizer: torch.optim.Optimizer,
         with frozen_bn_stats(model):
             with torch.no_grad():
                 feat = model.head(x, cfg.tap)
-            adv = pgd(lambda f: cross_entropy(model.tail(f, cfg.tap),
-                                              labels),
+            adv = pgd(lambda f: share(cross_entropy(model.tail(f, cfg.tap),
+                                                    labels)),
                       feat, steps=cfg.steps, gamma=cfg.gamma, eps=cfg.eps,
                       randinit=cfg.randinit, clip=cfg.clip,
                       generator=generator, step_mode=cfg.step_mode,
@@ -171,12 +182,13 @@ def make_alfa_step(model: ResNetS, optimizer: torch.optim.Optimizer,
         with frozen_bn_stats(model):
             logits_adv = model.tail(adv, cfg.tap)
         logits = model(x)        # the forward that updates the running stats
-        loss = (cross_entropy(logits_adv, labels)
-                + cross_entropy(logits, labels)) / 2
+        loss = share((cross_entropy(logits_adv, labels)
+                      + cross_entropy(logits, labels)) / 2)
         _update(optimizer, scheduler, loss)
-        return {"loss": loss.detach(),
-                "accuracy": accuracy(logits.detach(), labels),
-                "pert_l2": norm_l2.mean(), "pert_linf": norm_linf.mean()}
+        return {"loss": global_sum(loss.detach()),
+                "accuracy": global_mean(accuracy(logits.detach(), labels)),
+                "pert_l2": global_mean(norm_l2.mean()),
+                "pert_linf": global_mean(norm_linf.mean())}
 
     return step_fn
 
@@ -369,8 +381,8 @@ def make_learnable_step(model: ResNetS, optimizer: torch.optim.Optimizer,
         with frozen_bn_stats(model):
             with torch.no_grad():
                 clean = model.multi_head(x, taps)
-            advs = [pgd(lambda f, tap=tap: cross_entropy(model.tail(f, tap),
-                                                         labels),
+            advs = [pgd(lambda f, tap=tap: share(cross_entropy(
+                            model.tail(f, tap), labels)),
                         feat, steps=cfg.steps, gamma=cfg.gamma, eps=cfg.eps,
                         randinit=cfg.randinit, clip=cfg.clip,
                         generator=generator)
@@ -388,15 +400,18 @@ def make_learnable_step(model: ResNetS, optimizer: torch.optim.Optimizer,
                 loss_adv = loss_adv + cross_entropy(model.tail(scaled, tap),
                                                     labels)
         logits = model(x)        # the forward that updates the running stats
-        loss = ((cross_entropy(logits, labels) + loss_adv / len(taps)) / 2
-                + cfg.l1_coef * w.abs().sum())
+        loss = (share((cross_entropy(logits, labels)
+                       + loss_adv / len(taps)) / 2)
+                + share(cfg.l1_coef * w.abs().sum()))
         _update(optimizer, scheduler, loss)
         with torch.no_grad():
             w.copy_(sum_project(w))
-        return {"loss": loss.detach(),
-                "accuracy": accuracy(logits.detach(), labels),
-                "pert_l2": torch.stack([n[0].mean() for n in norms]),
-                "pert_linf": torch.stack([n[1].mean() for n in norms]),
+        return {"loss": global_sum(loss.detach()),
+                "accuracy": global_mean(accuracy(logits.detach(), labels)),
+                "pert_l2": global_mean(
+                    torch.stack([n[0].mean() for n in norms])),
+                "pert_linf": global_mean(
+                    torch.stack([n[1].mean() for n in norms])),
                 "w": w.detach().clone()}
 
     return step_fn

@@ -25,6 +25,15 @@ its own tail forward, so each gets its own batch statistics, as ``afan``'s
 Images enter as ``(B, H, W, 3)`` in [0, 1] and labels as ``(B, H, W)``
 (255 ignored), on the model's device.
 
+Data parallelism (:mod:`afan_torch.parallel.mesh`): inside a group of N
+ranks each rank holds its rows of the global batch, and every site's loss
+is its entries' summed loss over the valid-pixel count of the *global*
+batch (summed over the ranks), so each rank's loss is its share of
+``afan``'s and the shares sum to it, however unequally the ignored pixels
+fall; the BatchNorm statistics are the global batch's, the gradients are
+summed over the ranks before the update, and the reported losses are the
+global ones.
+
 Under a bfloat16 model (``--bf16``) the step keeps ``afan``'s dtypes: the
 image and the input ascent stay float32; the tap features, their ascents
 (the PGD-update kernel's bfloat16 path) and the os4 logits of every site are
@@ -49,6 +58,7 @@ from ..models.deeplab.modeling import DeepLab
 from ..models.resnet import frozen_bn_stats
 from ..ops.resize_ce import IGNORE, fused_resize_nll_sums
 from ..ops.resize_ce import per_entry_loss_sums as _per_entry_loss_sums
+from ..parallel.mesh import global_sum, sum_gradients
 
 FOCAL = (1.0, 2.0)      # (alpha, gamma) of seg_focal_loss
 
@@ -149,7 +159,7 @@ def _site_loss(labels: torch.Tensor, focal, fused: bool = True) -> Callable:
     upsample of the logits, then the loss (``afan``'s ``fused_ce=False``
     sites, `segment_loop.py:505-512`)."""
     bsz = labels.shape[0]
-    npix = (labels != IGNORE).sum().clamp_min(1)
+    npix = global_sum((labels != IGNORE).sum()).clamp_min(1)
     size = tuple(labels.shape[1:])
 
     def site_groups(lo: torch.Tensor) -> torch.Tensor:
@@ -178,9 +188,10 @@ def make_seg_base_step(model: DeepLab, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         loss = site(model.forward_logits(_nchw(images)))[0]
         loss.backward()
+        sum_gradients(optimizer)
         optimizer.step()
         scheduler.step()
-        return {"loss": loss.detach()}
+        return {"loss": global_sum(loss.detach())}
 
     return step_fn
 
@@ -208,9 +219,10 @@ def make_seg_advtrain_step(model: DeepLab, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         loss = site(model.forward_logits(_nchw(adv)))[0]
         loss.backward()
+        sum_gradients(optimizer)
         optimizer.step()
         scheduler.step()
-        return {"loss": loss.detach()}
+        return {"loss": global_sum(loss.detach())}
 
     return step_fn
 
@@ -344,10 +356,13 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
         l_multi = group[idx:].sum()
         loss = w_clean * l0 + w_adv * (l_adv + l_multi + l_sd)
         loss.backward()
+        sum_gradients(optimizer)
         optimizer.step()
         scheduler.step()
-        return {"loss": loss.detach(), "loss_clean": l0.detach(),
-                "loss_spectrum": l_adv.detach(), "loss_sd": l_sd.detach()}
+        return {"loss": global_sum(loss.detach()),
+                "loss_clean": global_sum(l0.detach()),
+                "loss_spectrum": global_sum(l_adv.detach()),
+                "loss_sd": global_sum(l_sd.detach())}
 
     return step_fn
 

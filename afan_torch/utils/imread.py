@@ -22,13 +22,14 @@ bytes (the machine with the card has neither library).
   YCbCr table (Pillow's JPEG codec), and Pillow's inverted CMYK and its
   ``cmyk2rgb``; restart intervals, byte stuffing and fill bytes are handled,
   Adobe's transform 0 means RGB, a gray JPEG repeats its channel, and no
-  EXIF rotation is applied.
+  EXIF rotation is applied. A progressive file that ends after a complete
+  scan, its first ten coefficients not all complete, is block-smoothed as
+  libjpeg-turbo does (``jdcoefct.c``).
 
 Anything else raises a :class:`ValueError` that names the file and what it
 met: arithmetic-coded, lossless, hierarchical or 12-bit JPEG, fractional
-sampling ratios, a progression that breaks libjpeg's order or leaves
-coefficients incomplete (libjpeg would smooth the blocks); truncated or
-corrupt data. The library is compiled with ``c++`` into ``build/host/`` at
+sampling ratios, a progression that breaks libjpeg's order; truncated
+(inside a scan) or corrupt data. The library is compiled with ``c++`` into ``build/host/`` at
 first use (:func:`afan_torch.ops.kernels.build.build_host`) and bound with
 :mod:`ctypes`, which releases the GIL during a call, so a prefetch thread
 decodes while the main thread runs the step.
@@ -233,6 +234,19 @@ def read_rgb(path: str) -> np.ndarray:
     if data.startswith(b"\xff\xd8"):
         return _jpeg_rgb(data, path)
     raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+
+
+def read_png_size(path: str) -> Tuple[int, int]:
+    """(H, W) of a PNG file from its IHDR chunk, the first one (the file is
+    not decoded)."""
+    with open(path, "rb") as f:
+        head = f.read(len(PNG_SIGNATURE) + 16)
+    if (len(head) < len(PNG_SIGNATURE) + 16
+            or not head.startswith(PNG_SIGNATURE)
+            or head[len(PNG_SIGNATURE) + 4:len(PNG_SIGNATURE) + 8] != b"IHDR"):
+        raise ValueError(f"{path}: not a PNG file with an IHDR chunk")
+    width, height = struct.unpack(">II", head[len(PNG_SIGNATURE) + 8:])
+    return height, width
 
 
 def read_label(path: str) -> np.ndarray:

@@ -12,9 +12,12 @@ class Log:
     _logger: Optional[logging.Logger] = None
 
     @classmethod
-    def initialize(cls, path_to_log_file: Optional[str] = None) -> None:
+    def initialize(cls, path_to_log_file: Optional[str] = None,
+                   quiet: bool = False) -> None:
+        """Log to stdout and ``path_to_log_file``; ``quiet`` (a
+        data-parallel rank other than 0) keeps warnings and errors only."""
         logger = logging.getLogger("afan_torch")
-        logger.setLevel(logging.INFO)
+        logger.setLevel(logging.WARNING if quiet else logging.INFO)
         logger.handlers.clear()
         fmt = logging.Formatter(
             "%(asctime)s %(levelname)s %(message)s", "%Y-%m-%d %H:%M:%S")

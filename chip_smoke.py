@@ -16,7 +16,7 @@ phases 1, 2 and 22-26; ``--only bf16`` phases 1, 2 and 27-29; ``--only
 detbf16`` phases 1, 2 and 30-32; ``--only clsbf16`` phases 1, 2 and 33-35;
 ``--only eval`` phases 1, 2 and 36-39; ``--only mobilenet`` phases 1, 2
 and 40-42; ``--only coco`` phases 1, 2 and 43-46; ``--only data`` phases 1,
-2 and 47-51.
+2 and 47-51; ``--only dp`` phases 1, 2 and 55-58.
 The kernels
 line then lists the kernels of the phases that ran; without phase 8 the
 upsample + CE kernels have no launch count (null), and under ``--only
@@ -332,7 +332,32 @@ Phases (any failure exits non-zero):
      against the host-step-size kernel and the plain version at the ALFA
      tap, f32 and bf16, clipped and not, bit for bit;
  54. the device-step-size kernel at the ALFA tap in turns with the
-     host-step-size kernel, f32 and bf16, its plain version and bound.
+     host-step-size kernel, f32 and bf16, its plain version and bound;
+ 55. data parallelism: the world-1 steps (2 each, full f32, deterministic
+     cuDNN, dropout off) of ALFA (batch 128), the Cityscapes A-FAN seg step
+     (batch 4, crop 768) and the VOC setting-1 A-FAN detection step (batch
+     8), their step times, peak memory and kernel launches, the detection
+     samplers' uniforms and the ascents' perturbations recorded; then each
+     again on the batch with its halves swapped, replaying them: how far
+     the same function in another row order moves;
+ 56. the same steps at world 2: two gloo ranks on cuda:0
+     (``afan_torch.parallel.launch``), each on its rows of the global batch
+     (global BatchNorm statistics and pixel counts, summed gradients), the
+     uniforms and the ascents' perturbations of phase 55 replayed by rows
+     (each rank's own ascent still runs; its flips against phase 55's are
+     shown); the losses, each ascent's first gradient, the trained
+     parameters and their update within twice what phase 55's
+     swapped-batch run differs by (and no less than ``DP_MIN_BOUND``),
+     every kernel of each path launched on every rank (as often per rank
+     as at world 1: the per-rank shapes are smaller, the counts the same),
+     each kernel held against its plain version at its per-rank inputs
+     and timed at the per-rank shapes in one process; step ms and peak GiB per rank (a correctness run: two
+     ranks share the card);
+ 57. the NCCL backend initialised at world 1 through the same launcher,
+     one ALFA run of 2 steps whose all-reduces run on it, its losses those
+     of phase 55;
+ 58. ``train_classify --num_devices 2`` on a one-card machine raises,
+     naming the count.
 
 The line before the last lists each kernel with its launches on its main
 paths (the bf16 paths of phases 27-29 as entries of their own, ``_bf16``,
@@ -394,6 +419,7 @@ from afan_torch.models.deeplab import build_model
 from afan_torch.models.deeplab.heads import AtrousSeparableConv
 from afan_torch.models.deeplab.modeling import segmentation_param_groups
 from afan_torch.models.frcnn import FasterRCNN, FRCNNConfig, roi_head
+from afan_torch.models.frcnn import sampling
 from afan_torch.models.frcnn.rpn import generate_proposals
 from afan_torch.models.resnet import (FrozenBatchNorm, from_name,
                                       frozen_bn_stats)
@@ -405,6 +431,8 @@ from afan_torch.ops.kernels import build as kbuild
 from afan_torch.ops.kernels import nms as knms
 from afan_torch.ops.kernels import pgd_step as kpgd
 from afan_torch.ops.kernels import resize_ce as krce
+from afan_torch.parallel import mesh as dp
+from afan_torch.parallel.launch import launch
 from afan_torch.train import loop as cls_loop
 from afan_torch.train import detect_loop, segment_loop
 from afan_torch.train.checkpoint import load_checkpoint, overlap_restore
@@ -1655,7 +1683,7 @@ def train_classify_full_width():
     t0 = time.time()
     cifar.synthetic_arrays(seed=0)
     print(f"    synthetic CIFAR-10 (50k + 10k images) made on the host in "
-          f"{time.time() - t0:.1f} s; each CLI run below makes it again")
+          f"{time.time() - t0:.1f} s, once: every CLI run below reuses it")
     n = CLS_ALFA_BATCHES
     alfa, _, alfa_dir, result = run_classify_cli("alfa", [], n, "alfa")
     require(alfa == ALFA_STEPS * n,
@@ -5633,6 +5661,484 @@ def merge_entry(entries, extra):
     entries.append(extra)
 
 
+# ---------- data parallelism (phases 55-58) ----------
+
+DP_RANKS, DP_STEPS = 2, 2
+DP_DIR = os.path.join(ROOT, "build", "chip_smoke_dp")
+# World 2 against world 1, both in full f32 with deterministic cuDNN, world 2
+# replaying world 1's sampler draws and ascent perturbations (each rank's
+# own ascent still runs). Bound: twice what world 1 differs from itself on
+# the same batch with its halves swapped (the same function in another row
+# order: the float noise of these steps, which atomic adds in the upsample's
+# backward, sign flips and AFN's division by a channel deviation magnify; a
+# seg update moves some 20% that way), and no less than the least bound of
+# each error: the losses (relative), the first step's gradient of each
+# ascent without a random start (L2 relative: the part of the step that is
+# A-FAN's own, the feature gradient through the global BatchNorm's backward
+# and the loss shares), all trained parameters (L2 relative) and their
+# update (final minus initial, L2 relative). The fraction of ascent entries
+# that end more than half a step from world 1's, and of first-gradient
+# entries whose sign differs, is shown and not bounded: the sign steps turn
+# any float difference in a near-zero gradient entry into a whole step, and
+# the steps after it compound it (seg's swapped run moves half the entries).
+DP_FLOOR_FACTOR = 2.0
+DP_MIN_BOUND = {"loss": 1e-5, "grad": 1e-3, "params": 1e-5, "update": 1e-3}
+DP_TRAINERS = ("alfa", "seg", "det")
+
+
+def dp_counts():
+    return {"nms": knms.launches, "resize_ce_forward": krce.fwd_launches,
+            "resize_ce_backward": krce.bwd_launches,
+            "pgd_update": kpgd.launches}
+
+
+def dp_reset_counts():
+    knms.launches = krce.fwd_launches = krce.bwd_launches = 0
+    kpgd.launches = 0
+
+
+def dp_trainer(trainer, pick):
+    """``trainer``'s full-width model, step and ``pick``'s rows of its
+    global batch (phase 12's ALFA, phase 8's Cityscapes A-FAN, phase 15's
+    VOC A-FAN; dropout off, so that no draw differs between the runs)."""
+    if trainer == "alfa":
+        model, step = cls_step("alfa")
+        batch = cls_batch(0)
+    elif trainer == "seg":
+        model, imgs, labs = seg_model_and_batch(0)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        step = seg_step(model)
+        batch = (imgs, labs)
+    else:
+        model = det_model(0)
+        step = det_step(model)
+        batch = det_batch(0)
+    dp.replicate_state(model)
+    return model, step, tuple(pick(t) for t in batch)
+
+
+def dp_swapped(t):
+    """The global batch with its two halves swapped: the rows of world 2's
+    rank 1 first. A world-1 run on it computes the same function in another
+    row order, which bounds what world 2 may differ by."""
+    n = t.shape[0] // 2
+    return (torch.cat((t[n:], t[:n])) if torch.is_tensor(t)
+            else np.concatenate((t[n:], t[:n])))
+
+
+def dp_flat_params(model):
+    return torch.cat([p.detach().reshape(-1).float() for p in
+                      model.parameters() if p.requires_grad]).cpu().numpy()
+
+
+@contextlib.contextmanager
+def dp_priorities(pick, record=None, replay=None):
+    """The detection samplers' uniforms: recorded (world 1), or ``pick``'s
+    rows of the recorded global ones replayed, in call order."""
+    real = sampling.draw_priorities
+    it = iter(replay or ())
+    if record is None and replay is None:
+        yield
+        return
+
+    def draw(shape, generator, device=None):
+        if replay is None:
+            out = real(shape, generator, device)
+            record.append(tuple(u.cpu() for u in out))
+            return out
+        out = tuple(pick(u).to(device) for u in next(it))
+        require(tuple(out[0].shape) == tuple(shape),
+                f"replayed uniforms {tuple(out[0].shape)} for {shape}")
+        return out
+
+    sampling.draw_priorities = draw
+    try:
+        yield
+    finally:
+        sampling.draw_priorities = real
+
+
+@contextlib.contextmanager
+def dp_ascents(pick, folder, replay, flips, grads):
+    """World 1 (``replay`` false) saves each ascent's perturbation (result
+    minus start) and the gradient of its first step (where the ascent has
+    no random start) under ``folder`` in call order; a replaying run (a
+    rank of world 2, or world 1 on the swapped batch) runs its own ascent
+    (its kernels too), then goes on from its start plus ``pick``'s rows of
+    the saved perturbation, so that sign flips of near-zero gradients
+    between the runs do not compound. It appends to ``flips`` the fraction
+    of its entries that differ from the saved ones by more than half a
+    step, and to ``grads`` its first gradient's L2 error relative to
+    ``pick``'s rows of the saved one and the fraction of its entries whose
+    sign differs: the gradient of the global loss at
+    the tap, through the global BatchNorm's backward and the loss shares,
+    before any step compounds a difference."""
+    mods = (cls_loop, segment_loop, detect_loop)
+    count = itertools.count()
+
+    def ascent(loss_fn, x, **kw):
+        i = next(count)
+        first = []
+        inner = attack.pgd_update
+
+        def update(xa, g, center=None, **ukw):
+            if not first:
+                first.append(g.detach().clone())
+            return inner(xa, g, center, **ukw)
+
+        with patched_update(update):
+            out = attack.pgd(loss_fn, x, **kw)
+        path = os.path.join(folder, f"ascent{i}.npy")
+        gpath = os.path.join(folder, f"ascent{i}_grad.npy")
+        if not replay:
+            np.save(path, (out - x).cpu().numpy())
+            if not kw.get("randinit"):
+                np.save(gpath, first[0].cpu().numpy())
+            return out
+        saved = np.load(path, mmap_mode="r")
+        delta = torch.from_numpy(np.array(pick(saved))).to(x.device)
+        flips.append(float(((out - x - delta).abs()
+                            > float(kw["gamma"]) / 2).float().mean()))
+        if not kw.get("randinit"):
+            want = torch.from_numpy(np.array(pick(np.load(
+                gpath, mmap_mode="r")))).to(x.device)
+            grads.append((float((first[0] - want).norm()
+                                / want.norm().clamp_min(1e-30)),
+                          float((torch.sign(first[0]) != torch.sign(want))
+                                .float().mean())))
+        return x + delta
+
+    os.makedirs(folder, exist_ok=True)
+    for m in mods:
+        m.pgd = ascent
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.pgd = attack.pgd
+
+
+def dp_steps(trainer, pick, priorities=None, record=None, probe=None,
+             replay=False, flips=None, grads=None):
+    """``DP_STEPS`` steps of ``trainer`` on ``pick``'s rows, in full f32
+    with deterministic cuDNN: the global losses, the last step's ms, the
+    peak GiB, the kernels' launches in the steps, the flat trained
+    parameters and their update. With ``flips`` and ``grads`` (lists) the
+    ascents are saved (world 1) or replayed (``replay``, world 2) by
+    :func:`dp_ascents`. ``probe`` (a dict) takes the first inputs of each kernel's
+    wrapper."""
+    with deterministic():
+        model, step, batch = dp_trainer(trainer, pick)
+        start = dp_flat_params(model)
+        gen = torch.Generator("cuda").manual_seed(dp.rank_seed(0))
+        losses, ms = [], 0.0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dp_reset_counts()
+        with dp_priorities(pick, record, priorities), \
+                contextlib.ExitStack() as stack:
+            if probe is not None:
+                stack.enter_context(dp_probes(probe))
+            if flips is not None:
+                stack.enter_context(dp_ascents(
+                    pick, os.path.join(DP_DIR, f"{trainer}_ascents"), replay,
+                    flips, grads))
+            first_step = 0
+            for i in range(DP_STEPS):
+                t0 = time.perf_counter()
+                out = (step(*batch) if trainer == "seg"
+                       else step(*batch, gen))
+                losses.append(float(out["loss"]))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if i == 0 and grads is not None:
+                    first_step = len(grads)
+        counts = dp_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        flat = dp_flat_params(model)
+    del model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": ms, "peak_gib": peak,
+            "counts": counts, "params": flat, "update": flat - start,
+            "flips": flips, "grads": grads, "first_step": first_step}
+
+
+@contextlib.contextmanager
+def dp_probes(probe):
+    """Keep the first call's inputs of the NMS, upsample + CE and PGD-update
+    wrappers (the per-rank shapes) in ``probe``."""
+    nms_fn, site_fn, upd_fn = (tnms.nms_sorted_mask,
+                               segment_loop.fused_resize_nll_sums,
+                               attack.pgd_update)
+
+    def kept(t):
+        return None if t is None else t.detach().contiguous().clone()
+
+    def nms(boxes, valid, thr, plus_one=True):
+        probe.setdefault("nms", (kept(boxes), kept(valid), thr, plus_one))
+        return nms_fn(boxes, valid, thr, plus_one)
+
+    def site(lo, lab, size, focal=None):
+        probe.setdefault("ce", (kept(lo), kept(lab), size, focal))
+        return site_fn(lo, lab, size, focal)
+
+    def update(x, g, center=None, **kw):
+        probe.setdefault("pgd", (kept(x), kept(g), kept(center), kw))
+        return upd_fn(x, g, center, **kw)
+
+    with patched_nms(nms), patched_site_op(site), patched_update(update):
+        yield
+
+
+def dp_probe_errs(probe):
+    """Each kernel on the per-rank inputs that ``probe`` kept, against its
+    plain version (phases 3, 7 and 11's criteria); the largest absolute
+    errors."""
+    errs = {}
+    if "nms" in probe:
+        boxes, valid, thr, plus_one = probe["nms"]
+        e = []
+        kernel_vs_plain("per-rank proposals", boxes, valid, thr, plus_one, e)
+        errs["nms"] = max(e)
+    if "ce" in probe:
+        lo, lab, size, focal = probe["ce"]
+        g = torch.rand(lo.shape[0], device="cuda")
+        sums = krce.resize_ce_forward(lo, lab, focal)
+        dlo = krce.resize_ce_backward(lo, lab, g, focal)
+        want_s = trce.fused_resize_nll_sums_plain(lo, lab, size, focal)
+        want_d = trce.resize_ce_grad_plain(lo, lab, g, focal)
+        es, eg = rel_err(sums, want_s), rel_err(dlo, want_d)
+        errs["resize_ce_forward"] = float((sums - want_s).abs().max())
+        errs["resize_ce_backward"] = float((dlo - want_d).abs().max())
+        print(f"  upsample + CE on the per-rank logits {tuple(lo.shape)} -> "
+              f"{tuple(size)}: sums rel {es:.3e}, grad rel {eg:.3e}")
+        require(es <= CE_SUM_TOL and eg <= CE_GRAD_TOL,
+                f"per-rank upsample + CE: {es}, {eg}")
+    if "pgd" in probe:
+        x, g, c, kw = probe["pgd"]
+        got = kpgd.pgd_update(x, g, c, **kw)
+        want = tpgd.pgd_update_plain(x, g, c, **kw)
+        torch.cuda.synchronize()
+        finite = torch.isfinite(got) & torch.isfinite(want)
+        errs["pgd_update"] = float((got - want)[finite].abs().max())
+        print(f"  PGD update at the per-rank tap {tuple(x.shape)}: bit-equal "
+              f"{bits_equal(got, want)}")
+        require(bits_equal(got, want), "per-rank PGD update != plain")
+    return errs
+
+
+def dp_rank(rank, priorities, one_losses):
+    """Phase 56, one rank of the gloo group on cuda:0: the three trainers'
+    steps on this rank's rows; rank 0 also holds each kernel at its
+    per-rank inputs against the plain version."""
+    for m in (knms, krce, kpgd):
+        m.load_library()
+    out = {}
+    for trainer in DP_TRAINERS:
+        probe = {} if rank == 0 else None
+        r = dp_steps(trainer, dp.shard_batch,
+                     priorities if trainer == "det" else None,
+                     probe=probe, replay=True, flips=[], grads=[])
+        r["errors"] = dp_errors(r, trainer, one_losses[trainer])
+        del r["params"], r["update"]
+        if rank == 0:
+            r["errs"] = dp_probe_errs(probe)
+        out[trainer] = r
+    return out
+
+
+def dp_kernel_times(card):
+    """Phase 56's kernel times, in this process (no rank runs then): each
+    kernel at the per-rank shapes of the world-2 steps, its plain version,
+    the library's where there is one, and its bound."""
+    print("    the kernels at the per-rank shapes, timed in one process:")
+    time_pgd_update(card, (CLS_BATCH // DP_RANKS, 16, 32, 32))
+    time_pgd_update(card, (DET_BATCH // DP_RANKS, 512, 76, 126))
+    h, b = SEG_CROP // 4, SEG_BATCH // DP_RANKS
+    rng = np.random.RandomState(5)
+    lab = seg_batch(0)[1][:b].to(torch.int32).contiguous()
+    lo = cuda(rng.randn(b, 19, h, h).astype(np.float32))
+    parts = ce_parts(lo, lab, torch.ones(b, device="cuda"))
+    print(f"    resize+CE B={b} {h}->{SEG_CROP} C=19: forward kernel "
+          f"{parts['fwd']:.4f} ms, plain {parts['plain_fwd']:.4f}, library "
+          f"{parts['lib_fwd']:.4f}, bound max(bytes "
+          f"{parts['fwd_bytes_ms']:.5f}, operations "
+          f"{parts['fwd_ops_ms']:.5f}); backward kernel {parts['bwd']:.4f} "
+          f"ms, plain {parts['plain_bwd']:.4f}, library "
+          f"{parts['lib_bwd']:.4f}, bound max(bytes "
+          f"{parts['bwd_bytes_ms']:.5f}, operations "
+          f"{parts['bwd_ops_ms']:.5f}) ({card})")
+    g = DET_BATCH // DP_RANKS
+    boxes = cuda(np.stack([sorted_boxes(12000, 70 + i) for i in range(g)]))
+    valid = torch.ones(g, 12000, dtype=torch.bool, device="cuda")
+    time_nms_shape(card, "per-rank training proposals", boxes, valid, 0.7)
+
+
+def dp_nccl_rank(rank):
+    """Phase 57: one ALFA step on the NCCL backend at world 1, counting the
+    all-reduces it runs there."""
+    kpgd.load_library()
+    calls = []
+    real = dp.dist.all_reduce
+
+    def counting(t, *a, **k):
+        calls.append(t.numel())
+        return real(t, *a, **k)
+
+    dp.dist.all_reduce = counting
+    try:
+        r = dp_steps("alfa", lambda t: t)
+    finally:
+        dp.dist.all_reduce = real
+    return {"backend": dp.dist.get_backend(), "size": dp.world_size(),
+            "losses": r["losses"], "all_reduces": len(calls),
+            "elements": sum(calls)}
+
+
+def dp_grads(r):
+    """Each ascent's first-gradient error and sign flips, the first step's
+    before the bar."""
+    def fmt(part):
+        return ", ".join(f"{e:.3g}/{f:.3g}" for e, f in part)
+    return (f"[{fmt(r['grads'][:r['first_step']])} | "
+            f"{fmt(r['grads'][r['first_step']:])}]")
+
+
+def dp_errors(r, trainer, losses):
+    """A replaying run's relative errors against phase 55's world-1 run:
+    largest loss, largest first-step ascent gradient (L2) and fraction of
+    its entries with another sign, all trained parameters (L2), their
+    update (L2), and the largest fraction of flipped ascent entries. The
+    gradients are those of the first step's ascents, taken at the same
+    parameters in both runs; a later step's (``grad_later``, shown) start
+    from parameters that the first update already moved apart."""
+    first, later = (r["grads"][:r["first_step"]],
+                    r["grads"][r["first_step"]:])
+    out = {"loss": max(abs(a - b) / max(abs(b), 1e-30)
+                       for a, b in zip(r["losses"], losses)),
+           "grad": max([e for e, _ in first] or [0.0]),
+           "grad_flips": max([f for _, f in first] or [0.0]),
+           "grad_later": max([e for e, _ in later] or [0.0]),
+           "flips": max(r["flips"] or [0.0])}
+    for key in ("params", "update"):
+        want = np.load(os.path.join(DP_DIR, f"{trainer}_{key}.npy"))
+        out[key] = float(np.linalg.norm(r[key] - want)
+                         / max(np.linalg.norm(want), 1e-30))
+    return out
+
+
+def dp_phases(card):
+    """Phases 55-58; the kernels' launches per rank of the world-2 steps
+    and their largest errors at the per-rank inputs."""
+    print(f"[55] data parallelism: the world-1 steps ({DP_STEPS} each, full "
+          f"f32, deterministic cuDNN) of ALFA (batch {CLS_BATCH}), the "
+          f"Cityscapes A-FAN seg step (batch {SEG_BATCH}, crop {SEG_CROP}) "
+          f"and the VOC setting-1 A-FAN detection step (batch {DET_BATCH}); "
+          f"again on the batch with its halves swapped, replaying the "
+          f"first run's draws and ascents")
+    if not os.path.exists(DET_BACKBONE):
+        calibrated_backbone()
+    os.makedirs(DP_DIR, exist_ok=True)
+    one, floor, uniforms = {}, {}, []
+    for trainer in DP_TRAINERS:
+        r = dp_steps(trainer, lambda t: t, record=uniforms
+                     if trainer == "det" else None, flips=[], grads=[])
+        for key in ("params", "update"):
+            np.save(os.path.join(DP_DIR, f"{trainer}_{key}.npy"), r.pop(key))
+        one[trainer] = r
+        print(f"    {trainer}: losses {r['losses']}, step {r['ms']:.3f} ms, "
+              f"peak {r['peak_gib']:.2f} GiB, launches {r['counts']} "
+              f"({card})")
+        sw = dp_steps(trainer, dp_swapped, uniforms if trainer == "det"
+                      else None, replay=True, flips=[], grads=[])
+        floor[trainer] = dp_errors(sw, trainer, r["losses"])
+        print(f"      the swapped batch: losses {sw['losses']}; errors "
+              f"{floor[trainer]}; each ascent's gradient error and sign "
+              f"flips {dp_grads(sw)}")
+
+    print(f"[56] the same steps at world {DP_RANKS}: {DP_RANKS} gloo ranks on "
+          f"cuda:0, each on its rows of the global batch; the detection "
+          f"samplers' uniforms and the ascents of phase 55 replayed. A "
+          f"correctness run: {DP_RANKS} ranks sharing one card are no speed "
+          f"figure")
+    t0 = time.time()
+    ranks = launch(dp_rank, DP_RANKS,
+                   (uniforms, {t: one[t]["losses"] for t in DP_TRAINERS}),
+                   backend="gloo", devices=["cuda:0"] * DP_RANKS,
+                   timeout=900, deadline=900)
+    print(f"    launch and run: {time.time() - t0:.1f} s")
+    parts = {}
+    for trainer in DP_TRAINERS:
+        for r in ranks:
+            require(r[trainer]["losses"] == ranks[0][trainer]["losses"],
+                    f"{trainer}: the ranks report different global losses")
+        got = ranks[0][trainer]
+        errs = {k: max(r[trainer]["errors"][k] for r in ranks)
+                for k in floor[trainer]}
+        per_rank = [r[trainer]["counts"] for r in ranks]
+        print(f"    {trainer}: losses {got['losses']} (world 1 "
+              f"{one[trainer]['losses']}); errors {errs}; the swapped "
+              f"batch's {floor[trainer]}")
+        for i, r in enumerate(ranks):
+            print(f"      rank {i}: step {r[trainer]['ms']:.3f} ms, peak "
+                  f"{r[trainer]['peak_gib']:.2f} GiB, launches "
+                  f"{r[trainer]['counts']} ({card}); each ascent's gradient "
+                  f"error and sign flips {dp_grads(r[trainer])}")
+        for k, least in DP_MIN_BOUND.items():
+            bound = max(DP_FLOOR_FACTOR * floor[trainer][k], least)
+            require(errs[k] <= bound, f"{trainer}: world-2 {k} error "
+                    f"{errs[k]} above {bound}")
+        kernels = {"alfa": ("pgd_update",),
+                   "seg": ("resize_ce_forward", "resize_ce_backward",
+                           "pgd_update"),
+                   "det": ("nms", "pgd_update")}[trainer]
+        for k in kernels:
+            require(all(c[k] > 0 for c in per_rank),
+                    f"{trainer}: a rank launched no {k} kernel")
+            require(per_rank[0][k] == one[trainer]["counts"][k],
+                    f"{trainer}: {k} launched {per_rank[0][k]} times per "
+                    f"rank, {one[trainer]['counts'][k]} at world 1")
+            launches, err, times = parts.get(k, (0, 0.0, None))
+            parts[k] = (launches + per_rank[0][k],
+                        max(err, got["errs"].get(k, 0.0)),
+                        dict(ms=None, plain_ms=None, bound_ms=None,
+                             bound_by=None))
+
+    dp_kernel_times(card)
+
+    print("[57] the NCCL backend at world 1 through the same launcher: one "
+          "ALFA step")
+    nccl = launch(dp_nccl_rank, 1, device="cuda", timeout=600,
+                  deadline=600)[0]
+    print(f"    backend {nccl['backend']}, world {nccl['size']}: losses "
+          f"{nccl['losses']} (phase 55 {one['alfa']['losses']}); "
+          f"{nccl['all_reduces']} all-reduces of {nccl['elements']} "
+          f"elements in {DP_STEPS} steps")
+    require(nccl["backend"] == "nccl" and nccl["all_reduces"] > 0,
+            "no all-reduce ran on NCCL")
+    err = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(nccl["losses"], one["alfa"]["losses"]))
+    require(err <= 1e-6, f"NCCL world-1 ALFA losses off by {err}")
+
+    print("[58] train_classify --num_devices 2 on this machine")
+    if torch.cuda.device_count() >= 2:
+        print(f"    {torch.cuda.device_count()} cards visible: not a "
+              f"one-card machine, skipped")
+    else:
+        try:
+            train_classify.main(["--num_devices", "2", "--save_dir",
+                                 os.path.join(DP_DIR, "refused")])
+        except ValueError as e:
+            require("--num_devices 2" in str(e), f"the message {e}")
+            print(f"    raised: {e}")
+        else:
+            require(False, "--num_devices 2 ran on a one-card machine")
+    return parts
+
+
 @contextlib.contextmanager
 def group_time(seconds, name):
     """The block's wall seconds go to ``seconds[name]``."""
@@ -5642,7 +6148,8 @@ def group_time(seconds, name):
 
 
 GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain", "scan", "variants",
-          "bf16", "detbf16", "clsbf16", "eval", "mobilenet", "coco", "data")
+          "bf16", "detbf16", "clsbf16", "eval", "mobilenet", "coco", "data",
+          "dp")
 
 
 def main(argv=None):
@@ -5753,6 +6260,11 @@ def main(argv=None):
     if only in (None, "data"):
         with group_time(seconds, "data"):
             merge_launches(entries, data_phases(card))
+            gc.collect()
+            torch.cuda.empty_cache()
+    if only in (None, "dp"):
+        with group_time(seconds, "dp"):
+            merge_launches(entries, dp_phases(card))
 
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "
           f"(seconds by group: {seconds})")

@@ -12,6 +12,7 @@ small numpy encoder, writes those (any colour type and bit depth, Adam7 or
 not); the tests use it too.
 """
 import hashlib
+import io
 import json
 import os
 import struct
@@ -135,6 +136,37 @@ FIXTURES = {
 }
 
 
+def scan_starts(data):
+    """The offsets of the SOS markers of a JPEG's scans, in order."""
+    out, i = [], 2
+    while i < len(data) and data[i + 1] != 0xD9:
+        start = i
+        i += 2 + ((data[i + 2] << 8) | data[i + 3])
+        if data[start + 1] == 0xDA:
+            out.append(start)
+            while not (data[i] == 0xFF and data[i + 1] != 0
+                       and not 0xD0 <= data[i + 1] <= 0xD7):
+                i += 1
+    return out
+
+
+def cut_after_scans(data, n):
+    """The first ``n`` scans of a JPEG, then its end-of-image marker: a
+    progressive file that ends early, which libjpeg block-smooths."""
+    return data[:scan_starts(data)[n]] + b"\xff\xd9"
+
+
+def early_end(h, w, seed, n):
+    def write(p):
+        buf = io.BytesIO()
+        Image.fromarray(smooth(h, w, seed)).save(buf, "JPEG", quality=85,
+                                                 subsampling=2,
+                                                 progressive=True)
+        with open(p, "wb") as f:
+            f.write(cut_after_scans(buf.getvalue(), n))
+    return write
+
+
 def write_bytes(data):
     def write(p):
         with open(p, "wb") as f:
@@ -149,6 +181,11 @@ def write_label(p):
 
 
 FIXTURES["label_500x375.png"] = write_label
+# progressive files that end early, which libjpeg block-smooths: after the
+# DC scans alone (the DC too is smoothed), and before the last scan (the
+# luma AC refinement)
+FIXTURES["dc_only_500x375.jpg"] = early_end(375, 500, 11, 1)
+FIXTURES["early_end_500x375.jpg"] = early_end(375, 500, 12, 9)
 # the VOC label map again, interlaced; a 16-bit gray label map whose high
 # byte PIL's uint8 cast drops
 FIXTURES["adam7_label_500x375.png"] = write_bytes(encode_png(

@@ -412,12 +412,32 @@ def test_cli_resume_restores_everything(tmp_path, monkeypatch):
                for k, v in saved["state_dict"].items())
 
 
+def tiny_cifar(root):
+    """A CIFAR-10 of 40 train images (all of them the train split) and 8
+    test images in the python-pickle format."""
+    d = root / "cifar-10-batches-py"
+    d.mkdir(parents=True)
+    rng = np.random.RandomState(3)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(d / name, "wb") as f:
+            pickle.dump({"data": rng.randint(0, 256, (8, 3072)),
+                         "labels": list(rng.randint(0, 10, 8))}, f)
+    return str(root)
+
+
 @pytest.mark.parametrize("flag", [["--num_devices", "2"],
                                   ["--num_devices", "4", "--epoch_scan"]])
 def test_cli_refuses_unported_flags(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_classify.main(["--device", "cpu", "--save_dir", str(tmp_path)]
-                            + flag)
+    """``--num_devices N`` (data parallelism, ported) trains on N gloo
+    processes, ``--epoch_scan`` turned off under it as in ``afan``, and rank
+    0 writes the checkpoint and results."""
+    out = tmp_path / "run"
+    train_classify.main(["--device", "cpu", "--save_dir", str(out),
+                         "--data", tiny_cifar(tmp_path / "data"),
+                         "--batch_size", "8", "--limit_batches", "1",
+                         "--epochs", "1", "--steps", "1"] + flag)
+    assert sorted(os.listdir(out)) == ["checkpoint.pt", "result.pkl",
+                                       "result_norm.pkl"]
 
 
 def test_cli_bf16_builds_a_bf16_model_and_runs_a_step(tmp_path, monkeypatch):

@@ -104,9 +104,21 @@ def test_reference_command_line_with_gpu_and_visdom_flags_parses():
                                   ["--spatial_shards", "2"],
                                   ["--remat_tails"], ["--backbone_remat"]])
 def test_seg_cli_refuses_unported_flags(flag, tmp_path, monkeypatch):
+    """The unported flags raise before anything is written; ``--num_devices
+    2`` (data parallelism, ported) trains on two gloo processes instead and
+    rank 0 writes the checkpoints."""
     monkeypatch.chdir(tmp_path)
+    argv = SEG_TINY + ["--limit_itrs", "1", "--val_interval", "1"] + flag
+    if flag[0] == "--num_devices":
+        train_segment.main(argv)
+        (exp,) = os.listdir("checkpoints")
+        assert sorted(f for f in os.listdir(os.path.join("checkpoints", exp))
+                      if f.endswith(".pt")) == [
+            "best_deeplabv3plus_mobilenet_synthetic.pt",
+            "latest_deeplabv3plus_mobilenet_synthetic.pt"]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_segment.main(SEG_TINY + ["--limit_itrs", "1"] + flag)
+        train_segment.main(argv)
     assert not os.path.exists("checkpoints")
 
 

@@ -704,9 +704,18 @@ def test_cli_takes_the_recipe_flags():
                                    ["--remat_tails"]],
                          ids=["num_devices", "remat_tails"])
 def test_cli_refuses_unported_flags(flags, tmp_path):
+    """``--remat_tails`` raises; ``--num_devices 2`` (data parallelism,
+    ported) trains on two gloo processes and rank 0 writes the
+    checkpoint."""
+    argv = ["--device", "cpu", "-o", str(tmp_path)] + flags + \
+        smoke_tiny_flags()
+    if flags[0] == "--num_devices":
+        train_detect.main(argv + ["--num_steps_to_finish", "1",
+                                  "--num_steps_to_snapshot", "1"])
+        assert os.path.isfile(tmp_path / "model-1.pt")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_detect.main(["--device", "cpu", "-o", str(tmp_path)] + flags
-                          + smoke_tiny_flags())
+        train_detect.main(argv)
 
 
 def test_cli_bf16_builds_a_bf16_model_and_runs_a_step(tmp_path, monkeypatch):

@@ -28,3 +28,18 @@ def test_port_imports_neither_jax_nor_afan():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 40
+
+
+def test_data_parallel_rank_side_imports_neither_jax_nor_afan():
+    """The spawned ranks of the data-parallel tests import
+    ``tests/torch_dp_ranks.py`` (and the launcher); they must not pull jax
+    in: the machine with the card has no jax."""
+    check = ("import sys\n"
+             "sys.path.insert(0, 'tests')\n"
+             "import torch_dp_ranks, afan_torch.parallel.launch\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'flax', 'optax', 'afan'))\n"
+             "sys.exit(f'imported {bad}' if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", check], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -23,10 +23,14 @@ Every case must equal PIL bit for bit: ``read_rgb(p)`` against
   interlaced PNG); the label reader on gray and palette PNGs.
 - The committed fixtures of ``tests/fixtures/torch_images`` against their
   manifest, which is recomputed here with PIL so that it cannot go stale.
+- Progressive JPEGs that end early (PIL's scan script cut after each of
+  its complete scans, then the end-of-image marker: DC only, partial AC
+  bands, pending refinements), which libjpeg block-smooths, colour 4:2:0
+  and gray, at 61x83 and 64x80, qualities 50 and 90.
 - What the reader refuses raises a ``ValueError`` naming the file:
-  arithmetic-coded, lossless and 12-bit JPEG, a progressive JPEG whose
-  scans stop early (libjpeg would smooth its blocks), truncated files of
-  both kinds, a broken checksum, other formats.
+  arithmetic-coded, lossless and 12-bit JPEG, truncated files of both
+  kinds (a progressive one cut inside a scan among them), a broken
+  checksum, other formats.
 """
 import hashlib
 import importlib.util
@@ -52,7 +56,10 @@ def _fixture_writer():
     return mod
 
 
-encode_png = _fixture_writer().encode_png
+_writer = _fixture_writer()
+encode_png = _writer.encode_png
+cut_after_scans = _writer.cut_after_scans
+scan_starts = _writer.scan_starts
 
 SIZES = [(375, 500), (500, 375), (257, 333), (17, 9), (1, 1), (8, 16),
          (3, 5), (16, 24), (2, 7)]
@@ -326,6 +333,40 @@ def test_committed_fixtures_match_their_manifest_and_pil():
     assert b"\xff\xdd" in restart and b"\xff\xd0" in restart
 
 
+@pytest.mark.parametrize("gray", [False, True], ids=["color420", "gray"])
+@pytest.mark.parametrize("size", [(61, 83), (64, 80)], ids=str)
+@pytest.mark.parametrize("quality", [50, 90])
+def test_progressive_files_that_end_after_a_scan_equal_pil(tmp_path, gray,
+                                                          size, quality):
+    """Every cut of PIL's progressive scan script after a complete scan:
+    the DC scan alone (libjpeg smooths the DC and estimates nine AC
+    coefficients from a 5x5 neighbourhood of DC values), partial AC bands
+    and pending refinements (the estimates of the still-zero first nine
+    coefficients, clamped below their missing bits), and the whole file;
+    block rows and columns at the edges, and 4:2:0 chroma planes whose
+    block grid is not the MCU grid, included."""
+    img = smooth(*size, 5 + quality)
+    if gray:
+        img = img[..., 0]
+    whole = tmp_path / "whole.jpg"
+    Image.fromarray(img).save(whole, quality=quality, progressive=True)
+    data = whole.read_bytes()
+    n_scans = len(scan_starts(data))
+    assert n_scans == (6 if gray else 10)
+    for n in range(1, n_scans):
+        cut = tmp_path / f"scans{n}.jpg"
+        cut.write_bytes(cut_after_scans(data, n))
+        same(imread.read_rgb(str(cut)), pil_rgb(cut))
+    same(imread.read_rgb(str(whole)), pil_rgb(whole))
+    # inside a scan it stays a truncated file, as PIL says
+    inside = tmp_path / "inside.jpg"
+    inside.write_bytes(data[:(scan_starts(data)[1] + scan_starts(data)[2])
+                            // 2])
+    refused(inside, "truncated")
+    with pytest.raises(OSError, match="truncated"):
+        pil_rgb(inside)
+
+
 def png_bytes(w, h, depth, ctype, interlace, raw):
     def chunk(kind, body):
         return (struct.pack(">I", len(body)) + kind + body
@@ -369,11 +410,12 @@ def test_what_the_reader_refuses_raises_naming_the_file(tmp_path):
     with pytest.raises(OSError, match="truncated"):
         pil_rgb(cut_prog)
     # the scans up to the last refinement of the AC bands, then the end of
-    # the image: PIL decodes it, with libjpeg's block smoothing
+    # the image: PIL decodes it with libjpeg's block smoothing, and so does
+    # the reader
     early = tmp_path / "early_end.jpg"
     early.write_bytes(data[:data.rindex(b"\xff\xda")] + b"\xff\xd9")
     assert pil_rgb(early).shape == (64, 80, 3)
-    refused(early, "block smoothing")
+    same(imread.read_rgb(str(early)), pil_rgb(early))
     png = tmp_path / "whole.png"
     Image.fromarray(img).save(png)
     data = png.read_bytes()
