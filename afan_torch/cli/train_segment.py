@@ -57,14 +57,20 @@ and to TensorBoard there where ``torch.utils.tensorboard`` imports, as
 cross-entropy. A kernel that fails raises: there is no switch to ``off``.
 ``afan``'s other flags parse as in ``afan``: ``--gpu_id``, ``--vis_port``,
 ``--vis_env`` and ``--adv_type`` are ignored, ``--download`` logs that
-nothing is downloaded; ``--spatial_shards`` above 1, ``--remat_tails`` and
-``--backbone_remat`` raise, not ported yet. ``--num_devices N`` above 1
-trains data-parallel on N cards, one process each (``--device cpu``: N
-gloo processes; every visible card by default on the card): each rank
-loads the global batch of the one-process run and keeps its rows, the loss
-divides by the global valid-pixel count, BatchNorm takes the global
-statistics (:mod:`afan_torch.parallel.mesh`), validation sums the ranks'
-confusion matrices, and rank 0 alone logs and writes.
+nothing is downloaded; ``--remat_tails`` and ``--backbone_remat`` raise,
+not ported yet. ``--num_devices N`` above 1 trains data-parallel on N
+cards, one process each (``--device cpu``: N gloo processes; every
+visible card by default on the card): each rank loads the global batch of
+the one-process run and keeps its rows, the loss divides by the global
+valid-pixel count, BatchNorm takes the global statistics
+(:mod:`afan_torch.parallel.mesh`), validation sums the ranks' confusion
+matrices, and rank 0 alone logs and writes. ``--spatial_shards S`` trains
+on a ``N/S x S`` data x spatial mesh of the N ranks, with ``afan``'s
+checks and messages (N, the crop and the batch times S must divide): each
+data row of S ranks takes its share of the global batch and splits its
+images' rows over its S ranks, and each training step runs row-sharded
+(:mod:`afan_torch.parallel.spatial`); validation and ``--test_only`` run as
+at ``--num_devices N``, as ``afan``'s do.
 """
 from __future__ import annotations
 
@@ -81,6 +87,7 @@ from ..eval.seg_miou import StreamSegMetrics
 from ..models.deeplab import build_model
 from ..models.deeplab.modeling import segmentation_param_groups
 from ..parallel import mesh as dp
+from ..parallel import spatial
 from ..parallel.launch import launch_cli
 from ..train.checkpoint import (load_checkpoint, load_training_state,
                                 overlap_restore, restore_pretrained_backbone,
@@ -200,10 +207,13 @@ def get_parser():
     p.add_argument("--backbone_remat", action="store_true", default=False,
                    help="not ported yet: raises")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="data-parallel devices (only 1 is ported)")
+                   help="devices: one process each (NCCL, one card each; "
+                        "gloo processes with --device cpu); every visible "
+                        "card by default on the card, 1 on the CPU")
     p.add_argument("--spatial_shards", type=int, default=1,
-                   help="row shards of a data x spatial mesh (only 1 is "
-                        "ported)")
+                   help="row shards of a data x spatial mesh of the "
+                        "--num_devices ranks (each image's rows split over "
+                        "S ranks)")
     # the reference's remaining `args.py` flags
     p.add_argument("--download", action="store_true",
                    help="downloads nothing: a warning is logged and the "
@@ -220,8 +230,6 @@ def refuse_unported(args) -> None:
     """The flags whose paths are not ported yet raise, naming the ROADMAP,
     instead of running something else."""
     where = "not ported yet (ROADMAP.md, queue 1)"
-    if args.spatial_shards > 1:
-        raise NotImplementedError(f"--spatial_shards > 1 is {where}")
     for flag in ("remat_tails", "backbone_remat"):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is {where}")
@@ -296,13 +304,31 @@ def experiment_name(args) -> str:
             f"MIX{args.mix_layer}")
 
 
+def check_mesh(args, n_ranks: int) -> None:
+    """``afan``'s checks of the ranks against the batch, and of the data x
+    spatial mesh (`afan/cli/train_segment.py:274-289`), with its
+    messages."""
+    sp = args.spatial_shards
+    if sp < 1:
+        raise SystemExit(f"--spatial_shards {sp}: need at least 1")
+    if sp == 1:
+        dp.check_divisible(args.batch_size, n_ranks)
+        return
+    if n_ranks % sp:
+        raise SystemExit(f"device count {n_ranks} must divide by "
+                         f"--spatial_shards {sp}")
+    dp.check_divisible(args.batch_size * sp, n_ranks)
+    if args.crop_size % sp:
+        raise SystemExit("--crop_size must divide by --spatial_shards")
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = get_parser().parse_args(argv)
     refuse_unported(args)
     device = resolve_device(args.device)
     n_ranks = dp.resolve_size(args.num_devices, device)
-    dp.check_divisible(args.batch_size, n_ranks)
+    check_mesh(args, n_ranks)
     if n_ranks > 1 and dp.data_group() is None:
         return launch_cli(__name__, argv, n_ranks, device)
     exp = experiment_name(args)
@@ -312,6 +338,11 @@ def main(argv=None):
                    else None, quiet=not dp.is_main())
     Log.i(f"args: {vars(args)}; save dir: [{exp}]; device {device}; "
           f"data-parallel ranks {dp.world_size()}")
+    mesh = dp.make_mesh_2d(n_ranks // args.spatial_shards,
+                           args.spatial_shards)
+    if args.spatial_shards > 1:
+        Log.i(f"2-D mesh: data={mesh.shape['data']} x "
+              f"spatial={mesh.shape['spatial']}")
 
     if args.download:
         Log.i("--download requested: this environment has no egress; "
@@ -329,10 +360,13 @@ def main(argv=None):
             crop_val=args.crop_val)
     if args.num_classes is not None:
         num_classes = args.num_classes
-    train_loader.shard = val_loader.shard = (dp.rank(), dp.world_size())
+    # training: the data row's rows of each batch; validation: every
+    # rank a data rank
+    train_loader.shard = (mesh.data_index, mesh.data)
+    val_loader.shard = (dp.rank(), dp.world_size())
 
-    # dropout draws from the global generator: its own stream per rank
-    torch.manual_seed(dp.rank_seed(args.random_seed))
+    # dropout draws from the global generator: its own stream per data row
+    torch.manual_seed(dp.rank_seed(args.random_seed, mesh.data_index))
     model = build_model(args.model, num_classes, args.output_stride,
                         torch.bfloat16 if args.bf16 else torch.float32,
                         separable_conv=args.separable_conv)
@@ -413,7 +447,8 @@ def main(argv=None):
     while cur_itrs < total:
         for imgs, labs in train_loader:
             cur_itrs += 1
-            metrics = step(*to_device(imgs, labs))
+            with spatial.sharded(mesh):
+                metrics = step(*to_device(*dp.shard_rows(mesh, imgs, labs)))
             loss = float(metrics["loss"])
             if not np.isfinite(loss):
                 raise FloatingPointError(f"loss {loss} at itrs {cur_itrs}")

@@ -20,6 +20,11 @@ The ascent runs in the attacked tensor's dtype, as ``afan``'s does
 bfloat16 before it steps (``jnp.full((steps,), gamma, x.dtype)``), and so
 are ``eps`` and the random start's scale, which meet bfloat16 arrays as
 JAX's weak-typed Python scalars (:func:`afan_torch.core.project.weak_scalar`).
+
+Inside a row-sharded step (:mod:`afan_torch.parallel.spatial`) ``row_axis``
+names the attacked tensor's row axis: the random start is drawn at the
+data row's whole shape and sliced, and a ``'grad'`` step's per-sample
+maximum is taken over the spatial ranks too.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops.pgd_step import pgd_update
+from ..parallel import spatial
 from .project import linfball_proj, weak_scalar
 
 LossFn = Callable[[torch.Tensor], torch.Tensor]
@@ -60,7 +66,8 @@ def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
         eps: Optional[float] = None, randinit: bool = False,
         clip: bool = False, generator: Optional[torch.Generator] = None,
         step_mode: str = "sign", random_steps: bool = False,
-        bailout_tol: Optional[float] = None) -> torch.Tensor:
+        bailout_tol: Optional[float] = None,
+        row_axis: Optional[int] = None) -> torch.Tensor:
     """k-step gradient ascent on ``x`` maximizing ``loss_fn``; returns the
     adversarial tensor, detached.
 
@@ -75,6 +82,9 @@ def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
     stops after the step at which the relative change of the loss from the
     previous step, ``|l - l_prev| / max(|l|, 1)`` in float32, is at most
     ``t``; each step then reads its loss back to the host.
+
+    ``row_axis`` is ``x``'s row axis in a row-sharded step (2 for NCHW
+    features, 1 for NHWC images); it changes nothing outside one.
     """
     if step_mode not in ("sign", "grad"):
         raise ValueError(f"unknown step_mode {step_mode!r}")
@@ -89,8 +99,10 @@ def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
     if randinit:
         if eps is None:
             raise ValueError("randinit=True requires eps")
-        x_adv = x_adv + uniform_init(x.shape, eps, generator, x.dtype,
-                                     x.device)
+        def start(shape):
+            return uniform_init(shape, eps, generator, x.dtype, x.device)
+        x_adv = x_adv + (start(x.shape) if row_axis is None
+                         else spatial.draw_rows(start, x.shape, row_axis))
     if random_steps:
         sizes = random_step_sizes(gamma, steps, generator, x.dtype, x.device)
         step_sizes = [sizes[t:t + 1] for t in range(steps)]
@@ -106,7 +118,8 @@ def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
             x_adv = pgd_update(x_adv.detach(), g, x, gamma=gamma_t, eps=eps,
                                clip=clip)
         else:
-            x_adv = x_adv.detach() + gamma_t * _grad_direction(g)
+            x_adv = x_adv.detach() + gamma_t * _grad_direction(
+                g, row_axis is not None)
             if clip:
                 x_adv = linfball_proj(x, eps, x_adv)
         if bailout_tol is not None:
@@ -121,21 +134,30 @@ def pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
 def input_pgd(loss_fn: LossFn, x: torch.Tensor, *, steps: int, gamma: float,
               eps: Optional[float] = None, randinit: bool = False,
               clip: bool = False, generator: Optional[torch.Generator] = None,
-              step_mode: str = "sign", random_steps: bool = False
-              ) -> torch.Tensor:
+              step_mode: str = "sign", random_steps: bool = False,
+              row_axis: Optional[int] = None) -> torch.Tensor:
     """Input-space PGD (``afan``'s `attack.py:163-183`): :func:`pgd` on an
     image in [0, 1], then a clamp of the result to [0, 1]."""
     x_adv = pgd(loss_fn, x, steps=steps, gamma=gamma, eps=eps,
                 randinit=randinit, clip=clip, generator=generator,
-                step_mode=step_mode, random_steps=random_steps)
+                step_mode=step_mode, random_steps=random_steps,
+                row_axis=row_axis)
     return x_adv.clamp(0.0, 1.0)
 
 
-def _grad_direction(g: torch.Tensor) -> torch.Tensor:
-    """The raw gradient normalized per sample to unit L-inf."""
+def _grad_direction(g: torch.Tensor, row_sharded: bool = False
+                    ) -> torch.Tensor:
+    """The raw gradient normalized per sample to unit L-inf (the maximum
+    over the spatial ranks too, for a ``row_sharded`` ``g`` in a
+    row-sharded step)."""
     flat = g.abs().reshape(g.shape[0], -1) if g.dim() > 1 else \
         g.abs().reshape(1, -1)
-    gmax = flat.amax(dim=1).clamp_min(1e-12)
+    if row_sharded and spatial.active() is not None:
+        local = (flat.amax(dim=1) if flat.shape[1]
+                 else flat.new_zeros(flat.shape[0]))
+        gmax = spatial.spatial_max_(local).clamp_min(1e-12)
+    else:
+        gmax = flat.amax(dim=1).clamp_min(1e-12)
     if g.dim() > 1:
         gmax = gmax.reshape((-1,) + (1,) * (g.dim() - 1))
     return g / gmax

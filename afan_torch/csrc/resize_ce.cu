@@ -69,6 +69,12 @@
 //     (2), not bytes.
 //   The TPU kernel's H-pad to 8 rows and its replicated (8, 128) output tile
 //   were Mosaic workarounds and have no counterpart here.
+//   A row window (a row-sharded step, afan_torch/parallel/spatial.py): lo
+//   holds the rows [y0, y0 + h) of a map of hg rows, and the labels the
+//   output rows [Y0, Y0 + H) of the resize to Hg rows. Each output row's
+//   taps are those of its global row, computed and clamped globally
+//   (row_tap), then offset by y0. With y0 = Y0 = 0, hg = h and Hg = H both
+//   kernels are the whole-map kernels, bit for bit.
 //
 // Precision: everything is f32 with IEEE exp/log (no fast math) and no
 // tensor cores. The build passes -fmad=false; the one contraction that
@@ -112,6 +118,16 @@ __device__ __forceinline__ Tap source_tap(int dst, float scale, int n_in) {
   t.i1 = t.i0 < n_in - 1 ? t.i0 + 1 : t.i0;
   t.l1 = src - (float)t.i0;
   t.l0 = 1.0f - t.l1;
+  return t;
+}
+
+// The row taps of output row `i` of a window: global row Y0 + i of a resize
+// from hg rows (scale sy = hg / Hg), in the rows of the window from y0.
+__device__ __forceinline__ Tap row_tap(int i, float sy, int hg, int y0,
+                                       int Y0) {
+  Tap t = source_tap(i + Y0, sy, hg);
+  t.i0 -= y0;
+  t.i1 -= y0;
   return t;
 }
 
@@ -196,8 +212,9 @@ template <int kC, typename T>
 __global__ void __launch_bounds__(kThreads)
 resize_ce_fwd(const T* __restrict__ lo,
               const int32_t* __restrict__ labels, int C, int h, int w,
-              int H, int W, float sy, float sx, int focal, float alpha,
-              float gamma, float* __restrict__ partial) {
+              int H, int W, int hg, int y0, int Y0, float sy, float sx,
+              int focal, float alpha, float gamma,
+              float* __restrict__ partial) {
   extern __shared__ float v[];   // (kFwdRows, w, stride): rows before W
   const int i_first = blockIdx.x * kFwdRows, b = blockIdx.y;
   const int rows = min(kFwdRows, H - i_first);
@@ -208,7 +225,7 @@ resize_ce_fwd(const T* __restrict__ lo,
   Tap ty[kFwdRows];
 #pragma unroll
   for (int r = 0; r < kFwdRows; ++r)
-    ty[r] = source_tap(min(i_first + r, H - 1), sy, h);
+    ty[r] = row_tap(min(i_first + r, H - 1), sy, hg, y0, Y0);
 
   // (1) the H pass of each row over the (C, w) grid, flattened along x
   int c = tid / w, x = tid - c * w;
@@ -399,7 +416,8 @@ resize_ce_bwd_bands(const T* __restrict__ lo,
                     const int32_t* __restrict__ labels,
                     const float* __restrict__ gout,
                     const int32_t* __restrict__ plan, int C, int h, int w,
-                    int H, int W, float sy, float sx, int rows_max,
+                    int H, int W, int hg, int y0, int Y0, float sy,
+                    float sx, int rows_max,
                     int cols_max, int seg_max, int focal, float alpha,
                     float gamma, T* __restrict__ dlo) {
   const int32_t* p = plan + (size_t)blockIdx.x * kPlanCols;
@@ -440,7 +458,7 @@ resize_ce_bwd_bands(const T* __restrict__ lo,
 
   const int32_t* lab_b = labels + (size_t)b * H * W + j_lo;
   for (int i = i_lo; i < i_hi; ++i) {
-    const Tap ty = source_tap(i, sy, h);
+    const Tap ty = row_tap(i, sy, hg, y0, Y0);
     // the row's H weights on the band's rows (the same in every thread)
     const float wy0 = ty.i0 >= ya && ty.i0 < yb ? tap_weight(ty, ty.i0) : 0.0f;
     const float wy1 =
@@ -551,19 +569,23 @@ int afan_resize_ce_fwd_smem(int C, int w) {
 
 // lo (B, C, h, w) f32 (bf16 = 0) or bf16 (bf16 = 1) and labels (B, H, W)
 // int32, both contiguous; partial scratch of B * H floats; out (B,) f32.
-// Launches on `stream` and returns the launches' error.
+// lo holds the rows [y0, y0 + h) of a map of hg rows and the labels the
+// output rows [Y0, Y0 + H) of its resize to Hg rows (the whole map: hg = h,
+// Hg = H, y0 = Y0 = 0). Launches on `stream` and returns the launches'
+// error.
 int afan_resize_ce_forward(const void* lo, const int32_t* labels, int bf16,
-                           int B, int C, int h, int w, int H, int W,
-                           int focal, float alpha, float gamma,
-                           float* partial, float* out, void* stream) {
+                           int B, int C, int h, int w, int H, int W, int hg,
+                           int Hg, int y0, int Y0, int focal, float alpha,
+                           float gamma, float* partial, float* out,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* fn = fwd_kernel(C, bf16);
   const int smem = afan_resize_ce_fwd_smem(C, w);
   cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  float sy = (float)h / (float)H, sx = (float)w / (float)W;
-  void* args[] = {&lo, &labels, &C, &h, &w, &H, &W, &sy, &sx, &focal, &alpha,
-                  &gamma, &partial};
+  float sy = (float)hg / (float)Hg, sx = (float)w / (float)W;
+  void* args[] = {&lo, &labels, &C, &h, &w, &H, &W, &hg, &y0, &Y0, &sy, &sx,
+                  &focal, &alpha, &gamma, &partial};
   err = cudaLaunchKernel(fn, dim3((H + kFwdRows - 1) / kFwdRows, B), kThreads,
                          args, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -576,21 +598,24 @@ int afan_resize_ce_forward(const void* lo, const int32_t* labels, int bf16,
 // d(sum_b gout[b] * sums[b]) / d lo. `plan` holds n_plan rows of 8
 // int32 (y_a, y_b, i_lo, i_hi, x_a, x_b, j_lo, j_hi), one block each, whose
 // owned ranges tile [0, h) x [0, w); rows, cols and seg are the largest
-// y_b - y_a, x_b - x_a and j_hi - j_lo among them. Every element of dlo is
-// written.
+// y_b - y_a, x_b - x_a and j_hi - j_lo among them. The row window (hg, Hg,
+// y0, Y0) is the forward's, and the plan's rows are the window's. Every
+// element of dlo is written.
 int afan_resize_ce_backward(const void* lo, const int32_t* labels,
                             const float* gout, const int32_t* plan,
                             int n_plan, int bf16, int B, int C, int h, int w,
-                            int H, int W, int rows, int cols, int seg,
-                            int focal, float alpha, float gamma, void* dlo,
+                            int H, int W, int hg, int Hg, int y0, int Y0,
+                            int rows, int cols, int seg, int focal,
+                            float alpha, float gamma, void* dlo,
                             void* stream) {
   const void* fn = band_kernel(C, bf16);
   const int smem = afan_resize_ce_bwd_bands_smem(C, rows, cols, seg);
   cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  float sy = (float)h / (float)H, sx = (float)w / (float)W;
-  void* args[] = {&lo, &labels, &gout, &plan, &C, &h, &w, &H, &W, &sy, &sx,
-                  &rows, &cols, &seg, &focal, &alpha, &gamma, &dlo};
+  float sy = (float)hg / (float)Hg, sx = (float)w / (float)W;
+  void* args[] = {&lo, &labels, &gout, &plan, &C, &h, &w, &H, &W, &hg, &y0,
+                  &Y0, &sy, &sx, &rows, &cols, &seg, &focal, &alpha, &gamma,
+                  &dlo};
   return static_cast<int>(cudaLaunchKernel(fn, dim3(n_plan, B), kThreads,
                                            args, smem,
                                            static_cast<cudaStream_t>(stream)));

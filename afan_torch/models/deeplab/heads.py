@@ -21,6 +21,12 @@ compute dtype. Under bfloat16 they keep ``afan``'s dtype at each step: the
 image-pooling mean reduces in float32 and returns bfloat16 (``jnp.mean``),
 the resizes are ``jax.image.resize``'s bfloat16 contractions
 (:func:`resize_bilinear`), and the concatenations join bfloat16 tensors.
+
+Inside a row-sharded step (:mod:`afan_torch.parallel.spatial`) the image
+pooling's mean is the global sum over the data row's ranks over the
+global pixel count, the decoder's upsample takes its output rows from the
+window of input rows they read (:func:`resize_rows`), and the ASPP's
+dropout draws its mask at the data row's whole map and keeps its rows.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel import spatial
 from ..resnet import BatchNorm, Conv2d
 
 
@@ -56,7 +63,8 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
 
 
-def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
+                    key=None) -> torch.Tensor:
     """Bilinear resize (half-pixel centres, ``align_corners=False``) of
     NCHW ``x`` to ``size``, as ``afan``'s ``jax.image.resize`` computes it
     in ``x``'s dtype. float32 (and float64): ``F.interpolate``, the same map
@@ -64,7 +72,15 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     casts its float32 weight matrices to bfloat16 and contracts one axis,
     then the other, rounding each contraction to bfloat16, in the order of
     fewer multiplications (H first on a tie, as for every square resize of
-    the models); so does this, bit for bit."""
+    the models); so does this, bit for bit.
+
+    Inside a row-sharded step, with a ``key`` (the calling module), ``x``
+    and the output are row-sharded and ``size`` is the output's local
+    size: this rank's output rows come from the input rows they read
+    (:func:`resize_rows`)."""
+    sh = spatial.active()
+    if sh is not None and key is not None:
+        return _resize_sharded(sh, x, size, key)
     if x.dtype != torch.bfloat16:
         return F.interpolate(x, size=tuple(size), mode="bilinear",
                              align_corners=False)
@@ -83,15 +99,116 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return x.contiguous()
 
 
+def source_taps(n_out: int, n_in: int) -> Tuple[np.ndarray, ...]:
+    """torch's ``align_corners=False`` linear taps of every output index:
+    lower and upper source index and their weights. The source index
+    ``scale * (dst + 0.5) - 0.5`` is one float32 rounding of the exact
+    value (an ``fmaf``), clamped at 0; the upper index is clamped at the
+    last row."""
+    scale = np.float32(n_in) / np.float32(n_out)
+    src = (np.float64(scale) * (np.arange(n_out) + 0.5) - 0.5)
+    src = np.maximum(src.astype(np.float32), np.float32(0.0))
+    i0 = np.minimum(src.astype(np.int64), n_in - 1)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    l1 = src - i0.astype(np.float32)
+    return i0, i1, np.float32(1.0) - l1, l1
+
+
+def resize_window(n_in: int, n_out: int, rows: slice) -> Tuple[int, int]:
+    """The input rows [lo, hi) that the output rows ``rows`` of a bilinear
+    resize from ``n_in`` to ``n_out`` read: torch's taps, clamped only at
+    the global edges, and every row that ``jax.image.resize``'s weights of
+    those rows touch; (0, 0) for no output rows."""
+    if rows.start == rows.stop:
+        return 0, 0
+    i0, i1, _, _ = source_taps(n_out, n_in)
+    touched = np.nonzero(_resize_weights(n_in, n_out)[:, rows].any(axis=1))[0]
+    lo, hi = int(i0[rows.start]), int(i1[rows.stop - 1]) + 1
+    if touched.size:
+        lo, hi = min(lo, int(touched[0])), max(hi, int(touched[-1]) + 1)
+    return lo, hi
+
+
+def resize_rows(x: torch.Tensor, n_in: int, size: Tuple[int, int],
+                y0: int, rows: slice) -> torch.Tensor:
+    """The rows ``rows`` of the bilinear resize to ``size`` (global) of a
+    map of global height ``n_in``, of which ``x`` holds the rows [y0, y0 +
+    x.shape[2]) (:func:`resize_window`'s). float32: torch's taps of the
+    global map, each output row ``l0 * t[i0] + l1 * t[i1]`` of the rows
+    ``t`` interpolated along W, as ``F.interpolate`` forms a pixel.
+    bfloat16: the rows and columns of :func:`resize_bilinear`'s global
+    weight matrices, contracted in its order and rounded as it rounds."""
+    (H, W), w = size, x.shape[3]
+    if x.dtype == torch.bfloat16:
+        axes = [a for a, n_i, n_o in (("h", n_in, H), ("w", w, W))
+                if n_i != n_o]
+        if n_in * w * H + H * w * W > n_in * w * W + n_in * W * H:
+            axes.reverse()
+        for axis in axes:
+            if axis == "h":
+                wh = _resize_weights(n_in, H)[y0:y0 + x.shape[2], rows]
+                x = torch.einsum("bchw,hH->bcHw", x, torch.from_numpy(
+                    np.ascontiguousarray(wh)).to(x.device, x.dtype))
+            else:
+                ww = torch.from_numpy(_resize_weights(w, W)).to(x.device,
+                                                                x.dtype)
+                x = torch.einsum("bchw,wW->bchW", x, ww)
+        if "h" not in axes:
+            x = x[:, :, rows.start - y0:rows.stop - y0]
+        return x.contiguous()
+    t = x if w == W else F.interpolate(x, size=(x.shape[2], W),
+                                       mode="bilinear", align_corners=False)
+    i0, i1, l0, l1 = (a[rows] for a in source_taps(H, n_in))
+    dev = x.device
+    l0 = torch.from_numpy(l0).to(dev, x.dtype).reshape(1, 1, -1, 1)
+    l1 = torch.from_numpy(l1).to(dev, x.dtype).reshape(1, 1, -1, 1)
+    return (t[:, :, torch.from_numpy(i0 - y0).to(dev)] * l0
+            + t[:, :, torch.from_numpy(i1 - y0).to(dev)] * l1)
+
+
+def _resize_sharded(sh, x: torch.Tensor, size: Tuple[int, int],
+                    key) -> torch.Tensor:
+    n_in = sh.global_height((key, "in"), x.shape[2])
+    H = sh.global_height((key, "out"), size[0])
+    windows = [resize_window(n_in, H, sh.rows(H, r)) for r in range(sh.size)]
+    win = spatial.window_rows(x, n_in, windows, 0.0)
+    rows = sh.rows(H)
+    if rows.start == rows.stop:
+        return spatial.no_rows((x.shape[0], x.shape[1], 0, size[1]),
+                                  x.dtype, win)
+    return resize_rows(win, n_in, (H, size[1]), windows[sh.index][0], rows)
+
+
 class GlobalMean(nn.Module):
     """The image pooling's global mean (``nn.AdaptiveAvgPool2d(1)``),
     reduced in float32 and returned in the input's dtype, as ``jnp.mean``
     does on bfloat16."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sh = spatial.active()
+        if sh is not None:
+            # the global sum and pixel count, not a mean of uneven shares
+            n = sh.global_height(self, x.shape[2]) * x.shape[3]
+            wide = x if x.dtype == torch.float64 else x.float()
+            total = spatial.spatial_sum(wide.sum(dim=(2, 3), keepdim=True))
+            return (total / n).to(x.dtype)
         if x.dtype != torch.bfloat16:
             return F.adaptive_avg_pool2d(x, 1)
         return x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout``; inside a row-sharded step the mask is drawn at the
+    data row's whole map and this rank's rows are kept, so that the ranks
+    of a data row draw one mask and their generators stay in step."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.active() is None or not self.training or self.p == 0:
+            return super().forward(x)
+        keep = spatial.draw_rows(lambda shape: torch.empty(
+            shape, dtype=x.dtype, device=x.device).bernoulli_(1 - self.p),
+            x.shape, 2)
+        return x * keep / (1 - self.p)
 
 
 class AtrousSeparableConv(nn.Module):
@@ -151,7 +268,7 @@ class ASPP(nn.Module):
             + [ASPPPooling(cin, cout)])
         self.project = nn.Sequential(
             Conv2d(5 * cout, cout, 1, bias=False), BatchNorm(cout),
-            nn.ReLU(), nn.Dropout(0.1))
+            nn.ReLU(), Dropout(0.1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.project(torch.cat([m(x) for m in self.convs], dim=1))
@@ -178,7 +295,7 @@ class DeepLabHeadV3Plus(nn.Module):
     def _concat(self, low_level: torch.Tensor, aspp_out: torch.Tensor
                 ) -> torch.Tensor:
         low = self.project(low_level)
-        up = resize_bilinear(aspp_out, low.shape[2:])
+        up = resize_bilinear(aspp_out, low.shape[2:], key=self)
         return torch.cat([low, up], dim=1)          # 48 + 256 = 304
 
     def forward(self, out: torch.Tensor, low_level: torch.Tensor

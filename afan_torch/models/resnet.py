@@ -36,7 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -61,10 +61,41 @@ class Conv2d(nn.Conv2d):
     compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sh = spatial.active()
+        if sh is not None:
+            return self._row_sharded(sh, x)
         dt = self.compute_dtype
         if dt == torch.float32:
             return super().forward(x)
         y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(dt).reshape(1, -1, 1, 1)
+
+    def _row_sharded(self, sh, x: torch.Tensor) -> torch.Tensor:
+        """This rank's output rows of the convolution of a row-sharded
+        ``x``: from the input window they read (zero rows outside the
+        image), with no row padding."""
+        k, stride = self.kernel_size[0], self.stride[0]
+        pad, dil = self.padding[0], self.dilation[0]
+        if k > 1 or stride > 1:
+            n = sh.global_height(self, x.shape[2])
+            _, windows = spatial.conv_windows(sh, n, k, stride, pad, dil)
+            x = spatial.window_rows(x, n, windows, 0.0)
+        dt = self.compute_dtype
+        if x.shape[2] == 0:
+            kw, sw, pw, dw = (self.kernel_size[1], self.stride[1],
+                              self.padding[1], self.dilation[1])
+            w_out = (x.shape[3] + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+            params = [p for p in (self.weight, self.bias) if p is not None]
+            return spatial.no_rows(
+                (x.shape[0], self.out_channels, 0, w_out), dt, x, *params)
+        pads = (0, self.padding[1])
+        if dt == torch.float32:
+            return F.conv2d(x, self.weight, self.bias, self.stride, pads,
+                            self.dilation, self.groups)
+        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, pads,
+                     self.dilation, self.groups)
         if self.bias is None:
             return y
         return y + self.bias.to(dt).reshape(1, -1, 1, 1)
@@ -166,10 +197,12 @@ class BatchNorm(nn.BatchNorm2d):
         The per-channel sum, sum of squares and count are summed over the
         ranks with autograd (:func:`afan_torch.parallel.mesh.sum_over_ranks`),
         so the backward carries every rank's terms; the same global mean
-        and biased variance feed the running statistics' EMA."""
+        and biased variance feed the running statistics' EMA. A float64
+        input (a model in float64, as the CPU tests run one) keeps float64
+        statistics."""
         c = x.shape[1]
-        xf = x.float()
-        count = torch.full((1,), x.numel() // c, dtype=torch.float32,
+        xf = x if x.dtype == torch.float64 else x.float()
+        count = torch.full((1,), x.numel() // c, dtype=xf.dtype,
                            device=x.device)
         stats = mesh.sum_over_ranks(torch.cat(
             [xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]))
@@ -200,6 +233,24 @@ def frozen_bn_stats(module: nn.Module) -> Iterator[None]:
     finally:
         for m, s in zip(bns, saved):
             m.update_stats = s
+
+
+def stem_pool(x: torch.Tensor, key) -> torch.Tensor:
+    """The stem's 3x3 stride-2 max pool (padding 1). Inside a row-sharded
+    step, from the window of input rows its output rows read (-inf rows
+    past the image's edges), with no row padding; ``key`` names the call
+    (the stem's module)."""
+    sh = spatial.active()
+    if sh is None:
+        return F.max_pool2d(x, 3, stride=2, padding=1)
+    n = sh.global_height((key, "pool"), x.shape[2])
+    _, windows = spatial.conv_windows(sh, n, 3, 2, 1, 1)
+    x = spatial.window_rows(x, n, windows, float("-inf"))
+    if x.shape[2] == 0:
+        return spatial.no_rows(
+            (x.shape[0], x.shape[1], 0, (x.shape[3] - 1) // 2 + 1),
+            x.dtype, x)
+    return F.max_pool2d(x, 3, stride=2, padding=(0, 1))
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1,
@@ -309,7 +360,7 @@ class ResNetTorso(nn.Module):
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         x = (x - self.mean) / self.std
         x = F.relu(self.bn1(self.conv1(x)))
-        return F.max_pool2d(x, 3, stride=2, padding=1)
+        return stem_pool(x, self)
 
     def forward(self, x: torch.Tensor, start: int = 0, end: int = 4
                 ) -> torch.Tensor:

@@ -1,2 +1,3 @@
 """Data parallelism: the mesh helpers (:mod:`.mesh`, the counterpart of
-``afan/parallel/mesh.py``) and the process launcher (:mod:`.launch`)."""
+``afan/parallel/mesh.py``), the process launcher (:mod:`.launch`) and the
+row-sharded step of a data x spatial mesh (:mod:`.spatial`)."""

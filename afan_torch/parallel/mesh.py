@@ -22,12 +22,22 @@ The process group is the one record of the ranks: :func:`world_size`,
 :func:`rank` and :func:`is_main` read it, and :func:`resolve_size` counts
 the cards that ``--num_devices`` asks for (``afan``'s ``make_mesh``).
 Outside a process group every helper is the identity and the code paths
-are the single-process ones, bit for bit. The spatial (data x rows) mesh
-of ``make_mesh_2d`` is not ported.
+are the single-process ones, bit for bit.
+
+The data x spatial mesh (``--spatial_shards``, ``afan``'s
+``make_mesh_2d``) is a :class:`Mesh2D` over the same ranks: rank ``r`` is
+``(r // S, r % S)``, each data row of S ranks holds one share of the
+global batch and splits its images' rows over its S ranks
+(:func:`shard_batch_spatial`), joined by a process group of their own;
+the in-step noise is seeded by the data coordinate (:func:`rank_seed`).
+The BatchNorm statistics, the pixel count and the gradient sum stay sums
+over the whole world, which is both axes. The row-sharded step itself is
+:mod:`afan_torch.parallel.spatial`.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Sequence, Union
+import dataclasses
+from typing import Any, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,8 +45,6 @@ import torch.distributed as dist
 
 # gradients are summed in flat buckets of at most this many bytes
 BUCKET_BYTES = 32 << 20
-SPATIAL = ("the data x spatial mesh (--spatial_shards) is not ported yet "
-           "(ROADMAP.md, queue 1)")
 
 
 def data_group():
@@ -80,12 +88,60 @@ def resolve_size(num_devices: Optional[int],
     return num_devices
 
 
-def make_mesh_2d(data: int, spatial: int, devices=None):
-    raise NotImplementedError(SPATIAL)
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A ``data x spatial`` mesh of the ranks: the two sizes, this rank's
+    coordinates, and the process group of its data row (its S spatial
+    ranks, by global rank), None when S is 1."""
+    data: int
+    spatial: int
+    data_index: int
+    spatial_index: int
+    spatial_ranks: Tuple[int, ...]
+    spatial_group: Any = None
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.data, "spatial": self.spatial}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.spatial
 
 
-def shard_batch_spatial(mesh, *arrays, **kw):
-    raise NotImplementedError(SPATIAL)
+def group_device(group) -> torch.device:
+    """Where a collective of ``group`` takes its tensors: the current card
+    under NCCL, the host under gloo (which also takes CUDA tensors in its
+    reductions, through the host)."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def make_mesh_2d(data: int, spatial: int, devices=None) -> Mesh2D:
+    """The ``data x spatial`` mesh of this process group's ranks (all of
+    them: ``data * spatial`` must be the world size, ``afan``'s message
+    otherwise). Every rank must call it, in the same order as its other
+    collectives: each creates every data row's group. ``devices`` is
+    ``afan``'s argument and unused: a rank's card is its launcher's."""
+    n = world_size()
+    if data < 1 or spatial < 1 or data * spatial != n:
+        raise ValueError(
+            f"need {data * spatial} devices for a {data}x{spatial} mesh, "
+            f"have {n}")
+    r = rank()
+    row = r // spatial
+    ranks = tuple(range(row * spatial, (row + 1) * spatial))
+    group = None
+    if spatial > 1:
+        for d in range(data):
+            g = dist.new_group(list(range(d * spatial, (d + 1) * spatial)))
+            if d == row:
+                group = g
+        # the group's first collective is one every rank takes part in
+        dist.all_reduce(torch.zeros(1, device=group_device(group)),
+                        group=group)
+    return Mesh2D(data, spatial, row, r % spatial, ranks, group)
 
 
 def check_divisible(batch_size: int, n: int) -> None:
@@ -120,10 +176,42 @@ def shard_batch(*arrays):
     return out[0] if len(out) == 1 else tuple(out)
 
 
-def rank_seed(seed: int) -> int:
+def shard_rows(mesh: Mesh2D, *arrays):
+    """This rank's image rows (axis 1: H of NHWC images and NHW label
+    maps) of each array, by its spatial coordinate; the rows must divide
+    by the spatial size (``afan``'s ``shard_batch_spatial`` check and
+    message)."""
+    out = []
+    for a in arrays:
+        if a.shape[1] % mesh.spatial != 0:
+            raise ValueError(
+                f"row dim {a.shape[1]} not divisible by {mesh.spatial} "
+                f"spatial shards")
+        out.append(a[:, split_rows(a.shape[1], mesh.spatial_index,
+                                   mesh.spatial)])
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def shard_batch_spatial(mesh: Mesh2D, *arrays):
+    """This rank's block of each global-batch array: its batch rows by
+    its data coordinate, then its image rows (axis 1) by its spatial
+    coordinate (``afan``'s ``shard_batch_spatial``)."""
+    out = []
+    for a in arrays:
+        check_divisible(a.shape[0], mesh.data)
+        out.append(shard_rows(mesh, a[split_rows(a.shape[0],
+                                                 mesh.data_index,
+                                                 mesh.data)]))
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def rank_seed(seed: int, index: Optional[int] = None) -> int:
     """The seed of this rank's in-step noise: ``seed`` itself on rank 0
-    (so one process draws as before), a distinct one on every other."""
-    r = rank()
+    (so one process draws as before), a distinct one on every other. On a
+    data x spatial mesh ``index`` is the rank's data coordinate: the
+    spatial ranks of a data row share the seed, draw the row's noise at
+    its whole shape and keep their own rows."""
+    r = rank() if index is None else index
     return seed if r == 0 else (seed * 1000003 + r * 0x9E3779B1) % (1 << 63)
 
 

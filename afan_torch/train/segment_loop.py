@@ -34,6 +34,14 @@ fall; the BatchNorm statistics are the global batch's, the gradients are
 summed over the ranks before the update, and the reported losses are the
 global ones.
 
+Spatial sharding (``--spatial_shards``): a step run inside
+:func:`afan_torch.parallel.spatial.sharded` holds its images, labels and
+activations row-sharded (:mod:`afan_torch.parallel.spatial`). Each site's
+upsample + CE then reads the window of logits rows its label rows need, on
+global taps (the kernels' row window); the entry sums stay this rank's
+share, over the same world-summed pixel count. The noise (the SD noise,
+the random starts) is drawn at the data row's whole shape and sliced.
+
 Under a bfloat16 model (``--bf16``) the step keeps ``afan``'s dtypes: the
 image and the input ascent stay float32; the tap features, their ascents
 (the PGD-update kernel's bfloat16 path) and the os4 logits of every site are
@@ -53,11 +61,13 @@ from ..core.afn import mix_feature
 from ..core.attack import input_pgd, pgd, uniform_init
 from ..core.spectrum import sample_points
 from ..eval.seg_miou import confusion_matrix
-from ..models.deeplab.heads import resize_bilinear
+from ..models.deeplab.heads import resize_bilinear, resize_window
 from ..models.deeplab.modeling import DeepLab
 from ..models.resnet import frozen_bn_stats
-from ..ops.resize_ce import IGNORE, fused_resize_nll_sums
+from ..ops.resize_ce import (IGNORE, fused_resize_nll_sums,
+                             resize_window_rows)
 from ..ops.resize_ce import per_entry_loss_sums as _per_entry_loss_sums
+from ..parallel import spatial
 from ..parallel.mesh import global_sum, sum_gradients
 
 FOCAL = (1.0, 2.0)      # (alpha, gamma) of seg_focal_loss
@@ -165,14 +175,33 @@ def _site_loss(labels: torch.Tensor, focal, fused: bool = True) -> Callable:
     def site_groups(lo: torch.Tensor) -> torch.Tensor:
         reps = lo.shape[0] // bsz
         tiled = labels.repeat(reps, 1, 1) if reps > 1 else labels
-        if fused:
-            sums = fused_resize_nll_sums(lo, tiled, size, focal)
+        sh = spatial.active()
+        window = None
+        if sh is not None:
+            lo, window = _site_window(sh, lo, size)
+        if window is not None and size[0] == 0:
+            sums = spatial.no_rows((lo.shape[0],), torch.float32, lo)
+        elif fused:
+            sums = fused_resize_nll_sums(lo, tiled, size, focal, window)
         else:
-            sums = _per_entry_loss_sums(resize_bilinear(lo, size), tiled,
-                                        focal is not None, *(focal or ()))
+            hi = (resize_bilinear(lo, size) if window is None
+                  else resize_window_rows(lo, size, window).to(lo.dtype))
+            sums = _per_entry_loss_sums(hi, tiled, focal is not None,
+                                        *(focal or ()))
         return sums.reshape(reps, bsz).sum(dim=1) / npix
 
     return site_groups
+
+
+def _site_window(sh, lo: torch.Tensor, size):
+    """Inside a row-sharded step: the rows of a site's row-sharded logits
+    that this rank's label rows (``size``) read, and the row window
+    ``(hg, Hg, y0, Y0)`` of the upsample + CE."""
+    hg = sh.global_height("site logits", lo.shape[2])
+    Hg = sh.global_height("site labels", size[0])
+    windows = [resize_window(hg, Hg, sh.rows(Hg, r)) for r in range(sh.size)]
+    lo = spatial.window_rows(lo, hg, windows, 0.0)
+    return lo, (hg, Hg, windows[sh.index][0], sh.rows(Hg).start)
 
 
 def make_seg_base_step(model: DeepLab, optimizer: torch.optim.Optimizer,
@@ -215,7 +244,7 @@ def make_seg_advtrain_step(model: DeepLab, optimizer: torch.optim.Optimizer,
             adv = input_pgd(
                 lambda im: site(model.forward_logits(_nchw(im)))[0], images,
                 steps=steps, gamma=gamma, eps=eps, randinit=randinit,
-                generator=generator)
+                generator=generator, row_axis=1)
         optimizer.zero_grad(set_to_none=True)
         loss = site(model.forward_logits(_nchw(adv)))[0]
         loss.backward()
@@ -261,7 +290,8 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
     def attack(loss_fn, x, gamma, generator):
         return pgd(loss_fn, x, steps=cfg.steps, gamma=gamma, eps=cfg.eps,
                    randinit=cfg.randinit, clip=cfg.clip, generator=generator,
-                   step_mode=cfg.step_mode, random_steps=cfg.random_steps)
+                   step_mode=cfg.step_mode, random_steps=cfg.random_steps,
+                   row_axis=2)
 
     def step_fn(images: torch.Tensor, labels: torch.Tensor,
                 generator: Optional[torch.Generator] = None
@@ -278,7 +308,8 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
                     images, steps=cfg.input_adv_steps,
                     gamma=cfg.input_adv_gamma, eps=cfg.input_adv_eps,
                     randinit=True, clip=True, generator=generator,
-                    step_mode=cfg.step_mode, random_steps=cfg.random_steps))
+                    step_mode=cfg.step_mode, random_steps=cfg.random_steps,
+                    row_axis=1))
 
             with torch.no_grad():
                 if cfg.sd is not None:
@@ -314,9 +345,10 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
                 if cfg.mix_sd:
                     adv_sd = mix_feature(sd_clean, adv_sd)
                 if cfg.noise_sd:
-                    adv_sd = adv_sd + uniform_init(
-                        adv_sd.shape, cfg.gamma_sd * cfg.noise_sd, generator,
-                        torch.float32, adv_sd.device)
+                    adv_sd = adv_sd + spatial.draw_rows(
+                        lambda shape: uniform_init(
+                            shape, cfg.gamma_sd * cfg.noise_sd, generator,
+                            torch.float32, adv_sd.device), adv_sd.shape, 2)
 
             with torch.no_grad():
                 spec = sample_points(feat_se, adv_se, n_spec)

@@ -16,7 +16,9 @@ phases 1, 2 and 22-26; ``--only bf16`` phases 1, 2 and 27-29; ``--only
 detbf16`` phases 1, 2 and 30-32; ``--only clsbf16`` phases 1, 2 and 33-35;
 ``--only eval`` phases 1, 2 and 36-39; ``--only mobilenet`` phases 1, 2
 and 40-42; ``--only coco`` phases 1, 2 and 43-46; ``--only data`` phases 1,
-2 and 47-51; ``--only dp`` phases 1, 2 and 55-58.
+2 and 47-51; ``--only dp`` phases 1, 2 and 55-58; ``--only spatial``
+phases 1, 2 and 59-62 (in a whole run phases 56 and 60 share one launch of
+their two ranks, and phase 59 takes phase 55's f32 seg runs).
 The kernels
 line then lists the kernels of the phases that ran; without phase 8 the
 upsample + CE kernels have no launch count (null), and under ``--only
@@ -107,12 +109,12 @@ Phases (any failure exits non-zero):
  18. train ALFA ResNet-56 at full width through
      ``train_classify.main --epoch_scan`` (batch 128, 24 steps per epoch):
      2 epochs, a resume for a third (step count 72, the lr of count 72), and
-     one epoch with clip and randinit, then 2 whole epochs (351 steps
-     each); each run's first 3 steps are eager
+     one epoch with clip and randinit, then a whole epoch (351 steps);
+     each run's first 3 steps are eager
      and the rest are replays of one captured CUDA graph of the step:
      finite losses, the checkpoints, 20 PGD-update launches counted by the
      wrapper (3 eager steps and the capture), and exactly 5 PGD-update
-     kernels (5 clipped) per replay in a profiler trace of 24 more replays
+     kernels (5 clipped) per replay in a profiler trace of 6 more replays
      of each run's graph;
  19. 8 steps of the epoch scan (3 eager, 5 replays) against 8 eager
      device-data steps from the same weights, permutation and generator
@@ -120,7 +122,7 @@ Phases (any failure exits non-zero):
      by step, consecutive replays drawing anew, metrics, parameters and
      BatchNorm buffers within 1e-5;
  20. time the graphed ALFA step and the eager device-data step in turns
-     (graph, eager, eager, graph, three times, 20 steps each), their peak
+     (graph, eager, eager, graph, twice, 10 steps each), their peak
      memory (the graph's pool reserved), the host time per replay, the
      device busy share and kernels per step from profiles of 5 replays and
      of 3 eager steps;
@@ -318,7 +320,7 @@ Phases (any failure exits non-zero):
      warning (phase 49's detection runs hold ``train/loss`` per step in
      ``<outputs_dir>/summaries/scalars.jsonl``);
  52. ``train_classify.main --epoch_scan --pgd_random_steps`` at full width
-     (ALFA ResNet-56, batch 128), f32 and ``--bf16``, 2 epochs of 8 steps:
+     (ALFA ResNet-56, batch 128), f32 and ``--bf16``, one epoch of 8 steps:
      phase 18's checks, the launches being the PGD update's
      device-step-size entry points (its step sizes drawn on the card, each
      replay anew), 5 of its kernels per replay in a profiler trace;
@@ -357,7 +359,29 @@ Phases (any failure exits non-zero):
      one ALFA run of 2 steps whose all-reduces run on it, its losses those
      of phase 55;
  58. ``train_classify --num_devices 2`` on a one-card machine raises,
-     naming the count.
+     naming the count;
+ 59. spatial sharding: the world-1 Cityscapes A-FAN seg step (2 steps,
+     deterministic cuDNN, dropout off) in f32 and in bf16, then each again
+     on the batch with its halves swapped, replaying its ascents;
+ 60. the same steps on a 1 x 2 data x spatial mesh: two gloo ranks on
+     cuda:0, each holding the rows of its half of every image
+     (``afan_torch.parallel.spatial``: halo exchanges through host buffers,
+     the upsample + CE kernels on a row window), phase 59's ascents
+     replayed by rows; the losses, each ascent's first gradient, the
+     trained parameters and their update within twice what the swapped
+     run differs by (and no less than ``DP_MIN_BOUND``), every upsample +
+     CE launch of each rank a windowed one, as many as at world 1, and
+     each rank's windowed kernels at its first site's inputs against the
+     plain version; step ms and peak GiB per rank (a correctness run: two
+     ranks share the card);
+ 61. the windowed kernels against their plain versions at the recipe's
+     per-rank shapes, f32 and bf16: the top-edge and bottom-edge windows of
+     a 1 x 2 mesh, the interior window of a 1 x 3 one, and the whole map's
+     kernels against the two windows' added up;
+ 62. the windowed kernels timed at rank 0's shapes, f32 and bf16, in turns
+     with the library composition on the window, with their plain versions
+     and bounds; ``train_segment --num_devices 2 --spatial_shards 2`` on a
+     one-card machine raises, naming the count.
 
 The line before the last lists each kernel with its launches on its main
 paths (the bf16 paths of phases 27-29 as entries of their own, ``_bf16``,
@@ -375,7 +399,10 @@ and the runs of phases 40, 43, 44, 49 and 51 (under ``--only mobilenet``,
 ``--only coco`` or ``--only data`` the times are phase 42's, 46's or 50's).
 The device-step-size PGD update has entries of its own,
 ``pgd_update_dev`` and ``pgd_update_dev_bf16``: phase 52's launches and
-phase 54's times per replay (5 launches).
+phase 54's times per replay (5 launches). The upsample + CE kernels on a
+row window have entries of their own, ``resize_ce_forward_window``,
+``resize_ce_backward_window`` and their ``_bf16``: rank 0's launches in
+phase 60 and phase 62's times per launch at rank 0's B=4 window.
 Launches are the wrappers' counts: a graph replay runs kernels that no
 wrapper call counts, so phase 18 prints the PGD-update kernels its replays
 ran (the profiled kernels per replay times the replays) beside the
@@ -416,7 +443,8 @@ from afan_torch.data.voc_det import voc_detection_loaders
 from afan_torch.eval import feature_vis, robustness
 from afan_torch.eval.robustness import make_robust_eval_step
 from afan_torch.models.deeplab import build_model
-from afan_torch.models.deeplab.heads import AtrousSeparableConv
+from afan_torch.models.deeplab.heads import (AtrousSeparableConv,
+                                             resize_window)
 from afan_torch.models.deeplab.modeling import segmentation_param_groups
 from afan_torch.models.frcnn import FasterRCNN, FRCNNConfig, roi_head
 from afan_torch.models.frcnn import sampling
@@ -432,6 +460,7 @@ from afan_torch.ops.kernels import nms as knms
 from afan_torch.ops.kernels import pgd_step as kpgd
 from afan_torch.ops.kernels import resize_ce as krce
 from afan_torch.parallel import mesh as dp
+from afan_torch.parallel import spatial
 from afan_torch.parallel.launch import launch
 from afan_torch.train import loop as cls_loop
 from afan_torch.train import detect_loop, segment_loop
@@ -1305,27 +1334,50 @@ def input_grad_kernel_vs_plain(model, imgs, labs):
     require(err <= 1e-4, f"input gradients differ by {err}")
 
 
-def ce_parts(lo, lab, g):
-    """Timings (ms) at one of the step's shapes: each kernel in turns with
-    the library composition F.interpolate + F.cross_entropy + per-entry sum
-    (library, kernel, kernel, library, twice; the backward's library on a
-    kept graph), each the device time of calls queued back to back; the
-    plain version (forward; backward alone on a kept graph); and the two
-    bounds."""
-    size = tuple(lab.shape[1:])
-    lab64 = lab.long()
-
+def ce_library(size, lab64, window=None):
+    """The library composition F.interpolate + F.cross_entropy + per-entry
+    sum for labels of ``size``; on a row ``window`` of a resize by an
+    integral factor, the interpolate of the window by that factor (whose
+    output row j is global row ``factor * y0 + j``: the source index of
+    each row past the window's first is the global one) cut to the labels'
+    rows."""
     def library(x):
-        hi = F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+        if window is None:
+            hi = F.interpolate(x, size=size, mode="bilinear",
+                               align_corners=False)
+        else:
+            hg, Hg, y0, Y0 = window
+            fy, fx = Hg // hg, size[1] // x.shape[3]
+            hi = F.interpolate(x, scale_factor=(fy, fx), mode="bilinear",
+                               align_corners=False,
+                               recompute_scale_factor=False)
+            hi = hi[:, :, Y0 - fy * y0:Y0 - fy * y0 + size[0]]
         return F.cross_entropy(hi, lab64, reduction="none",
                                ignore_index=255).sum(dim=(1, 2))
+    return library
 
+
+def ce_parts(lo, lab, g, window=None):
+    """Timings (ms) at one of the step's shapes (on a row ``window``, a
+    row-sharded step's): each kernel in turns with the library composition
+    F.interpolate + F.cross_entropy + per-entry sum (library, kernel,
+    kernel, library, twice; the backward's library on a kept graph), each
+    the device time of calls queued back to back; the plain version
+    (forward; backward alone on a kept graph); and the two bounds."""
+    size = tuple(lab.shape[1:])
+    library = ce_library(size, lab.long(), window)
     x = lo.clone().requires_grad_(True)
-    plain_sums = trce.fused_resize_nll_sums_plain(x, lab, size)
+    plain_sums = trce.fused_resize_nll_sums_plain(x, lab, size, None, window)
     lib_sums = library(x)
+    if window is not None:
+        # the composition computes the window's function (in f32: in bf16
+        # it rounds where the plain version does not)
+        err = rel_err(library(lo.float()), plain_sums.detach())
+        require(err <= CE_SUM_TOL, f"the library composition on the window "
+                                   f"{window} is off by {err}")
     calls = {
-        "fwd": lambda: krce.resize_ce_forward(lo, lab),
-        "bwd": lambda: krce.resize_ce_backward(lo, lab, g),
+        "fwd": lambda: krce.resize_ce_forward(lo, lab, None, window),
+        "bwd": lambda: krce.resize_ce_backward(lo, lab, g, None, window),
         "lib_fwd": lambda: library(lo),
         "lib_bwd": lambda: torch.autograd.grad(lib_sums, x, g,
                                                retain_graph=True),
@@ -1342,14 +1394,16 @@ def ce_parts(lo, lab, g):
         "lib_bwd": float(np.mean(turns["lib_bwd"]["lib_bwd"])),
         "turns": turns,
         "plain_fwd": cuda_ms(
-            lambda: trce.fused_resize_nll_sums_plain(lo, lab, size), reps=20),
+            lambda: trce.fused_resize_nll_sums_plain(lo, lab, size, None,
+                                                     window), reps=20),
         "plain_bwd": cuda_ms(lambda: torch.autograd.grad(
             plain_sums, x, g, retain_graph=True), reps=20),
     }
     b, c, h = lo.shape[:3]
+    hg, Hg = (h, size[0]) if window is None else window[:2]
     valid = int((lab != 255).sum())
     lo_bytes, lab_bytes = lo.numel() * lo.element_size(), lab.numel() * 4
-    interp = CE_LERP_OPS * (1 + h / size[0])
+    interp = CE_LERP_OPS * (1 + hg / Hg)
     fwd_ops = interp + CE_LSE_OPS
     bwd_ops = fwd_ops + CE_SOFTMAX_GRAD_OPS + interp
     for half, nbytes, ops in (
@@ -3335,6 +3389,10 @@ KERNEL_SOURCES = {
                           "afan/ops/kernels/resize_ce_kernel.py:92"),
     "resize_ce_backward": ("afan_torch/csrc/resize_ce.cu",
                            "afan/ops/kernels/resize_ce_kernel.py:127"),
+    "resize_ce_forward_window": ("afan_torch/csrc/resize_ce.cu",
+                                 "afan/ops/kernels/resize_ce_kernel.py:92"),
+    "resize_ce_backward_window": ("afan_torch/csrc/resize_ce.cu",
+                                  "afan/ops/kernels/resize_ce_kernel.py:127"),
     "pgd_update": ("afan_torch/csrc/pgd_step.cu",
                    "afan/ops/kernels/pgd_step.py:40"),
     "pgd_update_dev": ("afan_torch/csrc/pgd_step.cu",
@@ -3367,7 +3425,10 @@ def merge_variant_launches(entries, variant):
 # for 2 epochs, then a resume for a third; the timing turns run 20 steps
 # each, as 4 calls of a 5-step epoch scan.
 SCAN_BATCHES, SCAN_EPOCHS = 24, 2
-SCAN_CALL_STEPS, SCAN_TURN_CALLS = 5, 4
+SCAN_CALL_STEPS, SCAN_TURN_CALLS = 5, 2
+# graph replays in each profiler trace that counts the PGD-update kernels
+# per replay
+SCAN_TRACE_REPLAYS = 6
 TRAIN_SPLIT = 45000
 ROBUST_STEPS = 3
 
@@ -3403,7 +3464,7 @@ def pgd_per_replay(scan, clip, bf16=False, dev=False):
     """PGD-update kernels per replay, by kernel name (the clipped
     instantiation with ``clip``, the bf16 one with ``bf16``, the
     device-step-size one with ``dev``), in a profiler trace of
-    ``SCAN_BATCHES`` more replays of ``scan``'s own graph, its step index
+    ``SCAN_TRACE_REPLAYS`` more replays of ``scan``'s own graph, its step index
     reset to row 0 first. The replays train the model on: run it after the
     run's checkpoint is written. The profiler has lost records on the card
     (a trace short of a few kernels, in the same runs as a trace with no
@@ -3412,7 +3473,7 @@ def pgd_per_replay(scan, clip, bf16=False, dev=False):
     stands."""
     from torch.profiler import ProfilerActivity, profile
     want = pgd_kernel_name(clip, bf16, dev)
-    n = min(SCAN_BATCHES, scan.steps_per_epoch)     # rows of the epoch
+    n = min(SCAN_TRACE_REPLAYS, scan.steps_per_epoch)
     for attempt in (1, 2):
         scan.scan._static["i"].zero_()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3502,7 +3563,8 @@ def run_scan_cli(flags, epochs, tag, resume=False, batches=SCAN_BATCHES):
           f"{saved['step']}, lr {host_lr}; val accuracy {result['ta']}; "
           f"PGD-update launches counted by the wrapper {wrapper} (eager "
           f"steps and the capture); kernels per replay in a profiler trace "
-          f"of {min(SCAN_BATCHES, spe)} replays of this graph {per:g}, so "
+          f"of {min(SCAN_TRACE_REPLAYS, spe)} replays of this graph "
+          f"{per:g}, so "
           f"{per * replays:g} run by the run's replays")
     require(per == ALFA_STEPS, f"{tag}: {per} PGD-update kernels per replay")
     return scan, save_dir, wrapper, per * replays
@@ -3510,7 +3572,7 @@ def run_scan_cli(flags, epochs, tag, resume=False, batches=SCAN_BATCHES):
 
 def train_scan_full_width():
     """Phase 18; returns the PGD-update launches the wrapper counted in the
-    runs and the directory of the last run, two whole epochs (a model that
+    runs and the directory of the last run, a whole epoch (a model that
     has learned the synthetic classes, for phase 21)."""
     print(f"[18] train_classify --epoch_scan: ALFA ResNet-56, batch "
           f"{CLS_BATCH}, {SCAN_BATCHES} steps per epoch, each epoch replays "
@@ -3521,7 +3583,7 @@ def train_scan_full_width():
             "the resume trained more than 1 epoch")
     runs.append(run_scan_cli(["--clip", "--randinit"], 1,
                              "scan_clip_randinit"))
-    runs.append(run_scan_cli([], SCAN_EPOCHS, "scan_full", batches=0))
+    runs.append(run_scan_cli([], 1, "scan_full", batches=0))
     full_dir = runs[-1][1]
     wrapper = sum(r[2] for r in runs)
     replayed = sum(r[3] for r in runs)
@@ -3617,7 +3679,7 @@ def scan_turn(scan, args):
 
 def time_scan(card, split):
     """Phase 20: the graphed ALFA step and the eager device-data step in
-    turns (graph, eager, eager, graph, three times, 20 steps each), peak
+    turns (graph, eager, eager, graph, twice, 10 steps each), peak
     memory, host time per replay, and a profile of 5 replays; then the
     robust-eval batch."""
     print(f"[20] timing on {card}")
@@ -3653,7 +3715,7 @@ def time_scan(card, split):
     peak_e = torch.cuda.max_memory_allocated() / 2**30
     turns = {"graph": [], "eager": []}
     runs = {"graph": scan_turn(scan, args), "eager": eager_turn}
-    for name in ("graph", "eager", "eager", "graph") * 3:
+    for name in ("graph", "eager", "eager", "graph") * 2:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         runs[name]()
@@ -3661,7 +3723,7 @@ def time_scan(card, split):
         turns[name].append((time.perf_counter() - t0) * 1e3 / steps_per_turn)
     for name, ts in turns.items():
         med = float(np.median(ts))
-        print(f"    ALFA step, {name}: ms per step in 6 turns of "
+        print(f"    ALFA step, {name}: ms per step in {len(ts)} turns of "
               f"{steps_per_turn} steps {[round(t, 3) for t in ts]}; median "
               f"{med:.3f} ms, p90 {np.percentile(ts, 90):.3f} ms, "
               f"{CLS_BATCH * 1e3 / med:.1f} imgs/s ({card})")
@@ -3750,14 +3812,14 @@ def random_steps_runs():
     --pgd_random_steps``, f32 and ``--bf16``, :func:`run_scan_cli`'s checks
     with the device-step-size launches. Returns them by dtype."""
     print(f"[52] train_classify --epoch_scan --pgd_random_steps: ALFA "
-          f"ResNet-56, batch {CLS_BATCH}, {SCAN_EPOCHS} epochs of "
+          f"ResNet-56, batch {CLS_BATCH}, one epoch of "
           f"{RANDOM_STEPS_BATCHES} steps, f32 and bf16; each step's sizes "
           f"drawn on the card, read there by the PGD-update kernel")
     launches = {}
     for flags, dtype, tag in RANDOM_STEPS_RUNS:
         before = kpgd.bf16_dev_launches
         scan, _, launches[dtype], _ = run_scan_cli(
-            ["--pgd_random_steps"] + flags, SCAN_EPOCHS, tag,
+            ["--pgd_random_steps"] + flags, 1, tag,
             batches=RANDOM_STEPS_BATCHES)
         bf16 = kpgd.bf16_dev_launches - before
         require(bf16 == (launches[dtype] if dtype == torch.bfloat16 else 0),
@@ -5689,23 +5751,36 @@ DP_TRAINERS = ("alfa", "seg", "det")
 def dp_counts():
     return {"nms": knms.launches, "resize_ce_forward": krce.fwd_launches,
             "resize_ce_backward": krce.bwd_launches,
+            "resize_ce_forward_bf16": krce.bf16_fwd_launches,
+            "resize_ce_backward_bf16": krce.bf16_bwd_launches,
+            "resize_ce_forward_window": krce.window_fwd_launches,
+            "resize_ce_backward_window": krce.window_bwd_launches,
+            "resize_ce_forward_window_bf16": krce.bf16_window_fwd_launches,
+            "resize_ce_backward_window_bf16": krce.bf16_window_bwd_launches,
             "pgd_update": kpgd.launches}
 
 
 def dp_reset_counts():
     knms.launches = krce.fwd_launches = krce.bwd_launches = 0
+    krce.bf16_fwd_launches = krce.bf16_bwd_launches = 0
+    krce.window_fwd_launches = krce.window_bwd_launches = 0
+    krce.bf16_window_fwd_launches = krce.bf16_window_bwd_launches = 0
     kpgd.launches = 0
 
 
-def dp_trainer(trainer, pick):
+def dp_trainer(trainer, pick, dtype=torch.float32):
     """``trainer``'s full-width model, step and ``pick``'s rows of its
-    global batch (phase 12's ALFA, phase 8's Cityscapes A-FAN, phase 15's
-    VOC A-FAN; dropout off, so that no draw differs between the runs)."""
+    global batch (phase 12's ALFA, phase 8's Cityscapes A-FAN, in
+    ``dtype``, phase 15's VOC A-FAN; dropout off, so that no draw differs
+    between the runs)."""
     if trainer == "alfa":
         model, step = cls_step("alfa")
         batch = cls_batch(0)
     elif trainer == "seg":
-        model, imgs, labs = seg_model_and_batch(0)
+        model = build_model(SEG_MODEL, 19, 16, dtype)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.cuda()
+        imgs, labs = seg_batch(0)
         for m in model.modules():
             if isinstance(m, torch.nn.Dropout):
                 m.p = 0.0
@@ -5785,7 +5860,7 @@ def dp_ascents(pick, folder, replay, flips, grads):
 
         def update(xa, g, center=None, **ukw):
             if not first:
-                first.append(g.detach().clone())
+                first.append(g.detach().float())
             return inner(xa, g, center, **ukw)
 
         with patched_update(update):
@@ -5793,13 +5868,13 @@ def dp_ascents(pick, folder, replay, flips, grads):
         path = os.path.join(folder, f"ascent{i}.npy")
         gpath = os.path.join(folder, f"ascent{i}_grad.npy")
         if not replay:
-            np.save(path, (out - x).cpu().numpy())
+            np.save(path, (out.float() - x.float()).cpu().numpy())
             if not kw.get("randinit"):
                 np.save(gpath, first[0].cpu().numpy())
             return out
         saved = np.load(path, mmap_mode="r")
         delta = torch.from_numpy(np.array(pick(saved))).to(x.device)
-        flips.append(float(((out - x - delta).abs()
+        flips.append(float(((out.float() - x.float() - delta).abs()
                             > float(kw["gamma"]) / 2).float().mean()))
         if not kw.get("randinit"):
             want = torch.from_numpy(np.array(pick(np.load(
@@ -5808,7 +5883,7 @@ def dp_ascents(pick, folder, replay, flips, grads):
                                 / want.norm().clamp_min(1e-30)),
                           float((torch.sign(first[0]) != torch.sign(want))
                                 .float().mean())))
-        return x + delta
+        return (x.float() + delta).to(x.dtype)
 
     os.makedirs(folder, exist_ok=True)
     for m in mods:
@@ -5821,16 +5896,21 @@ def dp_ascents(pick, folder, replay, flips, grads):
 
 
 def dp_steps(trainer, pick, priorities=None, record=None, probe=None,
-             replay=False, flips=None, grads=None):
+             replay=False, flips=None, grads=None, dtype=torch.float32,
+             mesh=None, pick_ascent=None, tag=None, folder=DP_DIR):
     """``DP_STEPS`` steps of ``trainer`` on ``pick``'s rows, in full f32
-    with deterministic cuDNN: the global losses, the last step's ms, the
-    peak GiB, the kernels' launches in the steps, the flat trained
-    parameters and their update. With ``flips`` and ``grads`` (lists) the
-    ascents are saved (world 1) or replayed (``replay``, world 2) by
-    :func:`dp_ascents`. ``probe`` (a dict) takes the first inputs of each kernel's
-    wrapper."""
+    (the seg model in ``dtype``) with deterministic cuDNN: the global
+    losses, the last step's ms, the peak GiB, the kernels' launches in the
+    steps, the flat trained parameters and their update. With ``flips`` and
+    ``grads`` (lists) the ascents are saved (world 1) or replayed
+    (``replay``, world 2) by :func:`dp_ascents`, under ``folder`` and
+    ``tag`` (the trainer's name by default), their perturbations cut by
+    ``pick_ascent`` (``pick`` by default). ``probe`` (a dict) takes the
+    first inputs of each kernel's wrapper. With a ``mesh`` each step runs
+    row-sharded on it."""
+    tag = tag or trainer
     with deterministic():
-        model, step, batch = dp_trainer(trainer, pick)
+        model, step, batch = dp_trainer(trainer, pick, dtype)
         start = dp_flat_params(model)
         gen = torch.Generator("cuda").manual_seed(dp.rank_seed(0))
         losses, ms = [], 0.0
@@ -5843,13 +5923,16 @@ def dp_steps(trainer, pick, priorities=None, record=None, probe=None,
                 stack.enter_context(dp_probes(probe))
             if flips is not None:
                 stack.enter_context(dp_ascents(
-                    pick, os.path.join(DP_DIR, f"{trainer}_ascents"), replay,
-                    flips, grads))
+                    pick_ascent or pick,
+                    os.path.join(folder, f"{tag}_ascents"), replay, flips,
+                    grads))
             first_step = 0
             for i in range(DP_STEPS):
                 t0 = time.perf_counter()
-                out = (step(*batch) if trainer == "seg"
-                       else step(*batch, gen))
+                with (spatial.sharded(mesh) if mesh is not None
+                      else contextlib.nullcontext()):
+                    out = (step(*batch) if trainer == "seg"
+                           else step(*batch, gen))
                 losses.append(float(out["loss"]))
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
@@ -5881,9 +5964,9 @@ def dp_probes(probe):
         probe.setdefault("nms", (kept(boxes), kept(valid), thr, plus_one))
         return nms_fn(boxes, valid, thr, plus_one)
 
-    def site(lo, lab, size, focal=None):
-        probe.setdefault("ce", (kept(lo), kept(lab), size, focal))
-        return site_fn(lo, lab, size, focal)
+    def site(lo, lab, size, focal=None, window=None):
+        probe.setdefault("ce", (kept(lo), kept(lab), size, focal, window))
+        return site_fn(lo, lab, size, focal, window)
 
     def update(x, g, center=None, **kw):
         probe.setdefault("pgd", (kept(x), kept(g), kept(center), kw))
@@ -5904,7 +5987,7 @@ def dp_probe_errs(probe):
         kernel_vs_plain("per-rank proposals", boxes, valid, thr, plus_one, e)
         errs["nms"] = max(e)
     if "ce" in probe:
-        lo, lab, size, focal = probe["ce"]
+        lo, lab, size, focal, _ = probe["ce"]
         g = torch.rand(lo.shape[0], device="cuda")
         sums = krce.resize_ce_forward(lo, lab, focal)
         dlo = krce.resize_ce_backward(lo, lab, g, focal)
@@ -6007,7 +6090,7 @@ def dp_grads(r):
             f"{fmt(r['grads'][r['first_step']:])}]")
 
 
-def dp_errors(r, trainer, losses):
+def dp_errors(r, trainer, losses, folder=DP_DIR):
     """A replaying run's relative errors against phase 55's world-1 run:
     largest loss, largest first-step ascent gradient (L2) and fraction of
     its entries with another sign, all trained parameters (L2), their
@@ -6024,15 +6107,15 @@ def dp_errors(r, trainer, losses):
            "grad_later": max([e for e, _ in later] or [0.0]),
            "flips": max(r["flips"] or [0.0])}
     for key in ("params", "update"):
-        want = np.load(os.path.join(DP_DIR, f"{trainer}_{key}.npy"))
+        want = np.load(os.path.join(folder, f"{trainer}_{key}.npy"))
         out[key] = float(np.linalg.norm(r[key] - want)
                          / max(np.linalg.norm(want), 1e-30))
     return out
 
 
-def dp_phases(card):
-    """Phases 55-58; the kernels' launches per rank of the world-2 steps
-    and their largest errors at the per-rank inputs."""
+def dp_world_one(card):
+    """Phase 55: the world-1 steps and their swapped-batch floors; (world
+    1's results, the floors, the detection samplers' uniforms)."""
     print(f"[55] data parallelism: the world-1 steps ({DP_STEPS} each, full "
           f"f32, deterministic cuDNN) of ALFA (batch {CLS_BATCH}), the "
           f"Cityscapes A-FAN seg step (batch {SEG_BATCH}, crop {SEG_CROP}) "
@@ -6058,18 +6141,18 @@ def dp_phases(card):
         print(f"      the swapped batch: losses {sw['losses']}; errors "
               f"{floor[trainer]}; each ascent's gradient error and sign "
               f"flips {dp_grads(sw)}")
+    return one, floor, uniforms
 
+
+def dp_check(card, ranks, one, floor):
+    """Phases 56 (the world-2 ranks' results against world 1), 57 and 58;
+    the kernels' launches per rank of the world-2 steps and their largest
+    errors at the per-rank inputs."""
     print(f"[56] the same steps at world {DP_RANKS}: {DP_RANKS} gloo ranks on "
           f"cuda:0, each on its rows of the global batch; the detection "
           f"samplers' uniforms and the ascents of phase 55 replayed. A "
           f"correctness run: {DP_RANKS} ranks sharing one card are no speed "
           f"figure")
-    t0 = time.time()
-    ranks = launch(dp_rank, DP_RANKS,
-                   (uniforms, {t: one[t]["losses"] for t in DP_TRAINERS}),
-                   backend="gloo", devices=["cuda:0"] * DP_RANKS,
-                   timeout=900, deadline=900)
-    print(f"    launch and run: {time.time() - t0:.1f} s")
     parts = {}
     for trainer in DP_TRAINERS:
         for r in ranks:
@@ -6139,17 +6222,355 @@ def dp_phases(card):
     return parts
 
 
+# ---------- spatial sharding (phases 59-62) ----------
+
+SP_MESH = (1, 2)
+SP_DIR = os.path.join(ROOT, "build", "chip_smoke_spatial")
+SP_DTYPES = (torch.float32, torch.bfloat16)
+# the windowed kernels' rows of the kernels line, by dtype: (forward,
+# backward)
+SP_KERNELS = {torch.float32: ("resize_ce_forward_window",
+                              "resize_ce_backward_window"),
+              torch.bfloat16: ("resize_ce_forward_window_bf16",
+                               "resize_ce_backward_window_bf16")}
+
+
+def sp_tag(dtype):
+    return "seg_" + str(dtype).rsplit(".", 1)[-1]
+
+
+def sp_picks(mesh):
+    """This rank's block of the global batch (data rows, then the rows of
+    the NHWC images and NHW labels), and its block of an NCHW feature of
+    the global batch (the ascents' perturbations and gradients)."""
+    def feature(t):
+        t = t[dp.split_rows(t.shape[0], mesh.data_index, mesh.data)]
+        return t[:, :, dp.split_rows(t.shape[2], mesh.spatial_index,
+                                     mesh.spatial)]
+    return (lambda t: dp.shard_batch_spatial(mesh, t)), feature
+
+
+def sp_window_case(label, lo, lab, window, g, errs):
+    """The windowed kernels on ``lo`` (a window's logits rows) and ``lab``
+    (its label rows) against the plain version on the same window: f32 as
+    phase 7 holds them (sums within ``CE_SUM_TOL``, gradient within
+    ``CE_GRAD_TOL``); bf16 logits: sums within ``CE_SUM_TOL`` and equal to
+    the f32 kernel's on the widened logits, the gradient the f32 kernel's
+    rounded to bf16, bit for bit, and that f32 gradient within
+    ``CE_GRAD_TOL`` of the plain version's on the widened logits (against
+    the plain bf16 gradient one bf16 ulp of an entry near the largest, up
+    to 2^-7 of it, is shown, not bounded: phase 28's ``BF16_GRAD_TOL``
+    allows half that, and a step's logits reach it). The largest absolute
+    errors go to ``errs[dtype]``."""
+    size = tuple(lab.shape[1:])
+    sums = krce.resize_ce_forward(lo, lab, None, window)
+    dlo = krce.resize_ce_backward(lo, lab, g, None, window)
+    want_s = trce.fused_resize_nll_sums_plain(lo, lab, size, None, window)
+    want_d = trce.resize_ce_grad_plain(lo, lab, g, None, window)
+    torch.cuda.synchronize()
+    es = rel_err(sums, want_s)
+    eg = rel_err(dlo.float(), want_d.float())
+    e = errs.setdefault(lo.dtype, [0.0, 0.0])
+    e[0] = max(e[0], float((sums - want_s).abs().max()))
+    e[1] = max(e[1], float((dlo.float() - want_d.float()).abs().max()))
+    line = (f"    {label}: lo {tuple(lo.shape)} {lo.dtype} rows "
+            f"[{window[2]}, {window[2] + lo.shape[2]}) of {window[0]}, labels "
+            f"rows [{window[3]}, {window[3] + size[0]}) of {window[1]}: sums "
+            f"rel {es:.3e}, grad rel {eg:.3e}")
+    require(es <= CE_SUM_TOL, f"{label}: sums rel err {es}")
+    if lo.dtype == torch.bfloat16:
+        wide = lo.float()
+        dlo32 = krce.resize_ce_backward(wide, lab, g, None, window)
+        same = (torch.equal(sums, krce.resize_ce_forward(wide, lab, None,
+                                                         window))
+                and torch.equal(dlo, dlo32.bfloat16()))
+        eg32 = rel_err(dlo32, trce.resize_ce_grad_plain(wide, lab, g, None,
+                                                        window))
+        print(f"{line}; the f32 kernels' on the widened logits, rounded to "
+              f"bf16, bit for bit: {same}; their f32 gradient against the "
+              f"plain version's rel {eg32:.3e}")
+        require(same and eg32 <= CE_GRAD_TOL,
+                f"{label}: bf16 window {same}, f32 gradient {eg32}")
+    else:
+        print(line)
+        require(eg <= CE_GRAD_TOL, f"{label}: grad rel err {eg}")
+
+
+def sp_window_of(lo, lab, size, r):
+    """Rank ``r`` of ``size``'s window of whole-map logits and labels: its
+    logits rows, label rows and ``(hg, Hg, y0, Y0)``."""
+    hg, Hg = lo.shape[2], lab.shape[1]
+    rows = dp.split_rows(Hg, r, size)
+    y0, y1 = resize_window(hg, Hg, rows)
+    return (lo[:, :, y0:y1].contiguous(), lab[:, rows].contiguous(),
+            (hg, Hg, y0, rows.start))
+
+
+def sp_kernels_vs_plain(card, errs):
+    """Phase 61: the windowed kernels at the recipe's per-rank shapes,
+    f32 and bf16, on the top-edge and bottom-edge windows of a 1 x 2 mesh
+    and the interior window of a 1 x 3 one; the whole map's sums are the
+    two windows' sums and its gradient the windows' gradients added into
+    their rows (f32, within ``CE_SUM_TOL`` and ``CE_GRAD_TOL``)."""
+    print(f"[61] windowed upsample + CE kernels vs their plain versions at "
+          f"the recipe's per-rank shapes ({card})")
+    h = SEG_CROP // 4
+    lo, lab, g = ce_inputs(SEG_BATCH, (h, h), (SEG_CROP, SEG_CROP), 19,
+                           seed=3)
+    for dtype in SP_DTYPES:
+        x = lo.to(dtype)
+        for label, r, size in (("top edge, 1 x 2", 0, 2),
+                               ("bottom edge, 1 x 2", 1, 2),
+                               ("interior, 1 x 3", 1, 3)):
+            lw, bw, win = sp_window_of(x, lab, size, r)
+            sp_window_case(label, lw, bw, win, g, errs)
+    whole_s = krce.resize_ce_forward(lo, lab)
+    whole_d = krce.resize_ce_backward(lo, lab, g)
+    sums, dlo = torch.zeros_like(whole_s), torch.zeros_like(whole_d)
+    for r in range(2):
+        lw, bw, win = sp_window_of(lo, lab, 2, r)
+        sums += krce.resize_ce_forward(lw, bw, None, win)
+        dlo[:, :, win[2]:win[2] + lw.shape[2]] += krce.resize_ce_backward(
+            lw, bw, g, None, win)
+    es, eg = rel_err(sums, whole_s), rel_err(dlo, whole_d)
+    print(f"    the two windows against the whole map's kernels: sums rel "
+          f"{es:.3e}, gradient rel {eg:.3e}")
+    require(es <= CE_SUM_TOL and eg <= CE_GRAD_TOL,
+            f"the windows do not add up to the whole map: {es}, {eg}")
+
+
+def sp_rank(rank, one_losses, refs):
+    """Phase 60, one rank of the 1 x 2 mesh on cuda:0: the recipe's step
+    in f32 and bf16, row-sharded, replaying phase 59's ascents (saved under
+    ``refs[tag]``: a folder and a name); each rank holds the windowed
+    kernels at its own first site's inputs against the plain version."""
+    for m in (krce, kpgd):
+        m.load_library()
+    mesh = dp.make_mesh_2d(*SP_MESH)
+    batch_pick, feature_pick = sp_picks(mesh)
+    out = {}
+    for dtype in SP_DTYPES:
+        tag, probe, errs = sp_tag(dtype), {}, {}
+        folder, name = refs[tag]
+        r = dp_steps("seg", batch_pick, probe=probe, replay=True, flips=[],
+                     grads=[], dtype=dtype, mesh=mesh,
+                     pick_ascent=feature_pick, tag=name, folder=folder)
+        r["errors"] = dp_errors(r, name, one_losses[tag], folder)
+        del r["params"], r["update"]
+        lo, lab, size, _, window = probe["ce"]
+        sp_window_case(f"rank {rank} of 2, its first site", lo, lab, window,
+                       torch.rand(lo.shape[0], device="cuda"), errs)
+        r["errs"] = errs[dtype]
+        r["window"] = (tuple(lo.shape), tuple(lab.shape), window)
+        out[tag] = r
+    return out
+
+
+def sp_kernel_times(card, window_shapes):
+    """Phase 62's kernel times: each windowed kernel at rank 0's shapes
+    (the step's B=4 sites; the spectrum site is B=8), f32 and bf16, in
+    turns with the library composition on the window, with its plain
+    version and its bound."""
+    times = {}
+    for dtype in SP_DTYPES:
+        lo_shape, lab_shape, window = window_shapes[dtype]
+        rng = np.random.RandomState(6)
+        lo = cuda(rng.randn(*lo_shape).astype(np.float32)).to(dtype)
+        lab = seg_batch(0)[1][:lab_shape[0], :lab_shape[1]].to(
+            torch.int32).contiguous()
+        parts = ce_parts(lo, lab, torch.ones(lo_shape[0], device="cuda"),
+                         window)
+        fwd, bwd = SP_KERNELS[dtype]
+        for name, half in ((fwd, "fwd"), (bwd, "bwd")):
+            times[name] = kernel_times(
+                parts[half], parts[f"plain_{half}"], parts[f"{half}_bytes_ms"],
+                parts[f"{half}_ops_ms"], parts[f"lib_{half}"])
+            t = times[name]
+            print(f"    {name} at rank 0's window: lo {lo_shape} {dtype} -> "
+                  f"labels {lab_shape}, window {window}: kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, library "
+                  f"{t['library_ms']:.4f}, bound {t['bound_ms']:.5f} "
+                  f"({t['bound_by']}); kernel at "
+                  f"{t['ms'] / t['bound_ms']:.1f}x its bound ({card})")
+    return times
+
+
+def sp_world_one(card, dp_seg=None):
+    """Phase 59: the world-1 steps, f32 and bf16, and their swapped-batch
+    floors; (world 1's results, the floors, where each one's records lie).
+    ``dp_seg`` (phase 55's seg result and floor, the same f32 runs) stands
+    in for the f32 ones when the data-parallel group ran."""
+    os.makedirs(SP_DIR, exist_ok=True)
+    print(f"[59] spatial sharding: the world-1 Cityscapes A-FAN seg step "
+          f"(batch {SEG_BATCH}, crop {SEG_CROP}; {DP_STEPS} steps, "
+          f"deterministic cuDNN, dropout off) in f32 and bf16, then on the "
+          f"batch with its halves swapped, replaying the first run's "
+          f"ascents")
+    one, floor, refs = {}, {}, {}
+    for dtype in SP_DTYPES:
+        tag = sp_tag(dtype)
+        if dtype == torch.float32 and dp_seg is not None:
+            one[tag], floor[tag] = dp_seg
+            refs[tag] = (DP_DIR, "seg")
+            print(f"    {tag}: phase 55's seg runs")
+            continue
+        refs[tag] = (SP_DIR, tag)
+        r = dp_steps("seg", lambda t: t, flips=[], grads=[], dtype=dtype,
+                     tag=tag, folder=SP_DIR)
+        for key in ("params", "update"):
+            np.save(os.path.join(SP_DIR, f"{tag}_{key}.npy"), r.pop(key))
+        one[tag] = r
+        print(f"    {tag}: losses {r['losses']}, step {r['ms']:.3f} ms, "
+              f"peak {r['peak_gib']:.2f} GiB ({card})")
+        sw = dp_steps("seg", dp_swapped, replay=True, flips=[], grads=[],
+                      dtype=dtype, tag=tag, folder=SP_DIR)
+        floor[tag] = dp_errors(sw, tag, r["losses"], SP_DIR)
+        print(f"      the swapped batch: errors {floor[tag]}; each ascent's "
+              f"gradient error and sign flips {dp_grads(sw)}")
+    return one, floor, refs
+
+
+def sp_check(card, ranks, one, floor):
+    """Phases 60 (the 1 x 2 ranks' results against world 1), 61 and 62;
+    the windowed kernels' entries of the kernels line (launches per rank
+    of the 1 x 2 steps)."""
+    d, sp = SP_MESH
+    print(f"[60] the same steps on a {d} x {sp} data x spatial mesh: {d * sp} "
+          f"gloo ranks on cuda:0, each on its rows of each image (the halo "
+          f"rows through host buffers), phase 59's ascents replayed. A "
+          f"correctness run: ranks sharing one card are no speed figure")
+    parts, window_shapes = {}, {}
+    for dtype in SP_DTYPES:
+        tag = sp_tag(dtype)
+        for r in ranks:
+            require(r[tag]["losses"] == ranks[0][tag]["losses"],
+                    f"{tag}: the ranks report different global losses")
+        errs = {k: max(r[tag]["errors"][k] for r in ranks)
+                for k in floor[tag]}
+        print(f"    {tag}: losses {ranks[0][tag]['losses']} (world 1 "
+              f"{one[tag]['losses']}); errors {errs}; the swapped batch's "
+              f"{floor[tag]}")
+        for i, r in enumerate(ranks):
+            print(f"      rank {i}: step {r[tag]['ms']:.3f} ms, peak "
+                  f"{r[tag]['peak_gib']:.2f} GiB, launches "
+                  f"{r[tag]['counts']}, window {r[tag]['window']} ({card}); "
+                  f"each ascent's gradient error and sign flips "
+                  f"{dp_grads(r[tag])}")
+        for k, least in DP_MIN_BOUND.items():
+            bound = max(DP_FLOOR_FACTOR * floor[tag][k], least)
+            require(errs[k] <= bound, f"{tag}: 1 x 2 {k} error {errs[k]} "
+                                      f"above {bound}")
+        suffix = "_bf16" if dtype == torch.bfloat16 else ""
+        fwd, bwd = SP_KERNELS[dtype]
+        for name, whole in ((fwd, "resize_ce_forward" + suffix),
+                            (bwd, "resize_ce_backward" + suffix)):
+            want = one[tag]["counts"][whole]
+            for i, r in enumerate(ranks):
+                got = r[tag]["counts"]
+                require(got[name] == got[whole] == want > 0,
+                        f"{tag}: rank {i} launched {got[name]} windowed "
+                        f"{whole} of {got[whole]}; world 1 {want}")
+        for i, r in enumerate(ranks):
+            require(r[tag]["counts"]["pgd_update"]
+                    == one[tag]["counts"]["pgd_update"],
+                    f"{tag}: rank {i} launched another count of PGD updates")
+        err = max(max(r[tag]["errs"]) for r in ranks)
+        parts[fwd] = (ranks[0][tag]["counts"][fwd],
+                      max(r[tag]["errs"][0] for r in ranks), None)
+        parts[bwd] = (ranks[0][tag]["counts"][bwd],
+                      max(r[tag]["errs"][1] for r in ranks), None)
+        lo_shape, lab_shape, window = ranks[0][tag]["window"]
+        window_shapes[dtype] = (lo_shape, lab_shape, window)
+        print(f"    {tag}: windowed kernels at the ranks' first sites, "
+              f"largest abs error {err:.3e}")
+
+    errs = {}
+    sp_kernels_vs_plain(card, errs)
+    print(f"[62] the windowed kernels at rank 0's shapes, timed in one "
+          f"process ({card})")
+    times = sp_kernel_times(card, window_shapes)
+    out = {}
+    for name, (launches, err, _) in parts.items():
+        dtype = torch.bfloat16 if name.endswith("_bf16") else torch.float32
+        err = max(err, errs[dtype][int("backward" in name)])
+        out[name] = (launches, err, times[name])
+    print("    train_segment --num_devices 2 --spatial_shards 2 on this "
+          "machine")
+    if torch.cuda.device_count() >= 2:
+        print(f"    {torch.cuda.device_count()} cards visible: not a "
+              f"one-card machine, skipped")
+    else:
+        try:
+            train_segment.main(["--num_devices", "2", "--spatial_shards",
+                                "2"])
+        except ValueError as e:
+            require("--num_devices 2" in str(e), f"the message {e}")
+            print(f"    raised: {e}")
+        else:
+            require(False, "--num_devices 2 --spatial_shards 2 ran on a "
+                           "one-card machine")
+    return out
+
+
+def pair_rank(rank, dp_args, sp_args):
+    """One rank of the two gloo ranks on cuda:0: phase 56's steps
+    (``dp_args``), then phase 60's (``sp_args``), each where given."""
+    out = {}
+    if dp_args is not None:
+        out["dp"] = dp_rank(rank, *dp_args)
+    if sp_args is not None:
+        out["spatial"] = sp_rank(rank, *sp_args)
+    return out
+
+
+def parallel_phases(card, seconds, with_dp, with_spatial):
+    """The data-parallel (55-58) and spatial (59-62) groups, whose ranks
+    run in one launch of two gloo ranks on cuda:0; the kernels' parts of
+    both."""
+    dp_args = sp_args = dp_ref = None
+    if with_dp:
+        with group_time(seconds, "dp"):
+            one, floor, uniforms = dp_world_one(card)
+            dp_args = (uniforms, {t: one[t]["losses"] for t in DP_TRAINERS})
+            dp_ref = (one, floor)
+    if with_spatial:
+        with group_time(seconds, "spatial"):
+            sp_one, sp_floor, refs = sp_world_one(
+                card, dp_ref and (dp_ref[0]["seg"], dp_ref[1]["seg"]))
+            sp_args = ({t: sp_one[t]["losses"] for t in sp_one}, refs)
+    with group_time(seconds, "ranks"):
+        t0 = time.time()
+        ranks = launch(pair_rank, DP_RANKS, (dp_args, sp_args),
+                       backend="gloo", devices=["cuda:0"] * DP_RANKS,
+                       timeout=900, deadline=900)
+        print(f"    the ranks of phases {'56' if with_dp else ''}"
+              f"{' and ' if with_dp and with_spatial else ''}"
+              f"{'60' if with_spatial else ''}: launch and run "
+              f"{time.time() - t0:.1f} s")
+    parts = {}
+    if with_dp:
+        with group_time(seconds, "dp"):
+            parts.update(dp_check(card, [r["dp"] for r in ranks], *dp_ref))
+            gc.collect()
+            torch.cuda.empty_cache()
+    if with_spatial:
+        with group_time(seconds, "spatial"):
+            parts.update(sp_check(card, [r["spatial"] for r in ranks],
+                                  sp_one, sp_floor))
+    return parts
+
+
 @contextlib.contextmanager
 def group_time(seconds, name):
-    """The block's wall seconds go to ``seconds[name]``."""
+    """The block's wall seconds are added to ``seconds[name]``."""
     t0 = time.time()
     yield
-    seconds[name] = round(time.time() - t0, 1)
+    seconds[name] = round(seconds.get(name, 0.0) + time.time() - t0, 1)
 
 
 GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain", "scan", "variants",
           "bf16", "detbf16", "clsbf16", "eval", "mobilenet", "coco", "data",
-          "dp")
+          "dp", "spatial")
 
 
 def main(argv=None):
@@ -6262,9 +6683,9 @@ def main(argv=None):
             merge_launches(entries, data_phases(card))
             gc.collect()
             torch.cuda.empty_cache()
-    if only in (None, "dp"):
-        with group_time(seconds, "dp"):
-            merge_launches(entries, dp_phases(card))
+    if only in (None, "dp", "spatial"):
+        merge_launches(entries, parallel_phases(
+            card, seconds, only in (None, "dp"), only in (None, "spatial")))
 
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "
           f"(seconds by group: {seconds})")

@@ -101,21 +101,27 @@ def test_reference_command_line_with_gpu_and_visdom_flags_parses():
 
 
 @pytest.mark.parametrize("flag", [["--num_devices", "2"],
-                                  ["--spatial_shards", "2"],
+                                  ["--spatial_shards", "2", "--num_devices",
+                                   "2"],
                                   ["--remat_tails"], ["--backbone_remat"]])
 def test_seg_cli_refuses_unported_flags(flag, tmp_path, monkeypatch):
     """The unported flags raise before anything is written; ``--num_devices
     2`` (data parallelism, ported) trains on two gloo processes instead and
-    rank 0 writes the checkpoints."""
+    rank 0 writes the checkpoints, and so does ``--spatial_shards 2`` on
+    those two (a 1 x 2 data x spatial mesh, ported), logging ``afan``'s
+    mesh line."""
     monkeypatch.chdir(tmp_path)
     argv = SEG_TINY + ["--limit_itrs", "1", "--val_interval", "1"] + flag
-    if flag[0] == "--num_devices":
+    if "--num_devices" in flag:
         train_segment.main(argv)
         (exp,) = os.listdir("checkpoints")
         assert sorted(f for f in os.listdir(os.path.join("checkpoints", exp))
                       if f.endswith(".pt")) == [
             "best_deeplabv3plus_mobilenet_synthetic.pt",
             "latest_deeplabv3plus_mobilenet_synthetic.pt"]
+        log = open(os.path.join("checkpoints", exp, "train.log")).read()
+        assert ("2-D mesh: data=1 x spatial=2" in log) == (
+            "--spatial_shards" in flag)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_segment.main(argv)

@@ -5,9 +5,10 @@ the CPU, two gloo ranks per launch (rank side in
 - the mesh helpers: ``check_divisible`` with ``afan``'s message, each
   rank's contiguous rows, the broadcast of rank 0's parameters and
   optimizer state, the gradient sum in flat buckets (fewer all-reduces
-  than tensors), the unported spatial mesh, the launcher's failures (a rank
-  that raises, a rank that hangs) and a run that outlives its collective
-  timeout (a launch has no wall-clock limit unless given one);
+  than tensors), the 1 x 1 spatial mesh of one process, the launcher's
+  failures (a rank that raises, a rank that hangs) and a run that outlives
+  its collective timeout (a launch has no wall-clock limit unless given
+  one);
 - the global BatchNorm at world 2, forward and backward: against the
   port's one-process BatchNorm on the global batch (within 1e-5 of each
   tensor's largest entry), and against flax's ``nn.BatchNorm`` on the
@@ -69,10 +70,17 @@ def test_mesh_helpers_outside_a_group():
     assert dp.rank_seed(7) == 7
     x = torch.ones(3)
     assert dp.share(x) is x and dp.global_sum(x) is x
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # one process holds a 1 x 1 mesh and no other (afan's message)
+    with pytest.raises(ValueError, match="need 2 devices for a 1x2 mesh, "
+                                         "have 1"):
         dp.make_mesh_2d(1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dp.shard_batch_spatial(None, np.zeros((2, 4, 4)))
+    mesh = dp.make_mesh_2d(1, 1)
+    assert (mesh.shape, mesh.size, mesh.spatial_group) == (
+        {"data": 1, "spatial": 1}, 1, None)
+    np.testing.assert_array_equal(
+        dp.shard_batch_spatial(mesh, np.arange(12).reshape(2, 3, 2)),
+        np.arange(12).reshape(2, 3, 2))
+    assert dp.rank_rows(8) == slice(0, 8) and dp.rank_seed(7) == 7
 
 
 def test_mesh_helpers_in_a_group():

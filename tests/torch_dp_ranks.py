@@ -1,8 +1,12 @@
-"""The rank side of ``tests/test_torch_dp.py``: one process of a
-data-parallel group (or the one process of a run without a group) builds
-the port's model from the given weights, takes its rows of each global
-batch and runs the trainer's step. It imports no jax, so that spawned ranks
-do not; ``afan_torch.parallel.launch`` runs it in each rank."""
+"""The rank side of ``tests/test_torch_dp.py`` and of the A-FAN steps of
+``tests/test_torch_spatial.py``: one process of a data-parallel group (or
+the one process of a run without a group) builds the port's model from
+the given weights, takes its rows of each global batch (with a ``mesh``
+in the payload, its block of a data x spatial mesh, each step row-sharded)
+and runs the trainer's step. It imports no jax, so that spawned ranks do
+not; ``afan_torch.parallel.launch`` runs it in each rank."""
+import contextlib
+
 import numpy as np
 import torch
 
@@ -12,6 +16,7 @@ from afan_torch.models.deeplab.modeling import segmentation_param_groups
 from afan_torch.models.frcnn import FasterRCNN, FRCNNConfig
 from afan_torch.models.resnet_s import ResNetS
 from afan_torch.parallel import mesh as dp
+from afan_torch.parallel import spatial
 from afan_torch.train import detect_loop, loop, optim, segment_loop
 
 
@@ -54,6 +59,8 @@ def build(section, p):
             tm, opt, sch, detect_loop.DetAfanConfig(**p["cfg"]))
     tm = DeepLab(*p["deeplab"])
     tm.load_state_dict(p["state_dict"])
+    if p.get("float64"):
+        tm.double()
     for m in tm.modules():
         if isinstance(m, torch.nn.Dropout):
             m.p = 0.0
@@ -72,8 +79,12 @@ def run(rank, section, p):
     size. With ``p["replay"]`` (the global perturbations of another run's
     ascents, in order) each ascent still runs, but the step goes on from
     its start plus the replayed perturbation, and ``ascents`` holds its
-    own."""
+    own. With ``p["mesh"] = (data, spatial)`` the ranks form that mesh:
+    each takes its block of the batch (its image rows too) and runs each
+    step row-sharded; the ascents are then its block's (rows on axis 2).
+    With ``p["float64"]`` the segmentation model and images are float64."""
     torch.set_num_threads(1)
+    mesh = dp.make_mesh_2d(*p["mesh"]) if "mesh" in p else None
     tm, opt, step = build(section, p)
     dp.replicate_state(tm, opt)
     ascents, replay = [], p.get("replay")
@@ -92,12 +103,18 @@ def run(rank, section, p):
         metrics = []
         for batch in p["batches"]:
             n = batch["inputs"][0].shape[0]
-            inputs = [dp.shard_batch(torch.from_numpy(a))
-                      for a in batch["inputs"]]
+            inputs = [torch.from_numpy(a) for a in batch["inputs"]]
+            if p.get("float64"):
+                inputs = [a.double() if a.is_floating_point() else a
+                          for a in inputs]
+            inputs = [dp.shard_batch(a) if mesh is None
+                      else dp.shard_batch_spatial(mesh, a) for a in inputs]
             kw = {}
             if "targets" in batch:
                 kw["targets"] = shard_tree(batch["targets"], n)
-            out = step(*inputs, **kw)
+            with (spatial.sharded(mesh) if mesh is not None
+                  else contextlib.nullcontext()):
+                out = step(*inputs, **kw)
             metrics.append({k: v.numpy().tolist() for k, v in out.items()})
     finally:
         for mod in (loop, segment_loop, detect_loop):
@@ -108,6 +125,11 @@ def run(rank, section, p):
     return {"rank": dp.rank(), "size": dp.world_size(), "metrics": metrics,
             "state": {k: v.numpy() for k, v in tm.state_dict().items()},
             "momenta": momenta, "ascents": ascents}
+
+
+def runs(rank, section, payloads):
+    """:func:`run` of each payload in turn, in one launch."""
+    return [run(rank, section, p) for p in payloads]
 
 
 def bn_rank(rank, x, weight, bias, momentum, update):
