@@ -4,8 +4,14 @@ or a cv2 stream with a frame-skip period.
 
 Images are resized with the dataset rule, pasted onto the static canvas, run
 through the detect path on the card, and detections above ``--prob_thresh``
-are drawn with class/prob labels. ``cv2`` and ``PIL`` are imported only where
-a file or stream is read or drawn.
+are drawn with class/prob labels. ``image`` and ``dir`` need neither PIL
+nor OpenCV (the machine with the card has neither): a file is read by
+:func:`afan_torch.utils.imread.read_rgb` (PIL's bytes), the boxes and labels
+are drawn by :mod:`afan_torch.utils.draw` (OpenCV's pixels) and the result
+is written by :func:`afan_torch.utils.png.write_png`. ``afan`` writes
+through ``cv2.imwrite``, whose format follows the name; the port writes
+PNG, so ``dir`` names each output ``<name>.png``. ``stream`` (a camera and
+a window) imports ``cv2`` there, as ``afan``'s does.
 """
 from __future__ import annotations
 
@@ -22,7 +28,10 @@ from ..models.frcnn import FRCNNConfig, FasterRCNN
 from ..train.checkpoint import load_checkpoint, overlap_restore
 from ..train.detect_loop import make_detect_fn
 from ..utils.device import resolve_device
+from ..utils.draw import put_text, rectangle
+from ..utils.imread import read_rgb
 from ..utils.logging import Log
+from ..utils.png import write_png
 
 
 def build_state(args, num_classes: int = 21, device=None):
@@ -83,16 +92,17 @@ def detect_image(detect_fn, canvas_hw, img: np.ndarray, min_side: float,
 
 
 def draw(img: np.ndarray, detections, class_names=VOC_CLASSES) -> np.ndarray:
-    import cv2
+    """``afan``'s drawing: per detection a box of thickness 2 and its
+    ``name prob`` label above it, in the class's colour; the pixels of
+    ``cv2.rectangle`` and ``cv2.putText`` (:mod:`afan_torch.utils.draw`)."""
     vis = (img * 255).astype(np.uint8).copy()
     for box, c, p in detections:
         x1, y1, x2, y2 = box.astype(int)
         color = (int((c * 37) % 255), int((c * 91) % 255),
                  int((c * 151) % 255))
-        cv2.rectangle(vis, (x1, y1), (x2, y2), color, 2)
+        rectangle(vis, (x1, y1), (x2, y2), color)
         name = class_names[c - 1] if 0 < c <= len(class_names) else str(c)
-        cv2.putText(vis, f"{name} {p:.2f}", (x1, max(y1 - 4, 10)),
-                    cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, 1)
+        put_text(vis, f"{name} {p:.2f}", (x1, max(y1 - 4, 10)), color)
     return vis
 
 
@@ -119,16 +129,12 @@ def main(argv=None):
     detect_fn = make_detect_fn(model)
 
     def run_one(path, out_path):
-        from PIL import Image
-        import cv2
-        img = np.asarray(Image.open(path).convert("RGB"),
-                         np.float32) / 255.0
+        img = read_rgb(path).astype(np.float32) / 255.0
         t0 = time.time()
         dets = detect_image(detect_fn, canvas_hw, img, args.image_min_side,
                             args.image_max_side, args.prob_thresh)
         Log.i(f"{path}: {len(dets)} detections in {time.time() - t0:.2f}s")
-        vis = draw(img, dets)
-        cv2.imwrite(out_path, cv2.cvtColor(vis, cv2.COLOR_RGB2BGR))
+        write_png(out_path, draw(img, dets))
         Log.i(f"wrote {out_path}")
 
     if args.mode == "image":
@@ -137,8 +143,8 @@ def main(argv=None):
         os.makedirs(args.output, exist_ok=True)
         for f in sorted(os.listdir(args.input)):
             if f.lower().endswith((".jpg", ".jpeg", ".png")):
-                run_one(os.path.join(args.input, f),
-                        os.path.join(args.output, f))
+                run_one(os.path.join(args.input, f), os.path.join(
+                    args.output, os.path.splitext(f)[0] + ".png"))
     else:  # stream (`infer_stream.py:19-60`)
         import cv2
         cap = cv2.VideoCapture(int(args.input) if args.input.isdigit()

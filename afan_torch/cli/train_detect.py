@@ -158,7 +158,7 @@ def get_parser():
                    action="store_false",
                    help="resample in every forward, as the reference does")
     p.add_argument("--remat_tails", action="store_true", default=False,
-                   help="not ported yet: raises")
+                   help="recompute the spectrum tails in the backward")
     p.add_argument("--unfreeze_backbone", action="store_true",
                    help="train the stem, layer1 and the BatchNorm affines "
                         "too (training from scratch)")
@@ -173,15 +173,6 @@ def get_parser():
     p.add_argument("--seed", "--random_seed", type=int, default=0,
                    dest="seed")
     return p
-
-
-def refuse_unported(args) -> None:
-    """The flags whose paths are not ported yet raise, naming the ROADMAP,
-    instead of running something else, before any rank starts (the step's
-    factory refuses ``remat_tails`` too)."""
-    if args.remat_tails:
-        raise NotImplementedError("--remat_tails is not ported yet "
-                                  "(ROADMAP.md, queue 1: recomputation)")
 
 
 def afan_config_for(args) -> DetAfanConfig:
@@ -247,7 +238,6 @@ def frcnn_config(args, num_classes: int) -> FRCNNConfig:
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = get_parser().parse_args(argv)
-    refuse_unported(args)
     device = resolve_device(args.device)
     n_ranks = dp.resolve_size(args.num_devices, device)
     dp.check_divisible(args.batch_size, n_ranks)

@@ -57,8 +57,11 @@ and to TensorBoard there where ``torch.utils.tensorboard`` imports, as
 cross-entropy. A kernel that fails raises: there is no switch to ``off``.
 ``afan``'s other flags parse as in ``afan``: ``--gpu_id``, ``--vis_port``,
 ``--vis_env`` and ``--adv_type`` are ignored, ``--download`` logs that
-nothing is downloaded; ``--remat_tails`` and ``--backbone_remat`` raise,
-not ported yet. ``--num_devices N`` above 1 trains data-parallel on N
+nothing is downloaded. ``--backbone_remat`` recomputes the ResNet
+backbone's stages in every backward (MobileNetV2 ignores it, as in
+``afan``) and ``--remat_tails`` the spectrum tails
+(:mod:`afan_torch.train.remat`): less memory, more time, the same step.
+``--num_devices N`` above 1 trains data-parallel on N
 cards, one process each (``--device cpu``: N gloo processes; every
 visible card by default on the card): each rank loads the global batch of
 the one-process run and keeps its rows, the loss divides by the global
@@ -203,9 +206,10 @@ def get_parser():
                         "site (on the card); off: the library's upsample "
                         "and cross-entropy")
     p.add_argument("--remat_tails", action="store_true", default=False,
-                   help="not ported yet: raises")
+                   help="recompute the spectrum tails in the backward")
     p.add_argument("--backbone_remat", action="store_true", default=False,
-                   help="not ported yet: raises")
+                   help="recompute the ResNet backbone's stages in the "
+                        "backward (ignored for MobileNetV2)")
     p.add_argument("--num_devices", type=int, default=None,
                    help="devices: one process each (NCCL, one card each; "
                         "gloo processes with --device cpu); every visible "
@@ -224,15 +228,6 @@ def get_parser():
     p.add_argument("--adv_type", type=str, default="baseline",
                    help="ignored (unused by the reference trainers too)")
     return p
-
-
-def refuse_unported(args) -> None:
-    """The flags whose paths are not ported yet raise, naming the ROADMAP,
-    instead of running something else."""
-    where = "not ported yet (ROADMAP.md, queue 1)"
-    for flag in ("remat_tails", "backbone_remat"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is {where}")
 
 
 def afan_config(args) -> SegAfanConfig:
@@ -269,7 +264,8 @@ def afan_config(args) -> SegAfanConfig:
         noise_sd=args.noise_sd, randinit=args.randinit, clip=args.clip,
         step_mode=args.pgd_step_mode, random_steps=args.pgd_random_steps,
         use_focal=args.loss_type == "focal_loss", weight_mode=weight_mode,
-        loss_setting=args.loss_settings, input_adv=input_adv)
+        loss_setting=args.loss_settings, input_adv=input_adv,
+        remat_tails=args.remat_tails)
 
 
 def build_step(args, model, optimizer, scheduler):
@@ -325,7 +321,6 @@ def check_mesh(args, n_ranks: int) -> None:
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = get_parser().parse_args(argv)
-    refuse_unported(args)
     device = resolve_device(args.device)
     n_ranks = dp.resolve_size(args.num_devices, device)
     check_mesh(args, n_ranks)
@@ -369,7 +364,8 @@ def main(argv=None):
     torch.manual_seed(dp.rank_seed(args.random_seed, mesh.data_index))
     model = build_model(args.model, num_classes, args.output_stride,
                         torch.bfloat16 if args.bf16 else torch.float32,
-                        separable_conv=args.separable_conv)
+                        separable_conv=args.separable_conv,
+                        backbone_remat=args.backbone_remat)
     model.reset_parameters(torch.Generator().manual_seed(args.random_seed))
     if args.pretrained_backbone:
         fp, fs = restore_pretrained_backbone(model.backbone,

@@ -14,6 +14,10 @@ convolutions depthwise-separable in both heads, as ``afan`` does. ``dtype``
 is the compute dtype (``afan``'s ``build_model(..., dtype)``; bfloat16 under
 ``--bf16``): the parameters stay float32 and the activations, features and
 logits take ``dtype`` (see :mod:`afan_torch.models.resnet`).
+``backbone_remat`` (``--backbone_remat``: one bool or a per-stage
+4-sequence) recomputes the ResNet backbone's stages in the backward
+(:class:`afan_torch.models.resnet.ResNetTorso`'s ``remat``); MobileNetV2
+ignores it, as in ``afan`` (`afan/models/deeplab/modeling.py:52-57`).
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ class DeepLab(nn.Module):
     def __init__(self, backbone_name: str = "resnet50", num_classes: int = 21,
                  output_stride: int = 16, plus: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 separable_conv: bool = False):
+                 separable_conv: bool = False, backbone_remat=False):
         super().__init__()
         if backbone_name not in BACKBONES:
             raise ValueError(f"unknown backbone {backbone_name!r}; have "
@@ -52,7 +56,7 @@ class DeepLab(nn.Module):
         else:
             self.backbone = from_name(backbone_name,
                                       output_stride=output_stride,
-                                      norm=BatchNorm)
+                                      norm=BatchNorm, remat=backbone_remat)
         rates = (12, 24, 36) if output_stride == 8 else (6, 12, 18)
         cin = NUM_HIDDEN_OUT[backbone_name]
         self.classifier = (
@@ -168,9 +172,10 @@ MODEL_MAP = {
 
 def build_model(name: str, num_classes: int, output_stride: int = 16,
                 dtype: torch.dtype = torch.float32,
-                separable_conv: bool = False) -> DeepLab:
+                separable_conv: bool = False,
+                backbone_remat=False) -> DeepLab:
     if name not in MODEL_MAP:
         raise ValueError(f"unknown model {name!r}; have {list(MODEL_MAP)}")
     return DeepLab(num_classes=num_classes, output_stride=output_stride,
                    dtype=dtype, separable_conv=separable_conv,
-                   **MODEL_MAP[name])
+                   backbone_remat=backbone_remat, **MODEL_MAP[name])

@@ -30,13 +30,14 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Iterator, Optional, Sequence, Tuple, Type
+from typing import Iterator, Optional, Sequence, Tuple, Type, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel import mesh, spatial
+from ..train.remat import remat
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -324,15 +325,30 @@ class ResNetTorso(nn.Module):
     torchvision's rule: a dilated stage moves its stride into the dilation
     and its first block keeps the previous stage's dilation. ``norm`` is
     :class:`FrozenBatchNorm` (detection) or :class:`BatchNorm`
-    (segmentation)."""
+    (segmentation).
+
+    ``remat`` (``afan``'s ``ResNetTorso.remat``: one bool for the four
+    stages or a per-stage 4-sequence, e.g. ``(1, 1, 0, 0)``) recomputes
+    those of layer1..4 (never the stem) in the backward of every
+    grad-requiring pass, the ascents' ``autograd.grad`` through a tail
+    included (:func:`afan_torch.train.remat.remat`). The default is off;
+    ``afan``'s default is on, which its detection stack keeps, while the
+    port's detection stack does not recompute (the function is the same;
+    ``README.md`` says why)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  block: type = Bottleneck, output_stride: int = 32,
-                 norm: Type[nn.Module] = FrozenBatchNorm):
+                 norm: Type[nn.Module] = FrozenBatchNorm,
+                 remat: Union[bool, Sequence[bool]] = False):
         super().__init__()
         if output_stride not in _DILATIONS:
             raise ValueError(f"output_stride must be one of "
                              f"{sorted(_DILATIONS)}, got {output_stride}")
+        self.remat = (tuple(bool(r) for r in remat)
+                      if isinstance(remat, (tuple, list)) else
+                      (bool(remat),) * 4)
+        if len(self.remat) != 4:
+            raise ValueError(f"remat needs one entry per stage, got {remat}")
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = norm(64)
         cin, prev_dil = 64, 1
@@ -367,15 +383,15 @@ class ResNetTorso(nn.Module):
         """Run layers (start, end] on NCHW ``x``."""
         if start == 0:
             x = self.stem(x)
-        for stage in self.stages[start:end]:
-            x = stage(x)
+        for i in range(start, end):
+            x = self.run_stage(x, i)
         return x
 
     def head(self, x: torch.Tensor, tap: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Image → (feature after layer ``tap``, ``low_level`` = the feature
         after layer1)."""
-        low_level = self.layer1(self.stem(x))
+        low_level = self.run_stage(self.stem(x), 0)
         return self.forward(low_level, 1, tap), low_level
 
     def tail(self, feature: torch.Tensor, tap: int, end: int = 4
@@ -385,8 +401,11 @@ class ResNetTorso(nn.Module):
 
     def run_stage(self, x: torch.Tensor, stage: int) -> torch.Tensor:
         """Apply one layer (the detection 'hidden' = layer4 on pooled
-        ROIs)."""
-        return self.stages[stage](x)
+        ROIs), recomputed in the backward where ``remat`` says so."""
+        layer = self.stages[stage]
+        if self.remat[stage]:
+            return remat(layer, x, module=layer)
+        return layer(x)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's init: kaiming-normal (fan_out, gain 2) conv kernels and
@@ -418,7 +437,7 @@ BACKBONES = {"resnet18": resnet18, "resnet50": resnet50,
 
 def from_name(name: str, **kw) -> ResNetTorso:
     """Backbone registry; ``kw`` goes to :class:`ResNetTorso`
-    (``output_stride``, ``norm``)."""
+    (``output_stride``, ``norm``, ``remat``)."""
     if name not in BACKBONES:
         raise ValueError(f"unknown backbone {name!r}; have {list(BACKBONES)}")
     return BACKBONES[name](**kw)

@@ -51,8 +51,7 @@ from ..models.frcnn.model import FasterRCNN, Targets
 from ..models.resnet import FrozenBatchNorm
 from ..ops.lowp import mean
 from ..parallel.mesh import global_sum, share, sum_gradients
-
-UNPORTED = "not ported yet (ROADMAP.md, queue 1: detection)"
+from .remat import remat
 
 
 def detection_param_groups(model: FasterRCNN, freeze: bool = True
@@ -186,11 +185,9 @@ def loss_weights(cfg: DetAfanConfig) -> Tuple[float, float, float]:
                      f"{cfg.loss_setting} is not a preset")
 
 
-def _refuse_unported(cfg: DetAfanConfig) -> None:
+def _check_config(cfg: DetAfanConfig) -> None:
     if cfg.sd not in ("roi", "rpn", None):
         raise ValueError(f"unknown sd tap {cfg.sd!r}")
-    if cfg.remat_tails:
-        raise NotImplementedError(f"remat_tails is {UNPORTED}")
     if cfg.taps_se and len(cfg.mix_mask) != cfg.spectrum:
         raise ValueError(f"mix_mask {cfg.mix_mask} needs {cfg.spectrum} "
                          f"entries")
@@ -233,7 +230,13 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
 
     Each loss term is backpropagated as soon as it is formed (the terms
     share no activations but the clean forward's), so one forward's graph
-    is alive at a time; the update is the one of the summed loss.
+    is alive at a time; the update is the one of the summed loss. With
+    ``remat_tails`` each spectrum tail is recomputed in its backward
+    (:func:`afan_torch.train.remat.remat`), its sample drawn again from the
+    generator's state at its forward (so the proposal NMS of a tail that
+    samples its own runs twice), and the generator left where the step had
+    taken it: the same step, with only the tail's inputs kept between its
+    forward and its backward.
 
     ``step(images, gt_boxes, gt_classes, gt_valid, generator=None,
     targets=None)`` returns the detached ``loss``, ``loss_clean``,
@@ -245,7 +248,7 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
     tail's uniforms, :meth:`FasterRCNN.draw_priorities`), which then are
     not drawn.
     """
-    _refuse_unported(cfg)
+    _check_config(cfg)
     c_clean, c_se, c_sd = loss_weights(cfg)
 
     def attack(loss_fn, x, gamma, generator):
@@ -367,12 +370,17 @@ def make_afan_det_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
             if c_sd:
                 (c_sd * l_sd).backward()
 
-        # the spectrum tails, then the extra taps' points, one at a time
-        extra = [(cfg.taps_se[0], f) for f in spec_feats] + list(
-            zip(cfg.taps_se[1:], se_advs[1:]))
+        # the spectrum tails (recomputed in the backward under
+        # remat_tails, each drawing its sample again from the generator's
+        # state at its forward), then the extra taps' points, one at a time
+        extra = [(cfg.taps_se[0], f, cfg.remat_tails) for f in spec_feats]
+        extra += [(tap, a, False)
+                  for tap, a in zip(cfg.taps_se[1:], se_advs[1:])]
         terms = []
-        for tap, feat in extra:
-            term = tail_loss(tap, feat)
+        for tap, feat, recompute in extra:
+            term = (remat(tail_loss, tap, feat, module=model,
+                          generators=(generator,))
+                    if recompute else tail_loss(tap, feat))
             (c_se * term).backward()
             terms.append(term.detach())
         sum_gradients(optimizer)

@@ -69,6 +69,7 @@ from ..ops.resize_ce import (IGNORE, fused_resize_nll_sums,
 from ..ops.resize_ce import per_entry_loss_sums as _per_entry_loss_sums
 from ..parallel import spatial
 from ..parallel.mesh import global_sum, sum_gradients
+from .remat import remat
 
 FOCAL = (1.0, 2.0)      # (alpha, gamma) of seg_focal_loss
 
@@ -131,6 +132,9 @@ class SegAfanConfig:
     input_adv_steps: int = 3
     input_adv_gamma: float = 0.3 / 255
     input_adv_eps: float = 2.0 / 255
+    # recompute each spectrum point's tail logits in the backward
+    # (``afan``'s ``jax.checkpoint`` of ``one_tail_logits``)
+    remat_tails: bool = False
 
 
 # (clean weight, weight of the sum of the n adversarial terms) per preset
@@ -270,7 +274,10 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
     3. optional AFN + noise on SD;
     4. spectrum on SE with AFN per the mix mask;
     5. loss = the weight mode's mix of the clean and adversarial terms; one
-       SGD update.
+       SGD update. With ``remat_tails`` each spectrum point's tail logits
+       are recomputed in the backward (:func:`afan_torch.train.remat.remat`:
+       the running statistics stay updated once, the dropout masks are the
+       forward's), which changes memory and time, not the step.
 
     ``step(images, labels, generator=None)`` returns the detached
     ``loss``, ``loss_clean``, ``loss_spectrum`` and ``loss_sd``;
@@ -292,6 +299,14 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
                    randinit=cfg.randinit, clip=cfg.clip, generator=generator,
                    step_mode=cfg.step_mode, random_steps=cfg.random_steps,
                    row_axis=2)
+
+    def spectrum_tail(feat, low_level):
+        """One spectrum point's os4 logits; its upsample + CE stays outside
+        the recomputed region, as in ``afan``."""
+        if cfg.remat_tails:
+            return remat(model.forward_tail_logits, feat, low_level,
+                         cfg.tap_se, module=model)
+        return model.forward_tail_logits(feat, low_level, cfg.tap_se)
 
     def step_fn(images: torch.Tensor, labels: torch.Tensor,
                 generator: Optional[torch.Generator] = None
@@ -371,9 +386,8 @@ def make_afan_seg_step(model: DeepLab, optimizer: torch.optim.Optimizer,
             out, low_diff = model.backbone_head(x, 4)
             parts = [model.classifier(out, low_diff)]
         with frozen_bn_stats(model):
-            parts.append(torch.cat([
-                model.forward_tail_logits(f, low_diff, cfg.tap_se)
-                for f in spec_feats]))
+            parts.append(torch.cat([spectrum_tail(f, low_diff)
+                                    for f in spec_feats]))
             if cfg.sd is not None:
                 parts.append(model.sd_tail_logits(
                     {"low_level": low_diff}, cfg.sd, adv_sd))

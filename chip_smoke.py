@@ -18,7 +18,8 @@ detbf16`` phases 1, 2 and 30-32; ``--only clsbf16`` phases 1, 2 and 33-35;
 and 40-42; ``--only coco`` phases 1, 2 and 43-46; ``--only data`` phases 1,
 2 and 47-51; ``--only dp`` phases 1, 2 and 55-58; ``--only spatial``
 phases 1, 2 and 59-62 (in a whole run phases 56 and 60 share one launch of
-their two ranks, and phase 59 takes phase 55's f32 seg runs).
+their two ranks, and phase 59 takes phase 55's f32 seg runs); ``--only
+remat`` phases 1, 2 and 63-67.
 The kernels
 line then lists the kernels of the phases that ran; without phase 8 the
 upsample + CE kernels have no launch count (null), and under ``--only
@@ -157,7 +158,7 @@ Phases (any failure exits non-zero):
  25. the PGD-update shapes and clip modes that phases 22-24 record go to
      phase 11's bit-for-bit cases (with ``--only variants``, which skips
      phase 11, the same check runs here);
- 26. time each variant step of phases 22 and 23 (median and p90 of 5
+ 26. time each variant step of phases 22 and 23 (median and p90 of 3
      steps, peak memory), and the PGD-update kernel at the two input
      shapes, clipped and unclipped, with its plain version and bound;
  27. train the segmentation recipes as written, ``--bf16`` included, at
@@ -216,8 +217,9 @@ Phases (any failure exits non-zero):
      classes, canvas 608x1008, batch 1, eval NMS 6000 -> 300 at 0.7 and per
      class at 0.3; phase 15's calibrated torso and seeded heads through
      ``--checkpoint``; synthetic VOC): ``map`` on the 16 test images, ``rob``
-     (PGD-3, 2/255, 8/255) and ``sat_layers`` (tap 2, alpha 0.5, with and
-     without ``--mix``) on the first 4, ``sat_vis`` (spectrum 5) on 2,
+     (PGD-3, 2/255, 8/255) on the first 2, ``sat_layers`` (tap 2, alpha
+     0.5, with and without ``--mix``) on the first 4, ``sat_vis`` (spectrum
+     5) on 2,
      ``input_surface`` at 8x8 points on 1 (its centre NaN), ``loss_vis``:
      mAPs, the PNG count, the pickled surface, the probe's losses, and the
      NMS and PGD-update launches of each run as its task implies;
@@ -381,7 +383,32 @@ Phases (any failure exits non-zero):
  62. the windowed kernels timed at rank 0's shapes, f32 and bf16, in turns
      with the library composition on the window, with their plain versions
      and bounds; ``train_segment --num_devices 2 --spatial_shards 2`` on a
-     one-card machine raises, naming the count.
+     one-card machine raises, naming the count;
+ 63. recomputation: phase 8's Cityscapes A-FAN step, f32 (dropout off,
+     as phase 55), deterministic cuDNN, plain (twice: the card's run-to-run
+     noise of the step; and on the batch with its halves swapped), with
+     ``--backbone_remat``, ``--remat_tails`` and both, 2 steps each from
+     the same weights and seeds: the peak memory above what was resident
+     before the case's model, the losses, the launches, and the trained
+     parameters and BatchNorm running statistics after 2 steps, each equal
+     to the plain step's where the plain step run twice is, else within
+     twice the swapped-batch run's difference (phase 56's bound; the f32
+     step's decoder upsample adds with atomics in its backward); then 2
+     more steps of each case in turns, timed on the host clock with the
+     card synchronized;
+ 64. the same under bf16, dropout on (the step is deterministic: each case
+     must equal the plain one);
+ 65. the same for phase 15's VOC setting-1 A-FAN detection step with
+     ``--remat_tails``, with ``share_proposals`` and with each forward
+     sampling its own (the tails' proposal NMS then runs again in each
+     recompute), the CUDA generator's state after the steps equal;
+ 66. ``train_segment --backbone_remat --remat_tails`` (the Cityscapes
+     recipe) and ``train_detect --remat_tails`` (VOC setting 1, its mAP)
+     through their CLIs, 2 steps each, with their launches per step;
+ 67. ``infer_detect image`` and ``dir`` on the committed fixtures: the
+     detections equal ``detect_batch``'s, each written PNG reads back
+     through the port's reader as the drawing; then the kernels against
+     their plain versions on the recomputed steps' first inputs.
 
 The line before the last lists each kernel with its launches on its main
 paths (the bf16 paths of phases 27-29 as entries of their own, ``_bf16``,
@@ -402,7 +429,9 @@ The device-step-size PGD update has entries of its own,
 phase 54's times per replay (5 launches). The upsample + CE kernels on a
 row window have entries of their own, ``resize_ce_forward_window``,
 ``resize_ce_backward_window`` and their ``_bf16``: rank 0's launches in
-phase 60 and phase 62's times per launch at rank 0's B=4 window.
+phase 60 and phase 62's times per launch at rank 0's B=4 window. The
+launches include the recomputed paths of phases 63-67 (their bf16 ones in
+the ``_bf16`` entries).
 Launches are the wrappers' counts: a graph replay runs kernels that no
 wrapper call counts, so phase 18 prints the PGD-update kernels its replays
 ran (the profiled kernels per replay times the replays) beside the
@@ -414,6 +443,7 @@ import argparse
 import asyncio
 import contextlib
 import copy
+import dataclasses
 import functools
 import gc
 import inspect
@@ -931,8 +961,10 @@ def time_nms_shape(card, label, boxes, valid, thr, plus_one=True, plain=True):
     keep = call()
     kept = keep.sum(1).tolist()
     k_ms = queued_ms(call, reps=50)
+    # the plain version takes up to a second a call at the training
+    # shapes: one call, after the kernel's
     p_ms = (cuda_ms(lambda: tnms.nms_sorted_mask_plain(
-        boxes, valid, thr, plus_one), reps=3, warmup=1) if plain else None)
+        boxes, valid, thr, plus_one), reps=1, warmup=0) if plain else None)
     b, o = nms_bound_parts(boxes, valid, keep)
     split = nms_pass_ms(call)
     parts = ("passes not measured (no device time in the trace)"
@@ -1929,9 +1961,9 @@ def time_classify(card):
     print(f"[14] timing on {card}")
     x, y = cls_batch(1)
     medians = {}
-    for mode in ("alfa", "base", "learnable"):
+    for mode, n in (("alfa", 10), ("base", 10), ("learnable", 5)):
         _, step = cls_step(mode)
-        t = cuda_samples(lambda: step(x, y), 20)
+        t = cuda_samples(lambda: step(x, y), n)
         torch.cuda.reset_peak_memory_stats()
         step(x, y)
         torch.cuda.synchronize()
@@ -1944,16 +1976,16 @@ def time_classify(card):
         if mode == "alfa":
             alfa_step = step
     # the same step with the plain update, in turns with the kernel:
-    # kernel, plain, plain, kernel, three times, 20 steps each
+    # kernel, plain, plain, kernel, 10 steps each
     turns = {tpgd.pgd_update: [], tpgd.pgd_update_plain: []}
     for update in (tpgd.pgd_update, tpgd.pgd_update_plain,
-                   tpgd.pgd_update_plain, tpgd.pgd_update) * 3:
+                   tpgd.pgd_update_plain, tpgd.pgd_update):
         with patched_update(update):
-            t = cuda_samples(lambda: alfa_step(x, y), 20)
+            t = cuda_samples(lambda: alfa_step(x, y), 10)
         turns[update].append(float(np.median(t)))
     for update, meds in turns.items():
-        print(f"    ALFA step with {update.__name__}: medians of 6 turns of "
-              f"20 steps {[round(m, 3) for m in meds]} ms, their median "
+        print(f"    ALFA step with {update.__name__}: medians of 2 turns of "
+              f"10 steps {[round(m, 3) for m in meds]} ms, their median "
               f"{np.median(meds):.3f} ms ({card})")
     profile_step(lambda: alfa_step(x, y), n=5, label="ALFA")
     k_ms, p_ms, byte_ms, op_ms = time_pgd_update(
@@ -2004,7 +2036,8 @@ def det_launches_per_step(cfg, advtrain_steps=None):
     ``share_proposals`` the shared sample and the SD pass (the ROI tap), or
     each SD ascent step and the SD loss term (the RPN tap, which makes its
     proposals in every forward); without it also every SE and input ascent
-    step, the clean forward and each tail. Each sign step launches one
+    step, the clean forward and each tail, and under ``remat_tails`` each
+    spectrum tail once more, in its recompute. Each sign step launches one
     update: the input ascent's under ``input_adv``, each tap's and SD's."""
     if advtrain_steps is not None:
         return advtrain_steps + 1, advtrain_steps
@@ -2013,7 +2046,8 @@ def det_launches_per_step(cfg, advtrain_steps=None):
     sd, taps = cfg.sd is not None, len(cfg.taps_se)
     inp = cfg.input_adv * cfg.input_adv_steps
     ascents = inp + (taps + sd) * cfg.steps
-    tails = (cfg.spectrum - 1 if taps else 0) + max(taps - 1, 0)
+    spectrum = (cfg.spectrum - 1 if taps else 0) * (1 + cfg.remat_tails)
+    tails = spectrum + max(taps - 1, 0)
     sd_nms = {"roi": 1, "rpn": cfg.steps + 1, None: 0}[cfg.sd]
     nms = 1 + sd_nms if cfg.share_proposals else (
         ascents - sd * cfg.steps + sd_nms + 1 + tails)
@@ -2271,7 +2305,7 @@ def time_det_steps(card, model, batch):
     memory, and where the A-FAN step's device time goes."""
     gen = torch.Generator("cuda").manual_seed(1)
     medians = {}
-    for afan, name, n in ((True, "A-FAN", 8), (False, "baseline", 10)):
+    for afan, name, n in ((True, "A-FAN", 5), (False, "baseline", 5)):
         step = det_step(model, afan)
         t = cuda_samples(lambda: step(*batch, gen), n, warmup=2)
         torch.cuda.reset_peak_memory_stats()
@@ -2287,9 +2321,9 @@ def time_det_steps(card, model, batch):
     step = det_step(model)
     # the A-FAN step with each image's ROIs pooled from its own rows (the
     # path) in turns with the concatenated contraction over all images'
-    # rows: per-image, concatenated, concatenated, per-image, twice
+    # rows: per-image, concatenated, concatenated, per-image
     turns = {"per-image": [], "concatenated": []}
-    for how in ("per-image", "concatenated") * 2:
+    for how in ("per-image", "concatenated"):
         for name in (how, "per-image" if how == "concatenated"
                      else "concatenated"):
             with patched_pooler(name == "concatenated"):
@@ -2297,7 +2331,7 @@ def time_det_steps(card, model, batch):
             turns[name].append(float(np.median(t)))
     for name, meds in turns.items():
         print(f"    A-FAN step with the {name} ROIAlign contraction: medians "
-              f"of 4 turns of 4 steps {[round(m, 3) for m in meds]} ms, "
+              f"of 2 turns of 4 steps {[round(m, 3) for m in meds]} ms, "
               f"their median {np.median(meds):.3f} ms ({card})")
     profile_step(lambda: step(*batch, gen), n=3, label="A-FAN detection")
     return medians
@@ -2503,11 +2537,11 @@ def variant_step(trainer, model, variant, extra=()):
 
 def time_variant_steps(card, trainer, model, inputs, runs):
     """Phase 26, the steps: each variant step's device time (median and p90
-    of 5 steps after 2) and peak memory."""
+    of 3 steps after 1) and peak memory."""
     gen = torch.Generator("cuda").manual_seed(2)
     for variant, extra in runs:
         step = variant_step(trainer, model, variant, extra)
-        t = cuda_samples(lambda: step(*inputs, gen), 5, warmup=2)
+        t = cuda_samples(lambda: step(*inputs, gen), 3, warmup=1)
         torch.cuda.reset_peak_memory_stats()
         step(*inputs, gen)
         torch.cuda.synchronize()
@@ -2858,8 +2892,8 @@ def bf16_kernels_vs_plain(updates, errs):
 
 def time_bf16_step(card, per_step, city_updates):
     """Phase 29: the Cityscapes recipe's A-FAN step with the model in bf16
-    in turns with the f32 step (f32, bf16, bf16, f32, twice; 5 steps each
-    after 2), from the same weights and batch: median and p90 ms, images
+    in turns with the f32 step (f32, bf16, bf16, f32; 5 steps each after
+    2), from the same weights and batch: median and p90 ms, images
     per second, peak memory, each step's profile; then the bf16 kernels at
     the step's shapes. Returns the bf16 kernels' entries."""
     print(f"[29] timing on {card}: the bf16 A-FAN step in turns with the "
@@ -2870,7 +2904,7 @@ def time_bf16_step(card, per_step, city_updates):
     model16.cuda()
     steps = {k: (lambda s=s: s(imgs, labs)) for k, s in (
         ("f32", seg_step(model32)), ("bf16", seg_step(model16)))}
-    samples = time_in_turns(steps, ("f32", "bf16", "bf16", "f32") * 2, 5,
+    samples = time_in_turns(steps, ("f32", "bf16", "bf16", "f32"), 5,
                             warmup=2)
     med = report_turns(card, samples, steps, SEG_BATCH, "A-FAN step")
     print(f"    bf16 step {med['f32'] / med['bf16']:.2f}x faster than f32 "
@@ -3133,8 +3167,8 @@ def report_turns(card, samples, steps, batch, what):
 
 def time_det_bf16(card, calls, updates):
     """Phase 32: the bf16 A-FAN detection step (setting 1) in turns with the
-    f32 step from the same weights and batch (f32, bf16, bf16, f32, twice;
-    3 steps each after 1), each one's profile; then the NMS kernel on the
+    f32 step from the same weights and batch (f32, bf16, bf16, f32; 3 steps
+    each after 1), each one's profile; then the NMS kernel on the
     bf16 step's proposals and the bf16 PGD update at its two ascent shapes.
     Returns the kernels' entries for this path."""
     print(f"[32] timing on {card}: the bf16 A-FAN detection step in turns "
@@ -3145,7 +3179,7 @@ def time_det_bf16(card, calls, updates):
     gen = torch.Generator("cuda").manual_seed(1)
     made = {"f32": det_step(model32), "bf16": det_step(model16)}
     steps = {k: (lambda s=s: s(*batch, gen)) for k, s in made.items()}
-    samples = time_in_turns(steps, ("f32", "bf16", "bf16", "f32") * 2, 3)
+    samples = time_in_turns(steps, ("f32", "bf16", "bf16", "f32"), 3)
     med = report_turns(card, samples, steps, DET_BATCH,
                        "A-FAN detection step")
     print(f"    bf16 step {med['f32'] / med['bf16']:.2f}x the f32 step's "
@@ -4075,7 +4109,7 @@ EVAL_DET_FLAGS = ["-s", "voc2007", "-b", "resnet50", "--data_dir",
 # its centre image is all zero and its loss NaN, which sends NaN boxes
 # through the proposal NMS; at 6 or at the reference's 40 points the float32
 # grid misses 0 by 7.45e-9 and no cell is NaN, in afan as here
-ROB_IMAGES, SAT_IMAGES, SAT_VIS_IMAGES, SURFACE_POINTS = 4, 4, 2, 8
+ROB_IMAGES, SAT_IMAGES, SAT_VIS_IMAGES, SURFACE_POINTS = 2, 4, 2, 8
 EVAL_PGD_STEPS = 3
 SEG_EVAL_FLAGS = ["--model", SEG_MODEL, "--output_stride", "16",
                   "--data_root", os.path.join(ROOT, "no_data_here")]
@@ -4219,8 +4253,9 @@ def eval_detect_runs(ckpt, nms_calls, updates):
           f"608x1008, batch 1, eval NMS 6000 -> 300 at 0.7, per class at "
           f"0.3; weights: the seeded calibrated torso and seeded heads "
           f"through --checkpoint {ckpt}; depth cut: map on the "
-          f"{DET_EVAL_IMAGES} synthetic test images, rob and sat_layers on "
-          f"the first {ROB_IMAGES}, sat_vis on {SAT_VIS_IMAGES}, "
+          f"{DET_EVAL_IMAGES} synthetic test images, rob on the first "
+          f"{ROB_IMAGES}, sat_layers on the first {SAT_IMAGES}, sat_vis on "
+          f"{SAT_VIS_IMAGES}, "
           f"input_surface at {SURFACE_POINTS}x{SURFACE_POINTS} points on 1 "
           f"(the reference probes 40x40 on 20)")
     base = EVAL_DET_FLAGS + ["--checkpoint", ckpt, "--pgd_steps",
@@ -5976,15 +6011,15 @@ def dp_probes(probe):
         yield
 
 
-def dp_probe_errs(probe):
-    """Each kernel on the per-rank inputs that ``probe`` kept, against its
-    plain version (phases 3, 7 and 11's criteria); the largest absolute
-    errors."""
+def dp_probe_errs(probe, what="per-rank"):
+    """Each kernel on the inputs that ``probe`` kept (``what``: the
+    per-rank ones by default), against its plain version (phases 3, 7 and
+    11's criteria); the largest absolute errors."""
     errs = {}
     if "nms" in probe:
         boxes, valid, thr, plus_one = probe["nms"]
         e = []
-        kernel_vs_plain("per-rank proposals", boxes, valid, thr, plus_one, e)
+        kernel_vs_plain(f"{what} proposals", boxes, valid, thr, plus_one, e)
         errs["nms"] = max(e)
     if "ce" in probe:
         lo, lab, size, focal, _ = probe["ce"]
@@ -5996,10 +6031,10 @@ def dp_probe_errs(probe):
         es, eg = rel_err(sums, want_s), rel_err(dlo, want_d)
         errs["resize_ce_forward"] = float((sums - want_s).abs().max())
         errs["resize_ce_backward"] = float((dlo - want_d).abs().max())
-        print(f"  upsample + CE on the per-rank logits {tuple(lo.shape)} -> "
+        print(f"  upsample + CE on the {what} logits {tuple(lo.shape)} -> "
               f"{tuple(size)}: sums rel {es:.3e}, grad rel {eg:.3e}")
         require(es <= CE_SUM_TOL and eg <= CE_GRAD_TOL,
-                f"per-rank upsample + CE: {es}, {eg}")
+                f"{what} upsample + CE: {es}, {eg}")
     if "pgd" in probe:
         x, g, c, kw = probe["pgd"]
         got = kpgd.pgd_update(x, g, c, **kw)
@@ -6007,9 +6042,9 @@ def dp_probe_errs(probe):
         torch.cuda.synchronize()
         finite = torch.isfinite(got) & torch.isfinite(want)
         errs["pgd_update"] = float((got - want)[finite].abs().max())
-        print(f"  PGD update at the per-rank tap {tuple(x.shape)}: bit-equal "
+        print(f"  PGD update at the {what} tap {tuple(x.shape)}: bit-equal "
               f"{bits_equal(got, want)}")
-        require(bits_equal(got, want), "per-rank PGD update != plain")
+        require(bits_equal(got, want), f"{what} PGD update != plain")
     return errs
 
 
@@ -6560,6 +6595,360 @@ def parallel_phases(card, seconds, with_dp, with_spatial):
     return parts
 
 
+# ---------- recomputation (phases 63-67) ----------
+
+REMAT_DIR = os.path.join("checkpoints", "chip_smoke_remat")
+# (label, backbone_remat, remat_tails): the plain step twice, to read the
+# run-to-run noise of the step on this card, then each flag and both
+REMAT_SEG_CASES = (("plain", False, False), ("plain again", False, False),
+                   ("--backbone_remat", True, False),
+                   ("--remat_tails", False, True), ("both", True, True))
+# the plain step on the batch with its halves swapped (phase 55's floor):
+# the same function in another row order
+REMAT_SWAPPED = ("swapped batch", False, False)
+# (label, share_proposals, remat_tails)
+REMAT_DET_CASES = (("shared, plain", True, False),
+                   ("shared, plain again", True, False),
+                   ("shared, --remat_tails", True, True),
+                   ("own samples, plain", False, False),
+                   ("own samples, plain again", False, False),
+                   ("own samples, --remat_tails", False, True))
+REMAT_TURNS = 2
+
+
+def remat_case(trainer, flags, dtype=torch.float32, dropout=True,
+               swapped=False):
+    """A case's model, step and batch: phase 8's Cityscapes A-FAN step
+    (``dropout`` on or off; the batch's halves ``swapped``) with ``flags`` =
+    (backbone_remat, remat_tails), or phase 15's VOC A-FAN step with
+    ``flags`` = (share_proposals, remat_tails)."""
+    if trainer == "seg":
+        model = build_model(SEG_MODEL, 19, 16, dtype,
+                            backbone_remat=flags[0])
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.cuda()
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout) and not dropout:
+                m.p = 0.0
+        cfg = dataclasses.replace(seg_recipe(), remat_tails=flags[1])
+        batch = seg_batch(0)
+        if swapped:
+            batch = tuple(dp_swapped(t) for t in batch)
+        return model, seg_step(model, cfg=cfg), batch, cfg
+    model = det_model(0)
+    cfg = dataclasses.replace(det_recipe(), share_proposals=flags[0],
+                              remat_tails=flags[1])
+    return model, det_step(model, cfg=cfg), det_batch(0), cfg
+
+
+def remat_state(model):
+    """The trained parameters and the BatchNorm running statistics, flat,
+    in float64 on the host."""
+    params = [p.detach().double().reshape(-1) for p in model.parameters()
+              if p.requires_grad]
+    stats = [b.detach().double().reshape(-1)
+             for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    return (torch.cat(params).cpu().numpy(),
+            torch.cat(stats).cpu().numpy() if stats else np.zeros(0))
+
+
+def remat_counts():
+    """The wrappers' launches since :func:`remat_reset_counts`, f32 and
+    bf16 apart (the kernels line's entries), those that ran."""
+    c = dp_counts()
+    c["pgd_update_bf16"] = kpgd.bf16_launches
+    c["pgd_update"] -= kpgd.bf16_launches
+    for k in ("resize_ce_forward", "resize_ce_backward"):
+        c[k] -= c[f"{k}_bf16"]
+    return {k: v for k, v in c.items() if v}
+
+
+def remat_reset_counts():
+    dp_reset_counts()
+    kpgd.bf16_launches = 0
+
+
+def remat_runs(trainer, cases, dtype=torch.float32, probe=None,
+               dropout=True):
+    """``DP_STEPS`` steps of each case from the same weights, batch and
+    seeds (the default generators for the dropout, a CUDA generator for
+    the detection samples), deterministic cuDNN, no TF32: losses, peak GiB
+    above what was resident before the case's model was built, launches,
+    parameters, running statistics and the generator's state after; then
+    ``REMAT_TURNS`` rounds of one more step of each case in turns
+    (alternating order), host ms with the card synchronized. ``probe``
+    keeps the kernels' first inputs of the recomputed cases; ``dropout``
+    goes to :func:`remat_case`, and the :data:`REMAT_SWAPPED` case runs on
+    the swapped batch."""
+    runs = {}
+    with deterministic():
+        for label, *flags in cases:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            model, step, batch, cfg = remat_case(
+                trainer, flags, dtype, dropout,
+                swapped=label == REMAT_SWAPPED[0])
+            torch.manual_seed(0)
+            gen = torch.Generator("cuda").manual_seed(0)
+            remat_reset_counts()
+            losses = []
+            with (dp_probes(probe) if probe is not None and flags[1]
+                  else contextlib.nullcontext()):
+                for _ in range(DP_STEPS):
+                    out = (step(*batch) if trainer == "seg"
+                           else step(*batch, gen))
+                    losses.append({k: float(v) for k, v in out.items()})
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            params, stats = remat_state(model)
+            runs[label] = dict(
+                model=model, step=step, batch=batch, gen=gen, cfg=cfg,
+                losses=losses, peak=peak, counts=remat_counts(),
+                params=params, stats=stats, gen_state=gen.get_state(),
+                ms=[])
+        timed = [label for label, *_ in cases
+                 if "again" not in label and label != REMAT_SWAPPED[0]]
+        for turn in range(REMAT_TURNS):
+            for label in (timed if turn % 2 == 0 else timed[::-1]):
+                r = runs[label]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (r["step"](*r["batch"]) if trainer == "seg"
+                 else r["step"](*r["batch"], r["gen"]))
+                torch.cuda.synchronize()
+                r["ms"].append((time.perf_counter() - t0) * 1e3)
+    for r in runs.values():
+        del r["model"], r["step"], r["batch"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def remat_diffs(r, plain):
+    """Largest absolute differences of a run from the plain run: losses,
+    trained parameters, running statistics."""
+    loss = max(abs(a[k] - b[k]) for a, b in zip(r["losses"], plain["losses"])
+               for k in b)
+    return {"loss": loss,
+            "params": float(np.abs(r["params"] - plain["params"]).max()),
+            "stats": (float(np.abs(r["stats"] - plain["stats"]).max())
+                      if plain["stats"].size else 0.0)}
+
+
+def remat_report(card, what, runs, plain, again, expected):
+    """Print each case beside the plain step and check it: finite losses,
+    the launches ``expected`` gives for its config, the generator's state,
+    and each difference from the plain step: 0 where the plain step run
+    twice differs by 0, else within twice the swapped-batch run's
+    difference (phase 56's bound), or twice the rerun's where there is no
+    swapped run. Returns the launches."""
+    rerun = remat_diffs(runs[again], runs[plain])
+    swapped = (remat_diffs(runs[REMAT_SWAPPED[0]], runs[plain])
+               if REMAT_SWAPPED[0] in runs else rerun)
+    bound = {k: 0.0 if v == 0 else 2 * max(v, swapped[k])
+             for k, v in rerun.items()}
+    print(f"    {what}: the plain step twice differs by {rerun} (the "
+          f"card's run-to-run noise of this step); on the swapped batch by "
+          f"{swapped}; bounds {bound}")
+    launches = {}
+    for label, r in runs.items():
+        require(all(np.isfinite(v) for rec in r["losses"]
+                    for v in rec.values()), f"{what} {label}: non-finite loss")
+        want = expected(r["cfg"])
+        got = r["counts"]
+        require(got == want, f"{what} {label}: launches {got}, expected "
+                f"{want} in {DP_STEPS} steps")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        d = remat_diffs(r, runs[plain])
+        ms = float(np.median(r["ms"])) if r["ms"] else None
+        print(f"    {what} {label}: peak {r['peak']:.3f} GiB, step "
+              f"{'%.3f ms' % ms if ms is not None else '(not timed)'} "
+              f"(median of {len(r['ms'])} in turns), losses "
+              f"{[round(x['loss'], 6) for x in r['losses']]}, launches "
+              f"{got} in {DP_STEPS} steps; from the plain step: {d} ({card})")
+        require(torch.equal(r["gen_state"], runs[plain]["gen_state"]),
+                f"{what} {label}: the generator's state differs")
+        if label == REMAT_SWAPPED[0]:
+            continue
+        for k, v in d.items():
+            require(v <= bound[k], f"{what} {label}: {k} differs by {v}, "
+                    f"above its bound {bound[k]}")
+    return launches
+
+
+def seg_expected_launches(dtype):
+    """A seg case's launches in ``DP_STEPS`` steps: every upsample + CE
+    site and every update in ``dtype`` (the bf16 model's logits and tap
+    features are bf16)."""
+    tag = "_bf16" if dtype == torch.bfloat16 else ""
+
+    def expected(cfg):
+        sites, pgd = seg_launches_per_step(cfg)
+        return {f"resize_ce_forward{tag}": sites * DP_STEPS,
+                f"resize_ce_backward{tag}": sites * DP_STEPS,
+                f"pgd_update{tag}": pgd * DP_STEPS}
+    return expected
+
+
+def det_expected_launches(cfg):
+    nms, pgd = det_launches_per_step(cfg)
+    return {"nms": nms * DP_STEPS, "pgd_update": pgd * DP_STEPS}
+
+
+def remat_seg_phase(card, n, dtype, probe):
+    """Phases 63 (f32: dropout off, as phase 55, and a swapped-batch run
+    for the bound, since the f32 step is not deterministic: its decoder's
+    upsample adds with atomics in the backward) and 64 (bf16: dropout on,
+    the step deterministic, so every recomputed case must equal it)."""
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    dropout = dtype == torch.bfloat16
+    print(f"[{n}] recomputation: the Cityscapes A-FAN step (DeepLabv3+ "
+          f"ResNet-50, OS 16, crop {SEG_CROP}, batch {SEG_BATCH}, dropout "
+          f"{'on' if dropout else 'off'}), {name}, deterministic cuDNN: "
+          f"plain, --backbone_remat, --remat_tails and both, {DP_STEPS} "
+          f"steps each from the same weights and seeds, then timed in "
+          f"turns")
+    cases = REMAT_SEG_CASES + (() if dropout else (REMAT_SWAPPED,))
+    runs = remat_runs("seg", cases, dtype, probe, dropout)
+    return remat_report(card, f"seg {name}", runs, "plain", "plain again",
+                        seg_expected_launches(dtype))
+
+
+def remat_det_phase(card, probe):
+    print(f"[65] recomputation: the VOC setting-1 A-FAN detection step "
+          f"(ResNet-50, batch {DET_BATCH}, 608x1008), deterministic cuDNN: "
+          f"plain and --remat_tails, with share_proposals and with each "
+          f"forward sampling its own, {DP_STEPS} steps each from the same "
+          f"weights and generator, then timed in turns")
+    if not os.path.exists(DET_BACKBONE):
+        calibrated_backbone()
+    launches = {}
+    for share in (True, False):
+        cases = [c for c in REMAT_DET_CASES if c[1] == share]
+        runs = remat_runs("det", cases, probe=probe)
+        for k, v in remat_report(card, "det", runs, cases[0][0], cases[1][0],
+                                 det_expected_launches).items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def remat_cli_phase():
+    """Phase 66: both CLIs with the recomputation flags, 2 steps each."""
+    print("[66] the CLIs with recomputation: train_segment --backbone_remat "
+          "--remat_tails (the Cityscapes recipe) and train_detect "
+          "--remat_tails (VOC setting 1), 2 steps each")
+    fwd, bwd, pgd = run_segment_cli("afan", ("--backbone_remat",
+                                             "--remat_tails"), [])
+    per_step, _, eval_nms, _, _ = run_detect_cli("afan", DET_STEPS, "remat",
+                                                 ("--remat_tails",))
+    return {"resize_ce_forward": fwd, "resize_ce_backward": bwd,
+            "pgd_update": pgd + sum(p for _, p in per_step),
+            "nms": sum(n for n, _ in per_step) + eval_nms}
+
+
+def infer_detect_phase():
+    """Phase 67: ``infer_detect image`` and ``dir`` on the committed
+    fixtures; their detections against ``detect_batch``'s, their PNGs read
+    back as the drawing. Returns the NMS launches."""
+    from afan_torch.cli import infer_detect
+    from afan_torch.utils.imread import read_rgb
+    print("[67] infer_detect image and dir (ResNet-50, seeded weights, "
+          "600x1000 canvas) on tests/fixtures/torch_images, with neither PIL "
+          "nor OpenCV")
+    out = os.path.join(REMAT_DIR, "infer")
+    shutil.rmtree(out, ignore_errors=True)
+    src = os.path.join(out, "in")
+    os.makedirs(src)
+    names = ("label_500x375.png", "voc_500x375.jpg")       # sorted
+    for name in names:
+        shutil.copy(os.path.join(DATA_FIXTURES, name), src)
+    args = argparse.Namespace(backbone="resnet50", checkpoint=None,
+                              image_min_side=MIN_SIDE,
+                              image_max_side=MAX_SIDE)
+    model, canvas_hw = build_state(args, device="cuda")
+    detect_fn = make_detect_fn(model)
+
+    def detections(name, thresh):
+        img = read_rgb(os.path.join(src, name)).astype(np.float32) / 255.0
+        canvas, scale = preprocess_frame(img, canvas_hw, MIN_SIDE, MAX_SIDE)
+        return img, infer_detect.detect_batch(detect_fn, canvas[None],
+                                              [scale], thresh)[0]
+
+    # a threshold between the seeded model's 20th and 21st best
+    # probabilities on the photograph, so that the drawing has boxes
+    probs = sorted(p for _, _, p in detections(names[1], 0.0)[1])
+    thresh = (probs[-20] + probs[-21]) / 2 if len(probs) > 20 else 0.0
+    want = {name: detections(name, thresh) for name in names}
+    got = []
+    real = infer_detect.detect_image
+    infer_detect.detect_image = lambda *a: got.append(real(*a)) or got[-1]
+    knms.launches = 0
+    flags = ["--device", "cuda", "-p", repr(thresh)]
+    image_png = os.path.join(out, "image.png")
+    try:
+        infer_detect.main(["image", os.path.join(src, names[1]), image_png]
+                          + flags)
+        infer_detect.main(["dir", src, os.path.join(out, "dir")] + flags)
+    finally:
+        infer_detect.detect_image = real
+    launches = knms.launches
+    written = sorted(os.listdir(os.path.join(out, "dir")))
+    require(written == [os.path.splitext(n)[0] + ".png" for n in names],
+            f"dir wrote {written}")
+    runs = [(names[1], got[0], image_png)] + [
+        (n, g, os.path.join(out, "dir", os.path.splitext(n)[0] + ".png"))
+        for n, g in zip(names, got[1:])]
+    require(len(got) == 3, f"{len(got)} images detected")
+    for name, dets_got, path in runs:
+        img, dets = want[name]
+        require(len(dets_got) == len(dets) and all(
+            c1 == c2 and abs(p1 - p2) <= 1e-5
+            and np.abs(b1 - b2).max() <= 1e-4 * max(np.abs(b2).max(), 1.0)
+            for (b1, c1, p1), (b2, c2, p2) in zip(dets_got, dets)),
+            f"{path}: the CLI's detections are not detect_batch's")
+        require(np.array_equal(read_rgb(path),
+                               infer_detect.draw(img, dets_got)),
+                f"{path} does not read back as the drawing")
+        print(f"    {path}: {len(dets)} detections above {thresh:.6f}, "
+              f"detect_batch's; the PNG reads back as the drawing")
+    del model, detect_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def remat_phases(card):
+    """Phases 63-67; the kernels' parts (launches, largest error at the
+    recomputed paths' inputs; times with the phases that time them)."""
+    seg_probe, det_probe = {}, {}
+    counts = [remat_seg_phase(card, 63, torch.float32, seg_probe),
+              remat_seg_phase(card, 64, torch.bfloat16, {}),
+              remat_det_phase(card, det_probe), remat_cli_phase()]
+    with deterministic():
+        counts.append({"nms": infer_detect_phase()})
+    print("    the kernels on the recomputed steps' first inputs against "
+          "their plain versions:")
+    errs = {**dp_probe_errs(seg_probe, "recomputed step's"),
+            **dp_probe_errs(det_probe, "recomputed step's")}
+    none = dict(ms=None, plain_ms=None, bound_ms=None, bound_by=None)
+    parts = {}
+    for c in counts:
+        for k, v in c.items():
+            launches = parts.get(k, (0, 0.0, none))[0] + v
+            parts[k] = (launches, errs.get(k.replace("_bf16", ""), 0.0),
+                        none)
+    for k in ("nms", "resize_ce_forward", "resize_ce_backward",
+              "pgd_update"):
+        require(parts.get(k, (0,))[0] > 0, f"no {k} launch on the "
+                f"recomputed paths")
+    print(f"    launches on phases 63-67: "
+          f"{ {k: v[0] for k, v in parts.items()} }")
+    return parts
+
+
 @contextlib.contextmanager
 def group_time(seconds, name):
     """The block's wall seconds are added to ``seconds[name]``."""
@@ -6570,7 +6959,7 @@ def group_time(seconds, name):
 
 GROUPS = ("nms", "ce", "seg", "det", "cls", "dettrain", "scan", "variants",
           "bf16", "detbf16", "clsbf16", "eval", "mobilenet", "coco", "data",
-          "dp", "spatial")
+          "dp", "spatial", "remat")
 
 
 def main(argv=None):
@@ -6686,6 +7075,9 @@ def main(argv=None):
     if only in (None, "dp", "spatial"):
         merge_launches(entries, parallel_phases(
             card, seconds, only in (None, "dp"), only in (None, "spatial")))
+    if only in (None, "remat"):
+        with group_time(seconds, "remat"):
+            merge_launches(entries, remat_phases(card))
 
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "
           f"(seconds by group: {seconds})")

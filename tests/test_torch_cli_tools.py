@@ -1,6 +1,6 @@
 """afan_torch's CLI surface and tools against afan's: the segmentation
 parser's ten flags of ``afan``'s TPU runs and reference scripts,
-``--fused_ce off`` against ``on``, the refused flags, the trainers' scalar
+``--fused_ce off`` against ``on``, the once-refused flags, the trainers' scalar
 logs, ``plot_results``, ``StepTimer``, ``time_chained_windows``,
 ``measure_rtt`` and ``profile_trace`` on the CPU.
 
@@ -105,27 +105,39 @@ def test_reference_command_line_with_gpu_and_visdom_flags_parses():
                                    "2"],
                                   ["--remat_tails"], ["--backbone_remat"]])
 def test_seg_cli_refuses_unported_flags(flag, tmp_path, monkeypatch):
-    """The unported flags raise before anything is written; ``--num_devices
-    2`` (data parallelism, ported) trains on two gloo processes instead and
-    rank 0 writes the checkpoints, and so does ``--spatial_shards 2`` on
-    those two (a 1 x 2 data x spatial mesh, ported), logging ``afan``'s
-    mesh line."""
+    """The flags that were not ported once, and are now, train: ``--num_devices
+    2`` (data parallelism) on two gloo processes, where rank 0 writes the
+    checkpoints, and so does ``--spatial_shards 2`` on those two (a 1 x 2
+    data x spatial mesh), logging ``afan``'s mesh line; ``--remat_tails``
+    builds the A-FAN step with the spectrum tails recomputed and
+    ``--backbone_remat`` (on a ResNet-18 DeepLab: MobileNetV2 ignores it)
+    a backbone that recomputes its four stages
+    (``tests/test_torch_remat.py`` holds both to the plain step)."""
     monkeypatch.chdir(tmp_path)
     argv = SEG_TINY + ["--limit_itrs", "1", "--val_interval", "1"] + flag
-    if "--num_devices" in flag:
-        train_segment.main(argv)
-        (exp,) = os.listdir("checkpoints")
-        assert sorted(f for f in os.listdir(os.path.join("checkpoints", exp))
-                      if f.endswith(".pt")) == [
-            "best_deeplabv3plus_mobilenet_synthetic.pt",
-            "latest_deeplabv3plus_mobilenet_synthetic.pt"]
-        log = open(os.path.join("checkpoints", exp, "train.log")).read()
-        assert ("2-D mesh: data=1 x spatial=2" in log) == (
-            "--spatial_shards" in flag)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_segment.main(argv)
-    assert not os.path.exists("checkpoints")
+    model = "deeplabv3plus_mobilenet"
+    built = []
+    if "--num_devices" not in flag:
+        model = "deeplabv3plus_resnet50"
+        argv += ["--model", model]
+        real_build, real_step = (train_segment.build_model,
+                                 train_segment.make_afan_seg_step)
+        monkeypatch.setattr(train_segment, "build_model", lambda *a, **kw: (
+            built.append(kw["backbone_remat"]) or real_build(*a, **kw)))
+        monkeypatch.setattr(train_segment, "make_afan_seg_step",
+                            lambda *a, **kw: (built.append(a[3].remat_tails)
+                                              or real_step(*a, **kw)))
+    train_segment.main(argv)
+    (exp,) = os.listdir("checkpoints")
+    assert sorted(f for f in os.listdir(os.path.join("checkpoints", exp))
+                  if f.endswith(".pt")) == [
+        f"best_{model}_synthetic.pt", f"latest_{model}_synthetic.pt"]
+    log = open(os.path.join("checkpoints", exp, "train.log")).read()
+    assert ("2-D mesh: data=1 x spatial=2" in log) == (
+        "--spatial_shards" in flag)
+    if built:
+        assert built == [flag == ["--backbone_remat"],
+                         flag == ["--remat_tails"]]
 
 
 def test_seg_cli_fused_ce_off_equals_on_and_logs_afans_scalars(

@@ -513,13 +513,35 @@ def test_steps_run_the_proposal_nms_and_the_update_per_step(
 
 
 def test_unported_step_options_raise():
-    tm = FasterRCNN(FRCNNConfig(**TINY))
-    opt, sched = sgd(detect_loop.detection_param_groups(tm), lambda c: LR,
-                     LR)
-    for kw in (dict(remat_tails=True), dict(sd="rpn", remat_tails=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            detect_loop.make_afan_det_step(
-                tm, opt, sched, detect_loop.DetAfanConfig(**kw))
+    """``remat_tails``, refused once, now runs: with the ROI and with the
+    RPN SD tap, resampling in every forward, the step equals the one
+    without recomputation bit for bit and leaves the generator where that
+    one does (``tests/test_torch_remat_detect.py`` holds it to ``afan``)."""
+    rng = np.random.RandomState(5)
+    images = t(rng.rand(B, HW, HW, 3).astype(np.float32))
+    boxes, classes, valid = gt_batch(1)
+    gt = (t(boxes), t(classes, torch.int64), t(valid))
+    for kw in (dict(AFAN), dict(AFAN, sd="rpn")):
+        runs = []
+        for remat_tails in (False, True):
+            torch.manual_seed(0)
+            tm = FasterRCNN(FRCNNConfig(**TINY))
+            tm.reset_parameters(torch.Generator().manual_seed(0))
+            opt, sched = sgd(detect_loop.detection_param_groups(tm),
+                             lambda c: LR, LR)
+            step = detect_loop.make_afan_det_step(
+                tm, opt, sched, detect_loop.DetAfanConfig(
+                    share_proposals=False, remat_tails=remat_tails, **kw))
+            g = torch.Generator().manual_seed(1)
+            out = step(images, *gt, g)
+            runs.append((out, g.get_state(), tm.state_dict()))
+        (out, g_state, state), (want, want_g, want_state) = runs[1], runs[0]
+        assert np.isfinite(float(out["loss"]))
+        assert torch.equal(g_state, want_g)
+        for k in want:
+            assert torch.equal(out[k], want[k]), k
+        for k in want_state:
+            assert torch.equal(state[k], want_state[k]), k
 
 
 # ---------- schedule, data, mAP ----------
@@ -703,19 +725,22 @@ def test_cli_takes_the_recipe_flags():
 @pytest.mark.parametrize("flags", [["--num_devices", "2"],
                                    ["--remat_tails"]],
                          ids=["num_devices", "remat_tails"])
-def test_cli_refuses_unported_flags(flags, tmp_path):
-    """``--remat_tails`` raises; ``--num_devices 2`` (data parallelism,
-    ported) trains on two gloo processes and rank 0 writes the
-    checkpoint."""
+def test_cli_refuses_unported_flags(flags, tmp_path, monkeypatch):
+    """The flags that were not ported once, and are now, train:
+    ``--num_devices 2`` (data parallelism) on two gloo processes, where
+    rank 0 writes the checkpoint, and ``--remat_tails`` with the A-FAN
+    step's spectrum tails recomputed."""
     argv = ["--device", "cpu", "-o", str(tmp_path)] + flags + \
         smoke_tiny_flags()
-    if flags[0] == "--num_devices":
-        train_detect.main(argv + ["--num_steps_to_finish", "1",
-                                  "--num_steps_to_snapshot", "1"])
-        assert os.path.isfile(tmp_path / "model-1.pt")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_detect.main(argv)
+    configs = []
+    real = train_detect.make_afan_det_step
+    monkeypatch.setattr(train_detect, "make_afan_det_step", lambda *a, **kw:
+                        configs.append(a[3]) or real(*a, **kw))
+    train_detect.main(argv + ["--num_steps_to_finish", "1",
+                              "--num_steps_to_snapshot", "1"])
+    assert os.path.isfile(tmp_path / "model-1.pt")
+    assert [c.remat_tails for c in configs] == (
+        [True] if flags == ["--remat_tails"] else [])
 
 
 def test_cli_bf16_builds_a_bf16_model_and_runs_a_step(tmp_path, monkeypatch):

@@ -94,13 +94,26 @@ def close_l2(got, want, rel, msg=""):
     assert err <= rel, (msg, err)
 
 
-def port_runs(section, payload):
+def port_runs(section, payload, recomputed=None):
     """(world 2, world 1) results; the two ranks' states must agree
     exactly (the same summed gradients on replicated weights). The world-1
     run replays the world-2 ascents' results; its own may differ from them
-    by sign flips only."""
-    two = launch(torch_dp_ranks.run, 2, (section, payload), device="cpu",
-                 timeout=600)
+    by sign flips only. ``recomputed``, the payload with recomputation on,
+    runs in the same launch after ``payload`` and must give its step bit
+    for bit on each rank (``tests/test_torch_remat.py`` at world 1)."""
+    payloads = [payload] + ([recomputed] if recomputed else [])
+    both = launch(torch_dp_ranks.runs, 2, (section, payloads), device="cpu",
+                  timeout=600)
+    two = [r[0] for r in both]
+    for plain, *others in both:
+        for again in others:
+            assert again["metrics"] == plain["metrics"]
+            for k, v in plain["state"].items():
+                np.testing.assert_array_equal(again["state"][k], v,
+                                              err_msg=k)
+            for k, v in plain["momenta"].items():
+                np.testing.assert_array_equal(again["momenta"][k], v,
+                                              err_msg=k)
     assert [r["rank"] for r in two] == [0, 1]
     assert all(r["size"] == 2 for r in two)
     for k, v in two[0]["state"].items():
@@ -237,7 +250,11 @@ def test_world_two_step_matches_afan_and_world_one(section, request):
         request.getfixturevalue("flax_no_dropout")
         setup = request.getfixturevalue("seg_setup")
         payload, want, state, keys = seg_case(setup)
-    two, one = port_runs(section, payload)
+    recomputed = None
+    if section in ("det", "seg"):
+        recomputed = dict(payload, cfg=dict(payload["cfg"], remat_tails=True),
+                          backbone_remat=section == "seg")
+    two, one = port_runs(section, payload, recomputed)
     for i, (got, w) in enumerate(zip(two["metrics"], want)):
         for k in keys:
             close(got[k], w[k], AFAN_REL, f"step {i} {k}")

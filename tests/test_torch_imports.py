@@ -43,3 +43,35 @@ def test_data_parallel_rank_side_imports_neither_jax_nor_afan():
     proc = subprocess.run([sys.executable, "-c", check], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_infer_detect_image_and_dir_import_neither_pil_nor_opencv(tmp_path):
+    """``infer_detect image`` and ``dir`` run where PIL and OpenCV cannot
+    be imported (the machine with the card has neither), and import no
+    jax or ``afan``."""
+    images = os.path.join(ROOT, "tests", "fixtures", "torch_images")
+    src = tmp_path / "in"
+    src.mkdir()
+    for name in ("voc_500x375.jpg", "label_500x375.png"):
+        (src / name).write_bytes(open(os.path.join(images, name),
+                                      "rb").read())
+    check = (
+        "import sys\n"
+        "sys.modules['PIL'] = sys.modules['cv2'] = None  # imports raise\n"
+        "from afan_torch.cli import infer_detect\n"
+        "flags = ['-b', 'resnet18', '--image_min_side', '64',\n"
+        "         '--image_max_side', '96', '--device', 'cpu', '-p', '0.0']\n"
+        f"infer_detect.main(['image', {str(src / 'voc_500x375.jpg')!r},\n"
+        f"                   {str(tmp_path / 'one.png')!r}] + flags)\n"
+        f"infer_detect.main(['dir', {str(src)!r},\n"
+        f"                   {str(tmp_path / 'out')!r}] + flags)\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'optax', 'afan', 'PIL', 'cv2')\n"
+        "bad = sorted(m for m, v in sys.modules.items()\n"
+        "             if v is not None and m.split('.')[0] in banned)\n"
+        "sys.exit(f'imported {bad}' if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", check], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert sorted(os.listdir(tmp_path / "out")) == ["label_500x375.png",
+                                                    "voc_500x375.png"]
+    assert (tmp_path / "one.png").read_bytes()[:4] == b"\x89PNG"

@@ -25,7 +25,9 @@ ranks through ``afan_torch.parallel.launch`` (rank side in
   (``tests/test_torch_dp.py``'s tolerance), and in float64 against the
   port's own Dx1 step at ``WORLD_REL``, the Dx1 step replaying the DxS
   ascents and its own differing from them in at most ``FLIP_FRACTION`` of
-  the entries. The Dx1 comparison is made in float64 because at a batch of
+  the entries; the ResNet-18's step at 1x2 with ``--backbone_remat
+  --remat_tails`` against the same step without them, bit for bit. The
+  Dx1 comparison is made in float64 because at a batch of
   2 the float32 step amplifies rounding by orders of magnitude (its
   ascent gradients move by 0.5-1.6% when the convolutions only change
   shape, and MobileNetV2's parameters by 4e-5 of their norm, as far as the
@@ -264,15 +266,25 @@ _in_process = threading.Lock()
 def port_steps(payload):
     """{mesh: (the float32 DxS ranks, the float64 DxS ranks, their global
     ascents, the float64 Dx1 ranks replaying them, the float32 Dx1 ranks
-    on their own ascents)}. ``torch_dp_ranks.run`` in this process patches
-    module globals: one at a time."""
+    on their own ascents)}; for the ResNet-18 at 1x2 also {(mesh, "remat"):
+    (the float32 ranks, the float32 ranks of the step with
+    ``backbone_remat`` and ``remat_tails``)} from the same launch.
+    ``torch_dp_ranks.run`` in this process patches module globals: one at a
+    time."""
     out = {}
     for name, (data, size) in MESHES.items():
-        f32, f64 = zip(*launch(
-            torch_dp_ranks.runs, data * size,
-            ("seg", [dict(payload, mesh=(data, size)),
-                     dict(payload, mesh=(data, size), float64=True)]),
+        payloads = [dict(payload, mesh=(data, size)),
+                    dict(payload, mesh=(data, size), float64=True)]
+        recompute = (name, payload["deeplab"][0]) == ("1x2", "resnet18")
+        if recompute:
+            payloads.append(dict(payload, mesh=(data, size),
+                                 backbone_remat=True,
+                                 cfg=dict(payload["cfg"], remat_tails=True)))
+        f32, f64, *remat = zip(*launch(
+            torch_dp_ranks.runs, data * size, ("seg", payloads),
             device="cpu", timeout=600))
+        if recompute:
+            out[name, "remat"] = (f32, remat[0])
         replay = [blocks(f64, data, size, i)
                   for i in range(len(f64[0]["ascents"]))]
         args = ("seg", [dict(payload, float64=True, replay=replay),
@@ -461,6 +473,20 @@ def test_spatial_step_matches_afan_and_the_data_parallel_step(model, mesh,
         flips = np.abs(mine - replay[i]) > gamma / 2
         assert flips.mean() <= FLIP_FRACTION, (i, flips.mean())
     against_world_one(f64[0], dx1[0])
+
+
+def test_spatial_step_recomputes_bit_for_bit(runs):
+    """``--backbone_remat --remat_tails`` on the 1x2 mesh: every rank's
+    recompute runs the halo exchanges and the global BatchNorm's
+    all-reduces again, in the same order, and the step is the one without
+    recomputation bit for bit, running statistics included."""
+    plain, recomputed = runs["port", "resnet18-os8"].result()["1x2", "remat"]
+    for p, r in zip(plain, recomputed):
+        assert r["metrics"] == p["metrics"]
+        for k, v in p["state"].items():
+            np.testing.assert_array_equal(r["state"][k], v, err_msg=k)
+        for k, v in p["momenta"].items():
+            np.testing.assert_array_equal(r["momenta"][k], v, err_msg=k)
 
 
 # ---------- the CLI ----------

@@ -57,7 +57,8 @@ def build(section, p):
                              p["lr"], 0.9, 5e-4)
         return tm, opt, detect_loop.make_afan_det_step(
             tm, opt, sch, detect_loop.DetAfanConfig(**p["cfg"]))
-    tm = DeepLab(*p["deeplab"])
+    tm = DeepLab(*p["deeplab"],
+                 backbone_remat=p.get("backbone_remat", False))
     tm.load_state_dict(p["state_dict"])
     if p.get("float64"):
         tm.double()
@@ -82,7 +83,8 @@ def run(rank, section, p):
     own. With ``p["mesh"] = (data, spatial)`` the ranks form that mesh:
     each takes its block of the batch (its image rows too) and runs each
     step row-sharded; the ascents are then its block's (rows on axis 2).
-    With ``p["float64"]`` the segmentation model and images are float64."""
+    With ``p["float64"]`` the segmentation model and images are float64;
+    with ``p["backbone_remat"]`` its backbone recomputes its stages."""
     torch.set_num_threads(1)
     mesh = dp.make_mesh_2d(*p["mesh"]) if "mesh" in p else None
     tm, opt, step = build(section, p)
