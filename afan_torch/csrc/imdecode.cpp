@@ -1,7 +1,8 @@
 // Host image decoding for the port's data pipeline: PNG unfiltering and
-// Huffman JPEG (baseline, extended-sequential and progressive), giving the
-// bytes that Pillow gives (`Image.open(p).convert("RGB")`, Pillow's JPEG
-// codec being libjpeg-turbo with its default settings).
+// JPEG (baseline, extended-sequential and progressive, Huffman- or
+// arithmetic-coded, and lossless Huffman), giving the bytes that Pillow
+// gives (`Image.open(p).convert("RGB")`, Pillow's JPEG codec being
+// libjpeg-turbo 3 with its default settings).
 //
 // The JPEG path follows libjpeg-turbo's choices one by one:
 //   - progressive scans (jdphuff.c: DC and AC first and refinement scans,
@@ -11,28 +12,46 @@
 //     then is block-smoothed first (jdcoefct.c decompress_smooth_data, as
 //     libjpeg-turbo 2.1 and later: the 3x3 and 5x5 DC-neighbourhood
 //     estimates, and the DC's own smoothing when no AC scan came);
+//   - arithmetic coding (jdarith.c, SOF9 and SOF10): the QM-coder with the
+//     Qe table of jaricom.c, zeros fed after a marker, DC statistics
+//     conditioned on L and U and AC statistics split at Kx (the DAC
+//     marker's, else 0, 1 and 5), restarts resetting the statistics, the
+//     registers and the DC contexts; the sequential and the four
+//     progressive scan kinds fill the same coefficient buffers as Huffman;
+//   - lossless Huffman coding (jdlhuff.c, jdlossls.c, jddiffct.c, SOF3):
+//     differences (SSSS 16 is 32768, sums modulo 2^16), the seven
+//     predictors, the first row of a scan predicted from the left and its
+//     first sample from 1 << (7 - Pt), the first column from above, samples
+//     scaled back by << Pt; a restart starts the first row over at the
+//     next iMCU row that libjpeg undifferences, as jddiffct.c does;
 //   - the integer "islow" inverse DCT (jidctint.c: 13-bit constants, 2 pass
 //     bits, the post-IDCT range-limit table, indexed modulo 1024);
 //   - upsampling (jdsample.c): "fancy" h2v1 (biases 1 and 2), h1v2 (biases 1
 //     and 2) and h2v2 (biases 8 and 7), the chroma's first and last real row
 //     and column repeated past the image; a chroma plane of at most two
-//     columns under h2v1 / h2v2, and every other integral factor, is
-//     replicated;
+//     columns under h2v1 / h2v2, every other integral factor, and every
+//     factor of a lossless file (its DCT size is 1), is replicated;
 //   - the table-driven YCbCr -> RGB conversion (jdcolor.c, 16 scale bits),
 //     and YCCK -> CMYK with the same tables;
 //   - the colour space: JFIF is YCbCr, Adobe APP14 with transform 0 is RGB,
-//     1 is YCbCr, and without either, component ids 'R' 'G' 'B' mean RGB;
-//     four components are CMYK, or YCCK under Adobe's transform 2, which
-//     Pillow reads inverted ("CMYK;I") and turns into RGB with its
-//     cmyk2rgb (Convert.c).
+//     1 is YCbCr, and without either, component ids 'R' 'G' 'B' mean RGB,
+//     as every id does in a lossless file; four components are CMYK, or
+//     YCCK under Adobe's transform 2, which Pillow reads inverted ("CMYK;I")
+//     and turns into RGB with its cmyk2rgb (Convert.c).
 // No EXIF orientation is applied (Image.open applies none).
 //
-// What it does not decode it refuses with a message: arithmetic, lossless
-// and hierarchical JPEG, 12-bit samples, fractional sampling ratios, a DNL
-// marker, a progression that breaks libjpeg's order, corrupt entropy data
-// and truncated files. The PNG side unfilters rows of any pixel size (sub-
-// byte, 8- and 16-bit samples); the chunk parse, the inflate, Adam7's pass
-// split and the unpacking of samples are the caller's.
+// What it refuses, Pillow refuses too, and the message says what it met:
+// hierarchical JPEG (SOF5-7, SOF13-15), lossless arithmetic coding (SOF11,
+// which libjpeg-turbo does not implement), lossless YCbCr or YCCK (libjpeg-
+// turbo converts no colours in lossless mode), samples of other than 8 bits
+// (Pillow opens no other precision), a height of 0 (the DNL marker),
+// fractional sampling ratios, a progression that breaks libjpeg's order,
+// corrupt entropy data and truncated files. Pillow also refuses an
+// arithmetic-coded file whose scan does not fit in one of its 64 KiB reads
+// (libjpeg's arithmetic decoder cannot suspend); this decoder reads it. The
+// PNG side unfilters rows of any pixel size (sub-byte, 8- and 16-bit
+// samples); the chunk parse, the inflate, Adam7's pass split and the
+// unpacking of samples are the caller's.
 //
 // No global state: every call works on its own buffers, so threads may
 // call it at once.
@@ -195,6 +214,19 @@ void build_huffman(Huffman& h, const uint8_t bits[17], const uint8_t* vals,
   h.defined = true;
 }
 
+// jdmarker.c next_marker: from pos, skip to an FF followed by a byte that is
+// neither FF nor 0 (fill bytes and stuffed zeros are skipped); returns that
+// marker code, pos left after it.
+int next_marker_from(const uint8_t* data, int64_t len, int64_t& pos) {
+  for (;;) {
+    while (pos < len && data[pos] != 0xFF) ++pos;
+    while (pos < len && data[pos] == 0xFF) ++pos;
+    if (pos >= len) fail("truncated file: no marker after the scan data");
+    const int code = data[pos++];
+    if (code != 0) return code;
+  }
+}
+
 struct BitReader {
   const uint8_t* data;
   int64_t len;
@@ -268,10 +300,144 @@ struct BitReader {
     acc = 0;
     bits = 0;
     fake = 0;
-    while (pos < len && data[pos] != 0xFF) ++pos;
-    while (pos < len && data[pos] == 0xFF) ++pos;
-    if (pos >= len) fail("truncated file: no marker after the scan data");
+    return next_marker_from(data, len, pos);
+  }
+};
+
+// jaricom.c jpeg_aritab (T.81 Table D.2): Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 estimate.
+#define QE(qe, lps, mps, sw) \
+  ((int64_t(qe) << 16) | ((mps) << 8) | ((sw) << 7) | (lps))
+const int64_t kQe[114] = {
+    QE(0x5a1d, 1, 1, 1),    QE(0x2586, 14, 2, 0),   QE(0x1114, 16, 3, 0),
+    QE(0x080b, 18, 4, 0),   QE(0x03d8, 20, 5, 0),   QE(0x01da, 23, 6, 0),
+    QE(0x00e5, 25, 7, 0),   QE(0x006f, 28, 8, 0),   QE(0x0036, 30, 9, 0),
+    QE(0x001a, 33, 10, 0),  QE(0x000d, 35, 11, 0),  QE(0x0006, 9, 12, 0),
+    QE(0x0003, 10, 13, 0),  QE(0x0001, 12, 13, 0),  QE(0x5a7f, 15, 15, 1),
+    QE(0x3f25, 36, 16, 0),  QE(0x2cf2, 38, 17, 0),  QE(0x207c, 39, 18, 0),
+    QE(0x17b9, 40, 19, 0),  QE(0x1182, 42, 20, 0),  QE(0x0cef, 43, 21, 0),
+    QE(0x09a1, 45, 22, 0),  QE(0x072f, 46, 23, 0),  QE(0x055c, 48, 24, 0),
+    QE(0x0406, 49, 25, 0),  QE(0x0303, 51, 26, 0),  QE(0x0240, 52, 27, 0),
+    QE(0x01b1, 54, 28, 0),  QE(0x0144, 56, 29, 0),  QE(0x00f5, 57, 30, 0),
+    QE(0x00b7, 59, 31, 0),  QE(0x008a, 60, 32, 0),  QE(0x0068, 62, 33, 0),
+    QE(0x004e, 63, 34, 0),  QE(0x003b, 32, 35, 0),  QE(0x002c, 33, 9, 0),
+    QE(0x5ae1, 37, 37, 1),  QE(0x484c, 64, 38, 0),  QE(0x3a0d, 65, 39, 0),
+    QE(0x2ef1, 67, 40, 0),  QE(0x261f, 68, 41, 0),  QE(0x1f33, 69, 42, 0),
+    QE(0x19a8, 70, 43, 0),  QE(0x1518, 72, 44, 0),  QE(0x1177, 73, 45, 0),
+    QE(0x0e74, 74, 46, 0),  QE(0x0bfb, 75, 47, 0),  QE(0x09f8, 77, 48, 0),
+    QE(0x0861, 78, 49, 0),  QE(0x0706, 79, 50, 0),  QE(0x05cd, 48, 51, 0),
+    QE(0x04de, 50, 52, 0),  QE(0x040f, 50, 53, 0),  QE(0x0363, 51, 54, 0),
+    QE(0x02d4, 52, 55, 0),  QE(0x025c, 53, 56, 0),  QE(0x01f8, 54, 57, 0),
+    QE(0x01a4, 55, 58, 0),  QE(0x0160, 56, 59, 0),  QE(0x0125, 57, 60, 0),
+    QE(0x00f6, 58, 61, 0),  QE(0x00cb, 59, 62, 0),  QE(0x00ab, 61, 63, 0),
+    QE(0x008f, 61, 32, 0),  QE(0x5b12, 65, 65, 1),  QE(0x4d04, 80, 66, 0),
+    QE(0x412c, 81, 67, 0),  QE(0x37d8, 82, 68, 0),  QE(0x2fe8, 83, 69, 0),
+    QE(0x293c, 84, 70, 0),  QE(0x2379, 86, 71, 0),  QE(0x1edf, 87, 72, 0),
+    QE(0x1aa9, 87, 73, 0),  QE(0x174e, 72, 74, 0),  QE(0x1424, 72, 75, 0),
+    QE(0x119c, 74, 76, 0),  QE(0x0f6b, 74, 77, 0),  QE(0x0d51, 75, 78, 0),
+    QE(0x0bb6, 77, 79, 0),  QE(0x0a40, 77, 48, 0),  QE(0x5832, 80, 81, 1),
+    QE(0x4d1c, 88, 82, 0),  QE(0x438e, 89, 83, 0),  QE(0x3bdd, 90, 84, 0),
+    QE(0x34ee, 91, 85, 0),  QE(0x2eae, 92, 86, 0),  QE(0x299a, 93, 87, 0),
+    QE(0x2516, 86, 71, 0),  QE(0x5570, 88, 89, 1),  QE(0x4ca9, 95, 90, 0),
+    QE(0x44d9, 96, 91, 0),  QE(0x3e22, 97, 92, 0),  QE(0x3824, 99, 93, 0),
+    QE(0x32b4, 99, 94, 0),  QE(0x2e17, 93, 86, 0),  QE(0x56a8, 95, 96, 1),
+    QE(0x4f46, 101, 97, 0), QE(0x47e5, 102, 98, 0), QE(0x41cf, 103, 99, 0),
+    QE(0x3c3d, 104, 100, 0), QE(0x375e, 99, 93, 0), QE(0x5231, 105, 102, 0),
+    QE(0x4c0f, 106, 103, 0), QE(0x4639, 107, 104, 0),
+    QE(0x415e, 103, 99, 0), QE(0x5627, 105, 106, 1),
+    QE(0x50e7, 108, 107, 0), QE(0x4b85, 109, 103, 0),
+    QE(0x5597, 110, 109, 0), QE(0x504f, 111, 107, 0),
+    QE(0x5a10, 110, 111, 1), QE(0x5522, 112, 109, 0),
+    QE(0x59eb, 112, 111, 1), QE(0x5a1d, 113, 113, 0)};
+#undef QE
+
+// jdarith.c's QM-decoder: the C and A registers and the bit counter CT
+// (-16 until two bytes are in), reading the scan's bytes from pos; once it
+// meets a marker it feeds zeros, as the coding allows.
+struct ArithDecoder {
+  const uint8_t* data;
+  int64_t len;
+  int64_t pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  int marker = 0;          // the marker met, 0 while none
+  int64_t marker_at = 0;   // the position of its code byte
+
+  int byte() {
+    if (pos >= len) fail("truncated file inside an arithmetic-coded scan");
     return data[pos++];
+  }
+
+  // arith_decode: one binary decision with the adaptive state *st.
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int d = 0;
+        if (!marker) {
+          d = byte();
+          if (d == 0xFF) {
+            do d = byte(); while (d == 0xFF);
+            if (d == 0) {
+              d = 0xFF;
+            } else {
+              marker = d;
+              marker_at = pos - 1;
+              d = 0;
+            }
+          }
+        }
+        c = (c << 8) | d;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;   // the two first bytes
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kQe[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {                 // conditional LPS exchange
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {                 // conditional MPS exchange
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // jdmarker.c read_restart_marker: the marker met, else the next one;
+  // then the registers start over behind it.
+  int next_marker() {
+    int m = marker;
+    if (!m) m = next_marker_from(data, len, pos);
+    marker = 0;
+    c = a = 0;
+    ct = -16;
+    return m;
+  }
+
+  // The position of the FF before the marker that ends the scan.
+  int64_t scan_end() {
+    if (marker) return marker_at - 1;
+    int64_t p = pos;
+    next_marker_from(data, len, p);
+    return p - 2;
   }
 };
 
@@ -283,9 +449,11 @@ struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int td = 0, ta = 0;
   int dc_pred = 0;
+  int dc_context = 0;             // arithmetic: the DC statistics' offset
   int plane_w = 0, plane_h = 0;   // samples, MCU-padded
   int down_w = 0, down_h = 0;     // samples that belong to the image
-  int blocks_w = 0, blocks_h = 0; // blocks of a non-interleaved scan
+  int blocks_w = 0, blocks_h = 0; // blocks (lossless: samples) of a
+                                  // non-interleaved scan
   bool decoded = false;           // sequential: its one scan is done
   bool quant_latched = false;     // progressive: table of its first scan
   int coef_bits[64];              // progressive: bit still to come, -1 none
@@ -467,6 +635,8 @@ struct Jpeg {
   int hmax = 1, vmax = 1;
   bool have_frame = false;
   bool progressive = false;
+  bool arith = false;      // SOF9, SOF10
+  bool lossless = false;   // SOF3
   int eobrun = 0;
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
@@ -475,6 +645,17 @@ struct Jpeg {
   uint16_t quant[4][64];   // natural order
   Huffman dc[4], ac[4];
   Component comp[4];
+  // arithmetic coding: the DAC conditioning and the statistics of each of
+  // the 16 tables (jdarith.c DC_STAT_BINS, AC_STAT_BINS)
+  uint8_t dc_L[16], dc_U[16], ac_K[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed_bin = 113;   // the fixed 0.5 estimate of signs and refinements
+
+  Jpeg() {
+    std::fill(dc_L, dc_L + 16, 0);
+    std::fill(dc_U, dc_U + 16, 1);
+    std::fill(ac_K, ac_K + 16, 5);
+  }
 
   int u8() {
     if (pos >= len) fail("truncated file");
@@ -515,9 +696,29 @@ struct Jpeg {
     }
   }
 
+  // jdmarker.c get_dac: L and U of a DC table, Kx of an AC table.
+  void read_dac(int64_t end) {
+    while (pos + 1 < end) {
+      const int index = u8(), val = u8();
+      if (index >= 32) {
+        fail("bad arithmetic table index " + std::to_string(index));
+      }
+      if (index >= 16) {
+        ac_K[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_L[index] = static_cast<uint8_t>(val & 15);
+        dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_L[index] > dc_U[index]) fail("bad arithmetic DC conditioning");
+      }
+    }
+    if (pos != end) fail("bad DAC marker length");
+  }
+
   void read_sof(int marker) {
     if (have_frame) fail("more than one frame");
-    progressive = marker == 0xC2;
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arith = marker == 0xC9 || marker == 0xCA;
+    lossless = marker == 0xC3;
     int precision = u8();
     if (precision != 8) {
       fail(std::to_string(precision) + "-bit samples are not decoded");
@@ -554,23 +755,23 @@ struct Jpeg {
         fail("sampling " + f + " (a fractional ratio) is not decoded");
       }
     }
-    const int mcux = (width + 8 * hmax - 1) / (8 * hmax);
-    const int mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    const int block = lossless ? 1 : 8;   // a lossless "block" is a sample
+    const int mcux = (width + block * hmax - 1) / (block * hmax);
+    const int mcuy = (height + block * vmax - 1) / (block * vmax);
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
       c.down_w = (width * c.h + hmax - 1) / hmax;
       c.down_h = (height * c.v + vmax - 1) / vmax;
-      c.blocks_w = (c.down_w + 7) / 8;
-      c.blocks_h = (c.down_h + 7) / 8;
-      c.plane_w = std::max(mcux * c.h, c.blocks_w) * 8;
-      c.plane_h = std::max(mcuy * c.v, c.blocks_h) * 8;
+      c.blocks_w = (c.down_w + block - 1) / block;
+      c.blocks_h = (c.down_h + block - 1) / block;
+      c.plane_w = std::max(mcux * c.h, c.blocks_w) * block;
+      c.plane_h = std::max(mcuy * c.v, c.blocks_h) * block;
     }
     have_frame = true;
   }
 
-  void decode_block(BitReader& br, Component& c, int16_t* coef, int bx,
-                    int by) {
-    std::memset(coef, 0, 64 * sizeof(int16_t));
+  // jdhuff.c decode_mcu, for one block of zeroed coefficients.
+  void decode_block(BitReader& br, Component& c, int16_t* coef) {
     const Huffman& hd = dc[c.td];
     const Huffman& ha = ac[c.ta];
     int s = br.decode(hd);
@@ -590,10 +791,6 @@ struct Jpeg {
         k += 15;
       }
     }
-    idct_islow(coef, c.quant,
-               c.plane.data() + static_cast<size_t>(by) * 8 * c.plane_w +
-                   bx * 8,
-               c.plane_w);
   }
 
   // jdphuff.c decode_mcu_DC_first, for one block.
@@ -678,6 +875,274 @@ struct Jpeg {
     }
   }
 
+  // ---- arithmetic decoding (jdarith.c); libjpeg's JWRN_ARITH_BAD_CODE
+  // (a magnitude or a run past its limit) is refused here.
+
+  [[noreturn]] static void bad_arith_code() {
+    fail("corrupt JPEG data: bad arithmetic code");
+  }
+
+  // Figures F.23-F.24: a nonzero value's magnitude, |v|. The category's
+  // first decision is at st (AC: its first two), its further ones from x1;
+  // m is the category's top bit, which conditions the next DC.
+  static int arith_magnitude(ArithDecoder& ad, uint8_t* st, uint8_t* x1,
+                             bool ac, int* top = nullptr) {
+    int m = ad.decode(st);
+    if (m && (!ac || ad.decode(st))) {
+      if (ac) m <<= 1;
+      st = x1;
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) bad_arith_code();
+        ++st;
+      }
+    }
+    if (top) *top = m;
+    int v = m;
+    st += 14;
+    while (m >>= 1) {
+      if (ad.decode(st)) v |= m;
+    }
+    return v + 1;
+  }
+
+  // decode_mcu's DC part: the DC difference in context c.dc_context, the
+  // context of the next one from its category (L, U of the table).
+  void arith_dc(ArithDecoder& ad, Component& c) {
+    uint8_t* base = dc_stats[c.td];
+    uint8_t* st = base + c.dc_context;
+    if (ad.decode(st) == 0) {
+      c.dc_context = 0;
+      return;
+    }
+    const int sign = ad.decode(st + 1);
+    st += 2 + sign;
+    int top;
+    int v = arith_magnitude(ad, st, base + 20, false, &top);
+    if (top < ((1 << dc_L[c.td]) >> 1)) {
+      c.dc_context = 0;
+    } else if (top > ((1 << dc_U[c.td]) >> 1)) {
+      c.dc_context = 12 + sign * 4;
+    } else {
+      c.dc_context = 4 + sign * 4;
+    }
+    if (sign) v = -v;
+    c.dc_pred = (c.dc_pred + v) & 0xFFFF;
+  }
+
+  // The AC values ss..se of one block (Figure F.20), each shifted by al.
+  void arith_ac(ArithDecoder& ad, const Component& c, int16_t* coef, int ss,
+                int se, int al) {
+    uint8_t* base = ac_stats[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = base + 3 * (k - 1);
+      if (ad.decode(st)) break;   // EOB
+      while (ad.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) bad_arith_code();
+      }
+      const int sign = ad.decode(&fixed_bin);
+      st += 2;
+      int v = arith_magnitude(ad, st, base + (k <= ac_K[c.ta] ? 189 : 217),
+                              true);
+      if (sign) v = -v;
+      coef[kNatural[k]] =
+          static_cast<int16_t>(static_cast<unsigned>(v) << al);
+    }
+  }
+
+  // decode_mcu: one sequential block of zeroed coefficients.
+  void arith_block(ArithDecoder& ad, Component& c, int16_t* coef) {
+    arith_dc(ad, c);
+    coef[0] = static_cast<int16_t>(c.dc_pred);
+    arith_ac(ad, c, coef, 1, 63, 0);
+  }
+
+  // decode_mcu_DC_first, for one block.
+  void arith_dc_first(ArithDecoder& ad, Component& c, int16_t* coef, int al) {
+    arith_dc(ad, c);
+    coef[0] = static_cast<int16_t>(static_cast<unsigned>(c.dc_pred) << al);
+  }
+
+  // decode_mcu_DC_refine: the next bit of the DC value, at the fixed 0.5.
+  void arith_dc_refine(ArithDecoder& ad, int16_t* coef, int al) {
+    if (ad.decode(&fixed_bin)) {
+      coef[0] = static_cast<int16_t>(coef[0] | (1 << al));
+    }
+  }
+
+  // decode_mcu_AC_refine: past the previous stage's end of block (EOBx) an
+  // EOB decision; a nonzero coefficient gets its correction bit, a zero one
+  // may become +-(1 << al).
+  void arith_ac_refine(ArithDecoder& ad, const Component& c, int16_t* coef,
+                       int ss, int se, int al) {
+    uint8_t* base = ac_stats[c.ta];
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int kex = se;
+    for (; kex > 0; --kex) {
+      if (coef[kNatural[kex]]) break;
+    }
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = base + 3 * (k - 1);
+      if (k > kex && ad.decode(st)) break;   // EOB
+      for (;;) {
+        int16_t& v = coef[kNatural[k]];
+        if (v) {
+          if (ad.decode(st + 2)) {
+            v = static_cast<int16_t>(v < 0 ? v + m1 : v + p1);
+          }
+          break;
+        }
+        if (ad.decode(st + 1)) {
+          v = static_cast<int16_t>(ad.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) bad_arith_code();
+      }
+    }
+  }
+
+  // start_pass and process_restart: the statistics of the tables the scan
+  // uses start over, and the DC predictions and contexts with them.
+  void reset_arith(Component* const* sc, int ns, int ss, int ah) {
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      if (!progressive || (ss == 0 && ah == 0)) {
+        std::memset(dc_stats[c.td], 0, sizeof(dc_stats[0]));
+        c.dc_pred = 0;
+        c.dc_context = 0;
+      }
+      if (!progressive || ss) {
+        std::memset(ac_stats[c.ta], 0, sizeof(ac_stats[0]));
+      }
+    }
+  }
+
+  // A restart's marker must be RSTn, n counting 0-7 in turn.
+  static void expect_restart(int marker, int& next_rst) {
+    if (marker != 0xD0 + next_rst) {
+      fail("corrupt JPEG data: expected RST" + std::to_string(next_rst));
+    }
+    next_rst = (next_rst + 1) & 7;
+  }
+
+  // ---- lossless Huffman decoding (jdlhuff.c, jddiffct.c, jdlossls.c)
+
+  // One difference: SSSS from the component's DC table, 16 meaning 32768.
+  int lossless_diff(BitReader& br, const Component& c) {
+    const int s = br.decode(dc[c.td]);
+    if (s == 0) return 0;
+    if (s == 16) return 32768;
+    if (s > 16) {
+      fail("corrupt JPEG data: difference category " + std::to_string(s));
+    }
+    return extend(br.get(s), s);
+  }
+
+  // A scan of predictor psv (1-7) and point transform pt. As jddiffct.c
+  // decompress_data: each iMCU row (an MCU row of an interleaved scan, v
+  // rows of a lone component) is decoded, restarts met on the way, then
+  // undifferenced row by row; a restart makes the next row undifferenced
+  // a first row (jdlossls.c start_pass_lossless), so in a lone component
+  // of v = 2 a restart between its two rows reaches back to the first.
+  void lossless_scan(Component* const* sc, int ns, int psv, int pt) {
+    const bool inter = ns > 1;
+    const int mcus_w = inter ? (width + hmax - 1) / hmax : sc[0]->down_w;
+    if (restart_interval % mcus_w) {
+      fail("a restart interval of " + std::to_string(restart_interval) +
+           " is not a whole number of MCU rows of " +
+           std::to_string(mcus_w));
+    }
+    const int restart_rows = restart_interval / mcus_w;
+    const int imcu_rows = (height + vmax - 1) / vmax;
+    std::vector<int32_t> diff[4], prev[4], cur[4];
+    bool first[4];
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      const int w = inter ? mcus_w * c.h : c.down_w;
+      diff[i].assign(static_cast<size_t>(w) * c.v, 0);
+      prev[i].assign(static_cast<size_t>(c.down_w), 0);
+      cur[i].assign(static_cast<size_t>(c.down_w), 0);
+      first[i] = true;
+    }
+    const int initial = 1 << (8 - pt - 1);
+    BitReader br{data, len, pos};
+    int to_go = restart_rows, next_rst = 0;
+    for (int g = 0; g < imcu_rows; ++g) {
+      const bool last = g == imcu_rows - 1;
+      auto rows_of = [&](const Component& c) {
+        const int r = c.down_h % c.v;
+        return last && r ? r : c.v;
+      };
+      const int mcu_rows = inter ? 1 : rows_of(*sc[0]);
+      for (int yo = 0; yo < mcu_rows; ++yo) {
+        if (restart_interval) {
+          if (to_go == 0) {
+            expect_restart(br.next_marker(), next_rst);
+            std::fill(first, first + ns, true);
+            to_go = restart_rows;
+          }
+          --to_go;
+        }
+        for (int mx = 0; mx < mcus_w; ++mx) {
+          if (!inter) {
+            diff[0][static_cast<size_t>(yo) * mcus_w + mx] =
+                lossless_diff(br, *sc[0]);
+            continue;
+          }
+          for (int i = 0; i < ns; ++i) {
+            const Component& c = *sc[i];
+            const size_t w = static_cast<size_t>(mcus_w) * c.h;
+            for (int v = 0; v < c.v; ++v) {
+              for (int h = 0; h < c.h; ++h) {
+                diff[i][v * w + mx * c.h + h] = lossless_diff(br, c);
+              }
+            }
+          }
+        }
+      }
+      for (int i = 0; i < ns; ++i) {
+        Component& c = *sc[i];
+        const int w = c.down_w;
+        const size_t dw = inter ? static_cast<size_t>(mcus_w) * c.h : w;
+        for (int row = 0; row < rows_of(c); ++row) {
+          const int32_t* d = diff[i].data() + row * dw;
+          int32_t* o = cur[i].data();
+          const int32_t* up = prev[i].data();
+          if (first[i]) {   // jpeg_undifference_first_row
+            o[0] = (d[0] + initial) & 0xFFFF;
+            for (int x = 1; x < w; ++x) o[x] = (d[x] + o[x - 1]) & 0xFFFF;
+            first[i] = false;
+          } else {
+            o[0] = (d[0] + up[0]) & 0xFFFF;
+            for (int x = 1; x < w; ++x) {
+              const int ra = o[x - 1], rb = up[x], rc = up[x - 1];
+              int px;
+              switch (psv) {
+                case 1: px = ra; break;
+                case 2: px = rb; break;
+                case 3: px = rc; break;
+                case 4: px = ra + rb - rc; break;
+                case 5: px = ra + ((rb - rc) >> 1); break;
+                case 6: px = rb + ((ra - rc) >> 1); break;
+                default: px = (ra + rb) >> 1; break;
+              }
+              o[x] = (d[x] + px) & 0xFFFF;
+            }
+          }
+          uint8_t* out = c.plane.data() +
+                         static_cast<size_t>(g * c.v + row) * c.plane_w;
+          for (int x = 0; x < w; ++x) {
+            out[x] = static_cast<uint8_t>(o[x] << pt);
+          }
+          prev[i].swap(cur[i]);
+        }
+      }
+    }
+    br.next_marker();
+    pos = br.pos - 2;
+  }
+
   // jdphuff.c start_pass_phuff_decoder's checks, which libjpeg partly only
   // warns about; a progression it would warn about is refused here.
   void check_progressive_scan(Component* const* sc, int ns, int ss, int se,
@@ -723,7 +1188,11 @@ struct Jpeg {
       for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
       if (blocks > 10) fail("more than 10 blocks in an MCU");
     }
-    if (progressive) {
+    if (lossless) {   // jdlossls.c start_pass_lossless
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8) {
+        fail("bad lossless scan parameters");
+      }
+    } else if (progressive) {
       check_progressive_scan(sc, ns, ss, se, ah, al);
     } else if (ss != 0 || se != 63 || ahl != 0) {
       fail("bad sequential scan header");
@@ -734,12 +1203,13 @@ struct Jpeg {
       c.td = tables[i] >> 4;
       c.ta = tables[i] & 15;
       const bool need_dc = !progressive || (ss == 0 && ah == 0);
-      const bool need_ac = !progressive || ss > 0;
-      if (c.td > 3 || c.ta > 3 || (need_dc && !dc[c.td].defined) ||
-          (need_ac && !ac[c.ta].defined)) {
+      const bool need_ac = !lossless && (!progressive || ss > 0);
+      if (!arith &&
+          (c.td > 3 || c.ta > 3 || (need_dc && !dc[c.td].defined) ||
+           (need_ac && !ac[c.ta].defined))) {
         fail("scan uses an undefined Huffman table");
       }
-      if (!c.quant_latched) {   // jddctmgr.c latch_quant_tables
+      if (!lossless && !c.quant_latched) {   // jddctmgr.c latch_quant_tables
         if (!have_quant[c.tq]) {
           fail("component uses an undefined quantization table");
         }
@@ -756,27 +1226,47 @@ struct Jpeg {
       }
     }
     eobrun = 0;
+    if (lossless) {
+      lossless_scan(sc, ns, ss, al);
+      for (int i = 0; i < ns; ++i) sc[i]->decoded = true;
+      return;
+    }
+    if (arith) reset_arith(sc, ns, ss, ah);
 
     BitReader br{data, len, pos};
+    ArithDecoder ad{data, len, pos};
     int16_t coef[64];
     auto block = [&](Component& c, int bx, int by) {
       if (!progressive) {
-        decode_block(br, c, coef, bx, by);
+        std::memset(coef, 0, sizeof(coef));
+        if (arith) {
+          arith_block(ad, c, coef);
+        } else {
+          decode_block(br, c, coef);
+        }
+        idct_islow(coef, c.quant,
+                   c.plane.data() + static_cast<size_t>(by) * 8 * c.plane_w +
+                       bx * 8,
+                   c.plane_w);
         return;
       }
       int16_t* co =
           c.coefs.data() +
           (static_cast<size_t>(by) * (c.plane_w / 8) + bx) * 64;
       if (ss == 0) {
-        if (ah == 0) {
-          dc_first(br, c, co, al);
+        if (ah != 0) {
+          arith ? arith_dc_refine(ad, co, al) : dc_refine(br, co, al);
+        } else if (arith) {
+          arith_dc_first(ad, c, co, al);
         } else {
-          dc_refine(br, co, al);
+          dc_first(br, c, co, al);
         }
       } else if (ah == 0) {
-        ac_first(br, c, co, ss, se, al);
+        arith ? arith_ac(ad, c, co, ss, se, al)
+              : ac_first(br, c, co, ss, se, al);
       } else {
-        ac_refine(br, c, co, ss, se, al);
+        arith ? arith_ac_refine(ad, c, co, ss, se, al)
+              : ac_refine(br, c, co, ss, se, al);
       }
     };
     int mcus_w, mcus_h;
@@ -791,13 +1281,10 @@ struct Jpeg {
     int next_rst = 0;
     for (int64_t m = 0; m < total; ++m) {
       if (restart_interval && m > 0 && m % restart_interval == 0) {
-        int marker = br.next_marker();
-        if (marker != 0xD0 + next_rst) {
-          fail("corrupt JPEG data: expected RST" + std::to_string(next_rst));
-        }
-        next_rst = (next_rst + 1) & 7;
+        expect_restart(arith ? ad.next_marker() : br.next_marker(), next_rst);
         for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
         eobrun = 0;
+        if (arith) reset_arith(sc, ns, ss, ah);
       }
       const int mx = static_cast<int>(m % mcus_w);
       const int my = static_cast<int>(m / mcus_w);
@@ -816,8 +1303,12 @@ struct Jpeg {
     }
     for (int i = 0; i < ns; ++i) sc[i]->decoded = true;
     // step back onto the marker that ends the scan
-    br.next_marker();
-    pos = br.pos - 2;
+    if (arith) {
+      pos = ad.scan_end();
+    } else {
+      br.next_marker();
+      pos = br.pos - 2;
+    }
   }
 
   // jdcoefct.c smoothing_ok: block smoothing runs when every component's
@@ -1047,23 +1538,24 @@ struct Jpeg {
         case 0xC0:
         case 0xC1:
         case 0xC2:
+        case 0xC3:
+        case 0xC9:
+        case 0xCA:
           read_sof(marker);
           if (header_only) return;
           break;
-        case 0xC3:
-          fail("lossless JPEG is not decoded");
+        case 0xCB:   // libjpeg-turbo: "arithmetic coding is not implemented"
+          fail("lossless arithmetic-coded JPEG is not decoded");
         case 0xC5:
         case 0xC6:
         case 0xC7:
-          fail("hierarchical JPEG is not decoded");
-        case 0xC9:
-        case 0xCA:
-        case 0xCB:
         case 0xCD:
         case 0xCE:
         case 0xCF:
+          fail("hierarchical JPEG is not decoded");
         case 0xCC:
-          fail("arithmetic-coded JPEG is not decoded");
+          read_dac(end);
+          break;
         case 0xC4:
           read_dht(end);
           break;
@@ -1101,12 +1593,28 @@ struct Jpeg {
       }
     }
     if (progressive) transform_progressive();
+    const Space space = colour_space();
+    if (lossless && (space == Space::kYcc || space == Space::kYcck)) {
+      fail(std::string("lossless JPEG in ") +
+           (space == Space::kYcc ? "YCbCr" : "YCCK") +
+           " is not decoded (libjpeg-turbo converts no colours in lossless "
+           "mode)");
+    }
   }
 
-  bool is_rgb() const {
-    if (saw_jfif) return false;
-    if (saw_adobe) return adobe_transform == 0;
-    return comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
+  // jdapimin.c default_decompress_parms
+  enum class Space { kGray, kRgb, kYcc, kCmyk, kYcck };
+  Space colour_space() const {
+    if (ncomp == 1) return Space::kGray;
+    if (ncomp == 4) {
+      return saw_adobe && adobe_transform != 0 ? Space::kYcck : Space::kCmyk;
+    }
+    if (saw_jfif) return Space::kYcc;
+    if (saw_adobe) return adobe_transform == 0 ? Space::kRgb : Space::kYcc;
+    if (lossless) return Space::kRgb;
+    const bool rgb_ids =
+        comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
+    return rgb_ids ? Space::kRgb : Space::kYcc;
   }
 
   // jdsample.c: the plane of c upsampled to the image's size.
@@ -1115,6 +1623,7 @@ struct Jpeg {
     const int dw = c.down_w, dh = c.down_h;
     const uint8_t* p = c.plane.data();
     const int pw = c.plane_w;
+    const bool fancy = !lossless;   // do_fancy needs a DCT size above 1
     if (rh == 1 && rv == 1) {   // fullsize_upsample
       for (int y = 0; y < height; ++y) {
         std::memcpy(out + static_cast<size_t>(y) * width, p + y * pw,
@@ -1122,7 +1631,7 @@ struct Jpeg {
       }
       return;
     }
-    if (rh == 1 && rv == 2) {   // h1v2_fancy_upsample
+    if (fancy && rh == 1 && rv == 2) {   // h1v2_fancy_upsample
       for (int y = 0; y < height; ++y) {
         int near_row = y >> 1;
         int far_row = (y & 1) ? near_row + 1 : near_row - 1;
@@ -1137,7 +1646,7 @@ struct Jpeg {
       }
       return;
     }
-    if (rh != 2 || rv > 2 || dw <= 2) {
+    if (!fancy || rh != 2 || rv > 2 || dw <= 2) {
       // h2v1_upsample / h2v2_upsample at two columns or fewer, and
       // int_upsample for every other factor: replication
       for (int y = 0; y < height; ++y) {
@@ -1210,7 +1719,7 @@ struct Jpeg {
       // other YCCK (ycck_cmyk_convert); then Pillow's "CMYK;I" (each sample
       // inverted) and cmyk2rgb: nk - nk * c / 255, with MULDIV255's
       // rounding, where nk = 255 - K read inverted, the stored K.
-      const bool ycck = saw_adobe && adobe_transform != 0;
+      const bool ycck = colour_space() == Space::kYcck;
       const uint8_t* c3 = full.data() + 3 * n;
       for (size_t k = 0; k < n; ++k) {
         int s0 = c0[k], s1 = c1[k], s2 = c2[k];
@@ -1229,7 +1738,7 @@ struct Jpeg {
       }
       return;
     }
-    if (is_rgb()) {
+    if (colour_space() == Space::kRgb) {
       for (size_t k = 0; k < n; ++k) {
         out[3 * k] = c0[k];
         out[3 * k + 1] = c1[k];

@@ -15,21 +15,31 @@ bytes (the machine with the card has neither library).
   A label map is the gray values or palette indices: 16-bit gray keeps its
   low byte (numpy's cast of ``I;16``), 1-bit gray is 0/1 (mode ``1``), 2-
   and 4-bit gray scale by 85 and 17 (mode ``L``).
-- **JPEG**: Huffman-coded baseline, extended-sequential and progressive
-  (SOF0-2), 8-bit, gray, three components or four (CMYK, or YCCK under
-  Adobe's transform 2) at any integral sampling, decoded entirely by
-  ``csrc/imdecode.cpp`` with libjpeg-turbo's integer IDCT, upsampling and
-  YCbCr table (Pillow's JPEG codec), and Pillow's inverted CMYK and its
-  ``cmyk2rgb``; restart intervals, byte stuffing and fill bytes are handled,
-  Adobe's transform 0 means RGB, a gray JPEG repeats its channel, and no
-  EXIF rotation is applied. A progressive file that ends after a complete
-  scan, its first ten coefficients not all complete, is block-smoothed as
-  libjpeg-turbo does (``jdcoefct.c``).
+- **JPEG**: baseline, extended-sequential and progressive, Huffman- or
+  arithmetic-coded (SOF0-2, SOF9-10, with the DAC marker's conditioning),
+  and lossless Huffman (SOF3: the seven predictors, point transforms,
+  interleaved scans or one per component), 8-bit, gray, three components
+  or four (CMYK, or YCCK under Adobe's transform 2) at any integral
+  sampling, decoded entirely by ``csrc/imdecode.cpp`` with libjpeg-turbo's
+  integer IDCT, upsampling (replication in a lossless file) and YCbCr table
+  (Pillow's JPEG codec), and Pillow's inverted CMYK and its ``cmyk2rgb``;
+  restart intervals, byte stuffing and fill bytes are handled, Adobe's
+  transform 0 means RGB (as does a lossless file with neither JFIF nor
+  Adobe marker), a gray JPEG repeats its channel, and no EXIF rotation is
+  applied. A progressive file that ends after a complete scan, its first
+  ten coefficients not all complete, is block-smoothed as libjpeg-turbo
+  does (``jdcoefct.c``). An arithmetic-coded file whose scan spans more
+  than one of Pillow's 64 KiB reads, which Pillow refuses (libjpeg's
+  arithmetic decoder cannot wait for more input), is read whole.
 
 Anything else raises a :class:`ValueError` that names the file and what it
-met: arithmetic-coded, lossless, hierarchical or 12-bit JPEG, fractional
-sampling ratios, a progression that breaks libjpeg's order; truncated
-(inside a scan) or corrupt data. The library is compiled with ``c++`` into ``build/host/`` at
+met, and each JPEG kind refused is one Pillow refuses too: hierarchical
+JPEG (SOF5-7, SOF13-15), lossless arithmetic coding (SOF11), lossless
+YCbCr or YCCK (libjpeg-turbo converts no colours in lossless mode), samples
+of other than 8 bits, a height of 0 (DNL), fractional sampling ratios, a
+progression that breaks libjpeg's order, a lossless restart interval that
+is not a whole number of MCU rows; truncated (inside a scan) or corrupt
+data. The library is compiled with ``c++`` into ``build/host/`` at
 first use (:func:`afan_torch.ops.kernels.build.build_host`) and bound with
 :mod:`ctypes`, which releases the GIL during a call, so a prefetch thread
 decodes while the main thread runs the step.

@@ -456,6 +456,7 @@ import shlex
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -5224,12 +5225,65 @@ def copy_fixture(name, path):
     shutil.copyfile(os.path.join(DATA_FIXTURES, name), path)
 
 
+# the JPEG kinds PIL reads beyond Huffman, by their SOF markers; phase 48
+# puts one in every second image of the VOC trees and phase 49 requires
+# the VOC runs to read each
+SOF_KINDS = {0xC0: "baseline", 0xC1: "extended", 0xC2: "progressive",
+             0xC3: "lossless", 0xC9: "arithmetic",
+             0xCA: "arithmetic progressive"}
+NEW_JPEG_KINDS = ("arithmetic", "arithmetic progressive", "lossless")
+
+
+def voc_fixture(k):
+    """The JPEG of VOC image ``k`` (odd ones tall): every fourth one from
+    the third is arithmetic-coded or lossless in turn (wide), every fourth
+    from the fourth arithmetic-coded progressive (tall), the others
+    baseline."""
+    if k % 4 == 3:
+        return "arith_progressive_375x500.jpg"
+    if k % 4 == 2:
+        return ("arith_500x375.jpg", "lossless_500x375.jpg")[k // 4 % 2]
+    return "voc_375x500.jpg" if k % 2 else "voc_500x375.jpg"
+
+
+def jpeg_kind(data):
+    """The frame kind of a JPEG's bytes, from its SOF marker."""
+    i = 2
+    while i + 4 <= len(data) and data[i] == 0xFF:
+        if data[i + 1] in SOF_KINDS:
+            return SOF_KINDS[data[i + 1]]
+        i += 2 + ((data[i + 2] << 8) | data[i + 3])
+    return "unknown"
+
+
+@contextlib.contextmanager
+def counting_jpeg_kinds(counts):
+    """Every JPEG that ``read_rgb`` decodes meanwhile, from any thread, is
+    counted in ``counts`` by its frame kind."""
+    from afan_torch.utils import imread
+    saved, lock = imread._jpeg_rgb, threading.Lock()
+
+    def counted(data, path):
+        kind = jpeg_kind(data)
+        with lock:
+            counts[kind] = counts.get(kind, 0) + 1
+        return saved(data, path)
+
+    imread._jpeg_rgb = counted
+    try:
+        yield counts
+    finally:
+        imread._jpeg_rgb = saved
+
+
 def write_data_tree(root):
     """Phase 48: Cityscapes (1024x2048 PNGs, ids 0-33), VOC 2012
     segmentation (the fixture JPEGs, palette labels with 255 borders), VOC
     2007 detection (wide and tall fixture JPEGs; one difficult object per
     test image) and COCO 2017 (the fixture JPEG; one crowd annotation per
-    split) under ``root``. Returns the seconds each took."""
+    split) under ``root``; in the VOC trees every second image is
+    arithmetic-coded or lossless (:func:`voc_fixture`). Returns the seconds
+    each took."""
     from afan_torch.utils.imread import read_label
     from afan_torch.utils.png import voc_color_map
     secs = {}
@@ -5253,7 +5307,7 @@ def write_data_tree(root):
         for _ in range(n):
             image_id = f"2008_{k:06d}"
             tall = k % 2 == 1
-            copy_fixture("voc_375x500.jpg" if tall else "voc_500x375.jpg",
+            copy_fixture(voc_fixture(k),
                          os.path.join(voc12, "JPEGImages", f"{image_id}.jpg"))
             write_png(os.path.join(voc12, "SegmentationClass",
                                    f"{image_id}.png"),
@@ -5273,9 +5327,9 @@ def write_data_tree(root):
         ids = []
         for j in range(n):
             image_id = f"{k:06d}"
-            tall = j % 2 == 1
+            tall = k % 2 == 1
             w, h = (375, 500) if tall else (500, 375)
-            copy_fixture("voc_375x500.jpg" if tall else "voc_500x375.jpg",
+            copy_fixture(voc_fixture(k),
                          os.path.join(voc07, "JPEGImages", f"{image_id}.jpg"))
             objects = [(names[(k + m) % len(names)], False,
                         (20 + 40 * m, 30 + 25 * m, 180 + 40 * m,
@@ -5359,8 +5413,10 @@ def cpu_model():
 def decode_timings(root):
     """Phase 48's decode times: ms per image, median of 20, of a 500x375
     JPEG and a 2048x1024 PNG on this host, and of the image kinds PIL reads
-    beyond those: a 500x375 progressive JPEG, a 320x240 CMYK JPEG and a
-    500x375 Adam7 label PNG."""
+    beyond those: a 500x375 progressive JPEG, a 320x240 CMYK JPEG, a
+    500x375 Adam7 label PNG, and the arithmetic-coded (500x375 sequential,
+    375x500 progressive) and lossless (500x375) JPEGs that the VOC trees
+    hold."""
     from afan_torch.utils import imread
     png = next(os.path.join(dp, f) for dp, _, fs in sorted(os.walk(
         os.path.join(root, "leftImg8bit", "train"))) for f in sorted(fs))
@@ -5372,7 +5428,13 @@ def decode_timings(root):
              "cmyk_jpeg_320x240": (fixture("cmyk_320x240.jpg"),
                                    imread.read_rgb),
              "adam7_label_png_500x375": (fixture("adam7_label_500x375.png"),
-                                         imread.read_label)}
+                                         imread.read_label),
+             "arith_jpeg_500x375": (fixture("arith_500x375.jpg"),
+                                    imread.read_rgb),
+             "arith_progressive_jpeg_375x500": (
+                 fixture("arith_progressive_375x500.jpg"), imread.read_rgb),
+             "lossless_jpeg_500x375": (fixture("lossless_500x375.jpg"),
+                                       imread.read_rgb)}
     times = {k: host_ms(lambda p=path, r=read: r(p))
              for k, (path, read) in files.items()}
     print(f"    decode, median of 20 on {cpu_model()} ({os.cpu_count()} "
@@ -5422,12 +5484,14 @@ def data_recipe_runs(root, updates, host):
                               "resize_ce_backward_bf16", "pgd_update_bf16",
                               "nms"), 0)
     ckpts = {}
+    kinds = {}
     for name, env, steps in DATA_SEG_RECIPES:
         tag = "data_" + os.path.splitext(name)[0]
         stamps = []
-        run = run_seg_recipe(tag, recipe_flags(name, env)
-                             + ["--data_root", root], torch.bfloat16,
-                             updates, step_times=stamps, steps=steps)
+        with counting_jpeg_kinds(kinds.setdefault(tag, {})):
+            run = run_seg_recipe(tag, recipe_flags(name, env)
+                                 + ["--data_root", root], torch.bfloat16,
+                                 updates, step_times=stamps, steps=steps)
         # the f32 counts include the bf16 launches, which go to their own
         # entries
         for i, k in enumerate(("resize_ce_forward", "resize_ce_backward",
@@ -5450,7 +5514,8 @@ def data_recipe_runs(root, updates, host):
         prefetchers, stamps = [], []
         eval_images = (COCO_SPLITS["val2017"] if setting
                        else VOC_DET_SPLITS["test"])
-        with recording_prefetchers(prefetchers):
+        with recording_prefetchers(prefetchers), \
+                counting_jpeg_kinds(kinds.setdefault(tag, {})):
             nms, pgd, pgd16 = run_det_recipe(tag, argv, torch.bfloat16,
                                              updates, None, eval_images,
                                              stamps)
@@ -5467,6 +5532,11 @@ def data_recipe_runs(root, updates, host):
                      "epoch's first batch waits whole)")
         gc.collect()
         torch.cuda.empty_cache()
+    for tag, counts in kinds.items():
+        print(f"    {tag} decoded JPEGs by kind: {counts}")
+        if "voc07" in tag:
+            missing = [k for k in NEW_JPEG_KINDS if not counts.get(k)]
+            require(not missing, f"{tag} read no {missing} JPEG")
     return launches, ckpts
 
 

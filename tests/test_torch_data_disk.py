@@ -7,7 +7,9 @@ VOC 2012 segmentation (the committed VOC-sized JPEGs, palette labels with
 255 borders; ``train`` and, in a second tree, SBD's ``train_aug``), VOC
 2007 detection (wide and tall images, a difficult object in each test
 image, cats and dogs among the objects) with a VOC 2012 trainval, and COCO
-2017 (a crowd annotation in each split).
+2017 (a crowd annotation in each split). Among the VOC JPEGs are the
+committed arithmetic-coded (sequential and progressive) and lossless
+ones, as ``chip_smoke.voc_fixture`` places them.
 
 - The segmentation loaders (train over two epochs, val on the eval canvas
   and with ``crop_val``) and the detection loaders (``voc2007``,
@@ -45,7 +47,8 @@ from afan_torch.data import registry, seg_data
 from afan_torch.eval import det_map
 from afan_torch.utils import imread
 from afan_torch.utils.png import voc_color_map
-from chip_smoke import DATA_FIXTURES, copy_fixture, voc_xml, write_png
+from chip_smoke import DATA_FIXTURES, copy_fixture, voc_fixture, voc_xml, \
+    write_png
 from opencv_linear import assert_opencv_linear
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -74,7 +77,7 @@ def write_trees(root):
     for split, ids in (("train", ["a0", "a1", "a2"]), ("val", ["b0", "b1"])):
         for k, i in enumerate(ids):
             tall = k % 2 == 1
-            copy_fixture("voc_375x500.jpg" if tall else "voc_500x375.jpg",
+            copy_fixture(voc_fixture(k + 6 * (split == "val")),
                          str(voc12 / "JPEGImages" / f"{i}.jpg"))
             write_png(str(voc12 / "SegmentationClass" / f"{i}.png"),
                       lab.T if tall else lab, palette=voc_color_map())
@@ -92,7 +95,7 @@ def write_trees(root):
                 image_id = f"{year}_{k:04d}"
                 tall = j % 2 == 1
                 w, h = (375, 500) if tall else (500, 375)
-                copy_fixture("voc_375x500.jpg" if tall else "voc_500x375.jpg",
+                copy_fixture(voc_fixture(k),
                              str(voc / "JPEGImages" / f"{image_id}.jpg"))
                 objects = [(names[(k + m) % 4], False,
                             (11 + 50 * m, 21 + 30 * m, 190 + 40 * m,

@@ -28,9 +28,11 @@ Every case must equal PIL bit for bit: ``read_rgb(p)`` against
   bands, pending refinements), which libjpeg block-smooths, colour 4:2:0
   and gray, at 61x83 and 64x80, qualities 50 and 90.
 - What the reader refuses raises a ``ValueError`` naming the file:
-  arithmetic-coded, lossless and 12-bit JPEG, truncated files of both
-  kinds (a progressive one cut inside a scan among them), a broken
-  checksum, other formats.
+  12-bit, hierarchical (SOF5) and DNL (a height of 0) JPEG, truncated files
+  of both kinds (a progressive one cut inside a scan among them), a broken
+  checksum, other formats. Arithmetic-coded and lossless JPEG, which PIL
+  reads, are held to it in ``tests/test_torch_imread_arith.py``, with each
+  JPEG kind both refuse.
 """
 import hashlib
 import importlib.util
@@ -389,13 +391,15 @@ def test_what_the_reader_refuses_raises_naming_the_file(tmp_path):
     Image.fromarray(img).save(jpg, quality=90)
     data = jpg.read_bytes()
     sof = data.index(b"\xff\xc0")
-    for marker, what in [(0xC9, "arithmetic"), (0xC3, "lossless")]:
-        other = tmp_path / f"sof{marker:x}.jpg"
-        other.write_bytes(data[:sof + 1] + bytes([marker]) + data[sof + 2:])
-        refused(other, what)
+    hierarchical = tmp_path / "sof5.jpg"
+    hierarchical.write_bytes(data[:sof + 1] + b"\xc5" + data[sof + 2:])
+    refused(hierarchical, "hierarchical")
     twelve = tmp_path / "12bit.jpg"                   # the SOF's precision
     twelve.write_bytes(data[:sof + 4] + b"\x0c" + data[sof + 5:])
     refused(twelve, "12-bit")
+    dnl = tmp_path / "height0.jpg"                    # the SOF's height
+    dnl.write_bytes(data[:sof + 5] + b"\x00\x00" + data[sof + 7:])
+    refused(dnl, "height of 0")
     cut = tmp_path / "truncated.jpg"
     cut.write_bytes(data[:len(data) * 2 // 3])
     refused(cut, "truncated")
