@@ -1,0 +1,5 @@
+"""``launches_per_step.train`` in the detection cells, where it moves
+``train_imgs_per_s.det``."""
+from benchmark.lib import harness
+
+read = harness.metric_reader("launches_per_step.train")

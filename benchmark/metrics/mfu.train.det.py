@@ -1,0 +1,5 @@
+"""``mfu.train`` in the detection cells, where it moves
+``train_imgs_per_s.det``."""
+from benchmark.lib import harness
+
+read = harness.metric_reader("mfu.train")

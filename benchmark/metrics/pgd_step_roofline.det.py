@@ -1,0 +1,5 @@
+"""``pgd_step_roofline`` in the detection cells, where it moves
+``train_imgs_per_s.det``."""
+from benchmark.lib import harness
+
+read = harness.metric_reader("pgd_step_roofline")
